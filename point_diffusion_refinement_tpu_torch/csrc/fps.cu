@@ -1,25 +1,39 @@
-// Furthest point sampling that also emits the selected coordinates.
+// Furthest point sampling: indices only, or indices and the selected
+// coordinates.
 //
-// Replaces the TPU kernel ops/pallas_fps.py::_fps_kernel_coords (called by
-// furthest_point_sample_pallas_coords, pallas_fps.py:338).
+// Replaces two TPU kernels of ops/pallas_fps.py:
+//   * _fps_kernel_coords (furthest_point_sample_pallas_coords, :338), the
+//     SA level-0 sampler: entry pdr_fps_coords;
+//   * _fps_kernel and its opt-in layout twins _fps_kernel_stacked and
+//     _fps_kernel_folded (furthest_point_sample_pallas, :312; all three pick
+//     the same indices bit for bit), the sampler of mirror preprocessing,
+//     PVCNN and neighbour statistics: entry pdr_fps_idx.
 //
 // Semantics: idx[0] = 0; points with |p|^2 <= 1e-3 are padding and never
-// picked; each pick maximises the running minimum squared distance to the
-// picked set, ties going to the lowest index; coords are the exact float32
-// positions of the picks.
+// picked (an all-padding row yields index 0 throughout); each pick maximises
+// the running minimum squared distance to the picked set, ties going to the
+// lowest index; coords are the exact float32 positions of the picks.
 //
-// What bounds it on this card: neither bytes (a few hundred KB) nor
-// operations (~10 per point per pick) but latency: the npoint picks form a
-// chain in which every step needs the argmax of the one before.
+// What bounds it on this card: neither bytes (a few hundred KB to a few MB)
+// nor operations (~10 per point per pick) but latency: the npoint picks form
+// a chain in which every step needs the argmax of the one before.
 //
 // Design: one block of 1024 threads per batch row.  The row's points
-// (x, y, z planes) and its running minimum distance live in shared memory
-// (16 bytes a point: 48 KB at N = 3072); padding points start at -1 so a
-// min with a distance >= 0 keeps them out for good.  Each pick is a strided
+// (x, y, z planes) and its running minimum distance are kept as four float
+// planes (16 bytes a point); padding points start at -1 so a min with a
+// distance >= 0 keeps them out for good.  Each pick is a strided
 // update-and-argmax over the row, a warp-shuffle argmax with a lowest-index
-// tie-break, then the same across warps.  Thread 0 writes idx and the
-// coordinates of the pick, which every thread reads back from shared
-// memory for the next step.
+// tie-break, then the same across warps.  Thread 0 writes idx (and the
+// coordinates of the pick); every thread reads the pick's position back for
+// the next step.
+//
+// Where the planes live: in shared memory while a row fits a block's 227 KB
+// (N <= 12288 is the wrapper's limit, 192 KB); beyond that, up to
+// N = 2^18, in a global-memory workspace of (B, 4, N) floats that the
+// wrapper allocates.  A row of 2^18 points is 4 MB and stays in the 50 MB
+// L2, so the large-N path pays L2 latency per pick instead of shared-memory
+// latency.  A thread-block cluster sharing its distributed shared memory
+// would keep a large row on chip; that is a later optimisation.
 #include "common.cuh"
 
 namespace {
@@ -34,22 +48,26 @@ __device__ __forceinline__ void argmax_step(float& v, int& i, float ov, int oi) 
   }
 }
 
+// kCoords: also write the picked coordinates.  kGlobal: the four planes live
+// in `work` (B, 4, N) instead of dynamic shared memory.
+template <bool kCoords, bool kGlobal>
 __global__ void __launch_bounds__(kThreads)
-fps_coords_kernel(const float* __restrict__ xyz, int N, int npoint,
-                  int* __restrict__ idx, float* __restrict__ coords) {
+fps_kernel(const float* __restrict__ xyz, int N, int npoint,
+           int* __restrict__ idx, float* __restrict__ coords,
+           float* __restrict__ work) {
   extern __shared__ float smem[];
-  float* sx = smem;
-  float* sy = sx + N;
-  float* sz = sy + N;
-  float* mind = sz + N;
   __shared__ float red_val[32];
   __shared__ int red_idx[32];
   __shared__ int s_pick;
 
   const int b = blockIdx.x;
+  float* sx = kGlobal ? work + static_cast<size_t>(b) * 4 * N : smem;
+  float* sy = sx + N;
+  float* sz = sy + N;
+  float* mind = sz + N;
   const float* p = xyz + static_cast<size_t>(b) * N * 3;
   int* out_idx = idx + static_cast<size_t>(b) * npoint;
-  float* out_co = coords + static_cast<size_t>(b) * npoint * 3;
+  float* out_co = kCoords ? coords + static_cast<size_t>(b) * npoint * 3 : nullptr;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -64,12 +82,14 @@ fps_coords_kernel(const float* __restrict__ xyz, int N, int npoint,
                                __fmul_rn(z, z));
     mind[i] = n2 > kPadNormSq ? 1e10f : -1.0f;
   }
-  __syncthreads();
+  __syncthreads();  // orders the global-workspace writes for the block too
   if (tid == 0) {
     out_idx[0] = 0;
-    out_co[0] = sx[0];
-    out_co[1] = sy[0];
-    out_co[2] = sz[0];
+    if constexpr (kCoords) {
+      out_co[0] = sx[0];
+      out_co[1] = sy[0];
+      out_co[2] = sz[0];
+    }
   }
   int old = 0;
   for (int j = 1; j < npoint; ++j) {
@@ -106,9 +126,11 @@ fps_coords_kernel(const float* __restrict__ xyz, int N, int npoint,
       if (lane == 0) {
         s_pick = besti;
         out_idx[j] = besti;
-        out_co[3 * j] = sx[besti];
-        out_co[3 * j + 1] = sy[besti];
-        out_co[3 * j + 2] = sz[besti];
+        if constexpr (kCoords) {
+          out_co[3 * j] = sx[besti];
+          out_co[3 * j + 1] = sy[besti];
+          out_co[3 * j + 2] = sz[besti];
+        }
       }
     }
     __syncthreads();
@@ -116,17 +138,39 @@ fps_coords_kernel(const float* __restrict__ xyz, int N, int npoint,
   }
 }
 
+// work == nullptr: the planes go to dynamic shared memory (N * 16 bytes).
+template <bool kCoords>
+int launch_fps(const void* xyz, int B, int N, int npoint, void* idx,
+               void* coords, void* work, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  const auto* x = static_cast<const float*>(xyz);
+  auto* i = static_cast<int*>(idx);
+  auto* c = static_cast<float*>(coords);
+  if (work != nullptr) {
+    fps_kernel<kCoords, true><<<B, kThreads, 0, s>>>(
+        x, N, npoint, i, c, static_cast<float*>(work));
+  } else {
+    void (*kern)(const float*, int, int, int*, float*, float*) =
+        fps_kernel<kCoords, false>;
+    const size_t smem = static_cast<size_t>(N) * 4 * sizeof(float);
+    cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(smem));
+    kern<<<B, kThreads, smem, s>>>(x, N, npoint, i, c, nullptr);
+  }
+  PDR_RETURN_LAUNCH_ERROR();
+}
+
 }  // namespace
 
-// xyz (B, N, 3) f32 -> idx (B, npoint) i32, coords (B, npoint, 3) f32.
+// xyz (B, N, 3) f32 -> idx (B, npoint) i32, coords (B, npoint, 3) f32;
+// work is nullptr or a (B, 4, N) f32 scratch for rows beyond shared memory.
 extern "C" int pdr_fps_coords(const void* xyz, int B, int N, int npoint,
-                              void* idx, void* coords, void* stream) {
-  const size_t smem = static_cast<size_t>(N) * 4 * sizeof(float);
-  cudaFuncSetAttribute(fps_coords_kernel,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       static_cast<int>(smem));
-  fps_coords_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(xyz), N, npoint, static_cast<int*>(idx),
-      static_cast<float*>(coords));
-  PDR_RETURN_LAUNCH_ERROR();
+                              void* idx, void* coords, void* work, void* stream) {
+  return launch_fps<true>(xyz, B, N, npoint, idx, coords, work, stream);
+}
+
+// xyz (B, N, 3) f32 -> idx (B, npoint) i32; work as for pdr_fps_coords.
+extern "C" int pdr_fps_idx(const void* xyz, int B, int N, int npoint,
+                           void* idx, void* work, void* stream) {
+  return launch_fps<false>(xyz, B, N, npoint, idx, nullptr, work, stream);
 }

@@ -4,6 +4,7 @@ from .condition_net import CondFeatures, PointNet2CloudCondition
 from .grouping import group_all, group_knn_features, query_and_group
 from .modules import FeaturePropagation, FeatureTransfer, KnnFeaturePropagation, SetAbstraction
 from .pnet import Pnet2Stage
+from .upsample import point_upsample
 
 __all__ = [
     "AttentionPool",
@@ -20,6 +21,7 @@ __all__ = [
     "SharedMLP",
     "group_all",
     "group_knn_features",
+    "point_upsample",
     "pool_features",
     "query_and_group",
     "swish",

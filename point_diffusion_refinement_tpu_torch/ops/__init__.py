@@ -14,6 +14,7 @@ from .sampling import (
     furthest_point_sample,
     furthest_point_sample_and_gather,
     furthest_point_sample_and_gather_plain,
+    furthest_point_sample_plain,
     gather_points,
     group_points,
 )
@@ -27,6 +28,7 @@ __all__ = [
     "furthest_point_sample",
     "furthest_point_sample_and_gather",
     "furthest_point_sample_and_gather_plain",
+    "furthest_point_sample_plain",
     "gather_points",
     "group_points",
     "inverse_distance_weights",

@@ -1,12 +1,14 @@
 """Build, load, launch and count the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface, at first use, into
+Each ``csrc/<source>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its
+own shared library with a plain C interface, at first use, into
 ``<repo>/build/kernels/`` (listed in ``.gitignore``) under a name keyed by a
 hash of the sources and flags, so a clean checkout builds them and a changed
-source rebuilds.  The libraries are bound with ``ctypes``: every pointer and
-the stream are ``c_void_p``, the stream is PyTorch's current one, and each C
-entry returns ``cudaGetLastError()``, which the launch checks.
+source rebuilds.  A source may hold several kernels (``fps.cu`` has the
+idx-only and the coordinates entry); each kernel has its own launch count.
+The libraries are bound with ``ctypes``: every pointer and the stream are
+``c_void_p``, the stream is PyTorch's current one, and each C entry returns
+``cudaGetLastError()``, which the launch checks.
 
 ``-fmad=false`` keeps nvcc from contracting ``a*b + c`` into FMAs: the JAX
 reference computes squared distances with separately rounded multiplies and
@@ -45,7 +47,8 @@ _F = ctypes.c_float
 
 # kernel name -> (source, C entry, argtypes); the last argument is the stream
 KERNELS = {
-    "fps": ("fps.cu", "pdr_fps_coords", [_P, _I, _I, _I, _P, _P, _P]),
+    "fps": ("fps.cu", "pdr_fps_coords", [_P, _I, _I, _I, _P, _P, _P, _P]),
+    "fps_idx": ("fps.cu", "pdr_fps_idx", [_P, _I, _I, _I, _P, _P, _P]),
     "ball_query": (
         "ball_query.cu", "pdr_ball_query", [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     ),
@@ -57,7 +60,7 @@ KERNELS = {
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[str, ctypes.CDLL] = {}  # by source
 _PLAIN_DEPTH = 0
 
 
@@ -131,41 +134,41 @@ def _nvcc() -> str:
     return found
 
 
-def _library_path(name: str) -> Path:
-    src = CSRC / KERNELS[name][0]
+def _library_path(source: str) -> Path:
     h = hashlib.sha256()
-    for part in (src, CSRC / "common.cuh"):
+    for part in (CSRC / source, CSRC / "common.cuh"):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
-    """Compile the named kernels (all by default) that are not built yet,
-    one ``nvcc`` per source, all started together.  Returns the seconds
-    each build took (0.0 for a library already on disk); raises with
-    nvcc's output when a build fails."""
-    names = list(KERNELS if names is None else names)
+    """Compile the sources of the named kernels (all by default) that are
+    not built yet, one ``nvcc`` per source, all started together.  Returns
+    the seconds each source's build took, keyed by its stem (0.0 for a
+    library already on disk); raises with nvcc's output when a build
+    fails."""
+    sources = sorted({KERNELS[name][0] for name in (KERNELS if names is None else names)})
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     took = {}
-    for name in names:
-        out = _library_path(name)
+    for source in sources:
+        stem = Path(source).stem
+        out = _library_path(source)
         if out.exists():
-            took[name] = 0.0
+            took[stem] = 0.0
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / KERNELS[name][0])]
-        procs[name] = (subprocess.Popen(
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(CSRC / source)]
+        procs[stem] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out, time.perf_counter())
     errors = []
-    for name, (proc, tmp, out, t0) in procs.items():
+    for stem, (proc, tmp, out, t0) in procs.items():
         log, _ = proc.communicate()
-        took[name] = time.perf_counter() - t0
+        took[stem] = time.perf_counter() - t0
         if proc.returncode != 0:
-            errors.append(f"nvcc failed for {name} (exit {proc.returncode}):\n{log}")
+            errors.append(f"nvcc failed for {stem} (exit {proc.returncode}):\n{log}")
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)
@@ -174,24 +177,29 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
     return took
 
 
-def _load(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
+def _entry(name: str):
+    """Kernel ``name``'s C entry, building and loading its source's library
+    at first use."""
+    source, symbol, _ = KERNELS[name]
+    lib = _LIBS.get(source)
     if lib is None:
-        path = _library_path(name)
+        path = _library_path(source)
         if not path.exists():
             build([name])
         lib = ctypes.CDLL(str(path))
-        entry = getattr(lib, KERNELS[name][1])
-        entry.argtypes = KERNELS[name][2]
-        entry.restype = ctypes.c_int
-        _LIBS[name] = lib
-    return lib
+        for src, sym, argtypes in KERNELS.values():
+            if src == source:
+                entry = getattr(lib, sym)
+                entry.argtypes = argtypes
+                entry.restype = ctypes.c_int
+        _LIBS[source] = lib
+    return getattr(lib, symbol)
 
 
 def launch(name: str, *args) -> None:
     """Call kernel ``name``'s C entry with ``args`` on the current stream,
     raise on a CUDA error, and count the launch."""
-    entry = getattr(_load(name), KERNELS[name][1])
+    entry = _entry(name)
     stream = torch.cuda.current_stream().cuda_stream
     rc = entry(*args, stream)
     if rc != 0:

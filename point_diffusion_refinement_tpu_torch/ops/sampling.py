@@ -1,11 +1,12 @@
 """Furthest point sampling and index gathers.
 
-Counterpart of the JAX package's ``ops/sampling.py``.
-``furthest_point_sample_and_gather`` launches the CUDA kernel
-``csrc/fps.cu`` on GPU tensors; its plain PyTorch version runs for CPU
-tensors and is the reference the kernel is held against.  Gathers are plain
-indexed loads (the TPU's one-hot matmul gathers and their hi/lo bf16 splits
-stay behind).
+Counterpart of the JAX package's ``ops/sampling.py``.  On GPU tensors
+``furthest_point_sample`` launches the idx-only kernel and
+``furthest_point_sample_and_gather`` the kernel that also emits the picked
+coordinates, both in ``csrc/fps.cu``; their plain PyTorch version
+(``furthest_point_sample_plain``) runs for CPU tensors and is the reference
+the kernels are held against.  Gathers are plain indexed loads (the TPU's
+one-hot matmul gathers and their hi/lo bf16 splits stay behind).
 
 Quirks reproduced exactly:
   * the first selected index is always 0;
@@ -24,8 +25,11 @@ from . import kernels
 
 PAD_NORM_SQ = 1e-3
 # the kernel keeps x, y, z and the running min distance of a row in shared
-# memory: 16 bytes a point within the 227 KB a block may use
-FPS_MAX_POINTS = 12288
+# memory up to this many points (16 bytes a point within the 227 KB a block
+# may use), and in a global-memory workspace beyond it
+FPS_SMEM_MAX_POINTS = 12288
+# the largest row the JAX package's TPU dispatcher serves
+FPS_MAX_POINTS = 2 ** 18
 
 
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -74,6 +78,27 @@ def furthest_point_sample_and_gather_plain(
     return idx, gather_points(xyz.to(torch.float32), idx)
 
 
+def _fps_launch(xyz: torch.Tensor, npoint: int, coords: bool):
+    """Launch ``fps`` (with coordinates) or ``fps_idx`` on a CUDA tensor."""
+    xyz = kernels.as_f32(xyz)
+    B, N, _ = xyz.shape
+    kernels.check(xyz, "fps xyz", torch.float32, (None, None, 3))
+    if N > FPS_MAX_POINTS:
+        raise ValueError(f"fps kernel takes at most {FPS_MAX_POINTS} points, got {N}")
+    work = None
+    if N > FPS_SMEM_MAX_POINTS:
+        work = torch.empty((B, 4, N), dtype=torch.float32, device=xyz.device)
+    work_ptr = 0 if work is None else work.data_ptr()
+    idx = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+    if not coords:
+        kernels.launch("fps_idx", xyz.data_ptr(), B, N, npoint, idx.data_ptr(), work_ptr)
+        return idx, None
+    co = torch.empty((B, npoint, 3), dtype=torch.float32, device=xyz.device)
+    kernels.launch("fps", xyz.data_ptr(), B, N, npoint, idx.data_ptr(), co.data_ptr(),
+                   work_ptr)
+    return idx, co
+
+
 def furthest_point_sample_and_gather(
     xyz: torch.Tensor, npoint: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,17 +106,12 @@ def furthest_point_sample_and_gather(
     (idx (B, npoint) int32, new_xyz (B, npoint, 3) float32, bit-exact)."""
     if kernels.use_plain(xyz):
         return furthest_point_sample_and_gather_plain(xyz, npoint)
-    xyz = kernels.as_f32(xyz)
-    B, N, _ = xyz.shape
-    kernels.check(xyz, "fps xyz", torch.float32, (None, None, 3))
-    if N > FPS_MAX_POINTS:
-        raise ValueError(f"fps kernel takes at most {FPS_MAX_POINTS} points, got {N}")
-    idx = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
-    coords = torch.empty((B, npoint, 3), dtype=torch.float32, device=xyz.device)
-    kernels.launch("fps", xyz.data_ptr(), B, N, npoint, idx.data_ptr(), coords.data_ptr())
-    return idx, coords
+    return _fps_launch(xyz, npoint, coords=True)
 
 
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """FPS indices (B, npoint) int32."""
-    return furthest_point_sample_and_gather(xyz, npoint)[0]
+    """FPS indices (B, npoint) int32, from the idx-only kernel on GPU
+    tensors (N up to 2^18)."""
+    if kernels.use_plain(xyz):
+        return furthest_point_sample_plain(xyz, npoint)
+    return _fps_launch(xyz, npoint, coords=False)[0]

@@ -1,3 +1,4 @@
-from .generate import make_coarse_sampler, unaugment
+from .evaluate import EvalResult, evaluate
+from .generate import make_coarse_sampler, make_refiner, unaugment
 
-__all__ = ["make_coarse_sampler", "unaugment"]
+__all__ = ["EvalResult", "evaluate", "make_coarse_sampler", "make_refiner", "unaugment"]

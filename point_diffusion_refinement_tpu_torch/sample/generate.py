@@ -1,47 +1,102 @@
-"""Coarse-cloud generation: condition-encode once, run the reverse process.
+"""Coarse-cloud generation and one-forward refinement.
 
-Counterpart of the JAX package's ``sample/generate.py`` (the ancestral path of
-``make_coarse_sampler``, and ``unaugment``).
+Counterpart of the JAX package's ``sample/generate.py``:
+``make_coarse_sampler`` (ancestral DDPM with t-slices and the warm start,
+or FastDPM over a precomputed plan), ``make_refiner`` and ``unaugment``.
+The JAX sampler's ``segment_size`` and ``mesh`` options (long device
+programs on a TPU, multi-chip sharding) have no counterpart here.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
-from ..diffusion import ddpm
+from ..diffusion import ddpm, fastdpm
 from ..diffusion.schedule import DiffusionSchedule
+from ..models.upsample import point_upsample
 
 
-def make_coarse_sampler(model, schedule: DiffusionSchedule, num_points: int):
+def make_coarse_sampler(
+    model,
+    schedule: DiffusionSchedule,
+    num_points: int,
+    *,
+    fast_plan: Optional[fastdpm.FastSamplingPlan] = None,
+    t_slices: Optional[Sequence[int]] = None,
+    warm_start_step: Optional[int] = None,
+):
     """Build a sampler for ``model`` (a PointNet2CloudCondition).
 
-    Returns fn(condition, label, generator=None, x_T=None, noise=None) ->
-    x0 (B, num_points, 3) float32 on the model's device.  The condition
-    branch runs once; every reverse step runs ``denoise`` with the fused
-    kernel routing of inference.
+    Returns fn(condition, label, generator=None, x_T=None, noise=None,
+    XT=None) -> x0 (B, num_points, 3) float32 on the model's device, or
+    (x0, {t: slice}) with ``t_slices``.  The condition branch runs once;
+    every reverse step runs ``denoise`` with the fused kernel routing of
+    inference.  With ``fast_plan`` the reverse process is FastDPM's
+    (``t_slices`` and the warm start are not read); otherwise it is
+    ancestral, warm-started from ``XT`` at ``warm_start_step`` when ``XT``
+    is given.
     """
 
     def sampler(condition: torch.Tensor, label: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
                 x_T: Optional[torch.Tensor] = None,
-                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                noise: Optional[torch.Tensor] = None,
+                XT: Optional[torch.Tensor] = None):
         device = next(model.parameters()).device
         condition = condition.to(device=device, dtype=torch.float32)
         label = label.to(device)
+        shape = (condition.shape[0], num_points, 3)
         with torch.no_grad():
             cond = model.encode_condition(condition)
 
             def denoise_fn(x, ts):
                 return model.denoise(x, ts, label, cond, fused=True)
 
+            if fast_plan is not None:
+                return fastdpm.fast_sampling(
+                    denoise_fn, shape, fast_plan, device=device, generator=generator,
+                    x_T=x_T, noise=noise,
+                )
             return ddpm.sampling(
-                denoise_fn, (condition.shape[0], num_points, 3), schedule,
-                device=device, generator=generator, x_T=x_T, noise=noise,
+                denoise_fn, shape, schedule, device=device, generator=generator,
+                x_T=x_T, noise=noise, t_slices=t_slices, XT=XT,
+                warm_start_step=warm_start_step if XT is not None else None,
             )
 
     return sampler
+
+
+def make_refiner(model, point_upsample_factor: int = 1,
+                 include_displacement_center: bool = False):
+    """One-forward refinement with ``model`` (a PointNet2CloudCondition
+    built with ``include_t=False``).
+
+    Returns fn(coarse (B, N, 3), condition, label, output_scale_factor) ->
+    refined (B, N * point_upsample_factor, 3) float32: one unfused
+    ``forward`` gives the displacement, which ``point_upsample`` spreads
+    into the upsampled cloud, or which is added as
+    ``coarse + displacement * output_scale_factor`` when the factor is 1.
+    """
+
+    def refine(coarse: torch.Tensor, condition: torch.Tensor, label: torch.Tensor,
+               output_scale_factor: float) -> torch.Tensor:
+        device = next(model.parameters()).device
+        coarse = coarse.to(device=device, dtype=torch.float32)
+        condition = condition.to(device=device, dtype=torch.float32)
+        with torch.no_grad():
+            displacement = model(coarse, condition, None, label.to(device))
+            if point_upsample_factor > 1:
+                refined, _ = point_upsample(
+                    coarse, displacement, point_upsample_factor,
+                    include_displacement_center, output_scale_factor,
+                )
+            else:
+                refined = coarse + displacement * output_scale_factor
+        return refined
+
+    return refine
 
 
 def unaugment(x: torch.Tensor, M_inv: torch.Tensor, translation: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
 from .device import resolve_device
+from .meters import AverageMeter
 from .weights import (
     flax_to_state_dict,
     load_flax_params,
@@ -6,6 +7,7 @@ from .weights import (
 )
 
 __all__ = [
+    "AverageMeter",
     "flax_to_state_dict",
     "load_flax_params",
     "resolve_device",

@@ -6,7 +6,9 @@ own modules: every submodule of the port carries its Flax scope name
 is the Flax parameter path joined by dots.  Dense kernels are stored (in,
 out) by Flax and (out, in) by the port, so they are transposed and renamed
 ``kernel`` -> ``weight``; GroupNorm ``scale``/``bias``, Dense ``bias`` and
-``embedding`` tables copy over unchanged.
+``embedding`` tables copy over unchanged.  The conversion follows the tree,
+so the refine net (``include_t=False``: no ``fc_t1``/``fc_t2``, a
+``head_out`` of 3*(F+1) or 3*F outputs) carries across like the denoiser.
 
 The input is the parameter tree as nested mappings of numpy arrays (for
 example ``jax.tree_util.tree_map(np.asarray, variables)``); nothing here

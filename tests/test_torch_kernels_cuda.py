@@ -65,6 +65,32 @@ def test_fps_with_coordinates(dev, n):
     assert (i[:, 1:] < n - 40).all()
 
 
+def _mirrored(rng, B, n):
+    """Mirror-preprocessing input: partials with some z = 0 points (their
+    mirror images are exact duplicates), zero padding rows, and one
+    all-padding cloud."""
+    p = rng.uniform(-0.5, 0.5, (B, n, 3)).astype(np.float32)
+    p[:, : n // 8, 2] = 0.0
+    p[:, n - n // 16:] = 0.0
+    p[-1] = 0.0
+    return torch.from_numpy(np.concatenate([p, p * np.float32([1, 1, -1])], axis=1))
+
+
+@pytest.mark.parametrize("B,n,npoint", [(64, 2048, 3072), (64, 2048, 2048), (2, 8192, 2048)])
+def test_fps_idx(dev, B, n, npoint):
+    """Idx-only FPS at the preprocessing shapes (2n = 4096 points, shared
+    memory) and beyond shared memory (2n = 16384, the global-memory path);
+    the coordinates entry takes the same path at that N."""
+    x = _mirrored(np.random.default_rng(4), B, n).to(dev)
+    i = ops.furthest_point_sample(x, npoint)
+    ri = ops.furthest_point_sample_plain(x, npoint)
+    assert torch.equal(i, ri)
+    assert (i[-1] == 0).all()  # all-padding cloud
+    if 2 * n > 12288:
+        ci, co = ops.furthest_point_sample_and_gather(x, npoint)
+        assert torch.equal(ci, ri) and torch.equal(co, ops.gather_points(x, ri))
+
+
 @pytest.mark.parametrize("mode", ["center_zero", "row0"])
 def test_ball_group(dev, mode):
     rng = np.random.default_rng(3)
@@ -85,7 +111,10 @@ def test_launch_counts(dev):
     ops.ball_query(x, x, 0.2, 8)
     ops.knn(x, x, 4)
     ops.furthest_point_sample_and_gather(x, 8)
+    ops.furthest_point_sample(x, 8)
     ops.ball_group(x, [x, x], x, 0.2, 8)
     with ops.plain_ops():  # reference runs on the card are not launches
         ops.ball_query(x, x, 0.2, 8)
-    assert ops.launch_counts() == {"fps": 1, "ball_query": 1, "knn": 1, "ball_group": 1}
+        ops.furthest_point_sample(x, 8)
+    assert ops.launch_counts() == {"fps": 1, "fps_idx": 1, "ball_query": 1, "knn": 1,
+                                   "ball_group": 1}

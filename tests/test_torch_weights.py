@@ -103,7 +103,8 @@ def _imports(path):
 class TestPackageRules:
     def test_no_jax_imports(self):
         files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-        assert len(files) > 15
+        assert len(files) > 30  # the whole package, every slice's modules
+        assert PORT / "data" / "mirror.py" in files and PORT / "ops" / "emd.py" in files
         bad = [(str(f.relative_to(ROOT)), m) for f in files for m in _imports(f)
                if FORBIDDEN.match(m)]
         assert bad == []
