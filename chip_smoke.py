@@ -41,9 +41,33 @@
    one forward.
 9. Evaluation cost: ``calc_cd`` at (32, 16384) against (32, 16384) and
    ``earth_mover_distance`` at (32, 2048) against (32, 2048).
-10. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
-   (launches from the pipeline run of phase 7), and last
-   ``{"ok": true, "device": {...}}``.
+10. Training kernels against their plain versions: the fused ball query +
+   gather (``ball_query_group``) at the level-0 feature-transfer shape and
+   at a deep level with a wide table (idx and counts equal, gathered rows
+   equal), the idx output of the fused ball group against the ball-query
+   kernel, the scatter-add (``group_scatter_add``) against ``index_add_`` at
+   the level-0 cotangent shape in float32 and bfloat16, and the three
+   gradients of ``ball_group_train`` against autograd through the plain
+   version in both empty-ball modes.
+11. DDPM training at full width through ``train/loop.py::train``:
+   ``DEFAULT_POINTNET_CONFIG`` in bfloat16, seeded weights, synthetic
+   2048-point clouds with mirrored 3072 x 4 conditions, the largest power of
+   two batch up to 32 that fits (printed with the peak memory), both fused
+   training routes on, launch counts reset just before and read just after;
+   fails unless every kernel of the path was launched, the losses are
+   finite and every parameter got a finite gradient and moved.  Then the
+   same steps with both routes off, step ms and samples/s of both routes,
+   the relative difference of the first-step loss and of the gradients
+   between the routes, one step through the kernels against one under
+   ``plain_ops()``, and a profile of one training step.
+12. Refine training: the ``upsample_16384`` net, task ``refine_completion``,
+   x8 upsampling, cd_t with the intermediate loss on and the output-scale
+   schedule ticking, in-loop eval, the same checks; a run stopped at a
+   checkpoint and resumed is held against the uninterrupted one.
+13. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
+   (``launches``: the sum over the three driven paths, the pipeline of phase
+   7 and the two training runs, each counted from zero; ``launches_by_path``
+   splits it), and last ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and convolutions throughout, so the float32 parts
 of the model and of the plain versions run in full float32.  Exits non-zero
@@ -53,8 +77,10 @@ on any failure, without a result line; needs one card.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -66,9 +92,29 @@ FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 # the same way by both versions: they must agree exactly like the features
 DENOISE_REL_TOL = 1e-2  # kernels vs plain versions, one bf16 denoise step
 KNN_DIST_TOL = 0.0  # both compute the same separately rounded float32 sums
-STEPS = 20  # reverse steps of the main-path run: enough for a steady step time
+STEPS = 10  # reverse steps of the main-path run: enough for a steady step time
 REFINE_REL_TOL = 1e-2  # kernels vs plain versions, one bf16 refine forward
 FAST_STEPS = 50  # FastDPM length of the refine_fast50 experiment
+# float32 sums of the same terms in another order (atomics; index_add_)
+SCATTER_REL_TOL = 1e-5
+TRAIN_BATCH = 32  # the JAX package's training benchmark batch
+TRAIN_STEPS = 4  # steps of each training run
+TIMED_STEPS = 3  # steps of each timed block (routes on, off, off, on)
+# One bf16 training step, fused routes against unfused.  The forward values
+# are the same (the first Dense rounds the unfused float32 group to bf16 as
+# the fused group already is); the backward differs: the fused routes sum
+# cotangents in float32, PyTorch's index backward sums them in the table's
+# bf16, and bf16 roundings downstream amplify either.
+ROUTE_LOSS_REL_TOL = 1e-2
+ROUTE_GRAD_NORM_REL_TOL = 2e-2
+ROUTE_GRAD_WORST_REL_TOL = 0.25
+# kernels against plain versions, one training step: same forward values,
+# float32 sums in another order in the backward, amplified by bf16 roundings
+TRAIN_PLAIN_LOSS_REL_TOL = 1e-3
+TRAIN_PLAIN_GRAD_REL_TOL = 1e-2
+# a resumed run against the uninterrupted one: same state, same draws, but
+# the atomics of the backward land in another order
+RESUME_REL_TOL = 1e-2
 
 TPU_KERNELS = {
     "fps_coords": "point_diffusion_refinement_tpu/ops/pallas_fps.py:197",
@@ -76,18 +122,30 @@ TPU_KERNELS = {
     "ball_group": "point_diffusion_refinement_tpu/ops/pallas_window.py:853",
     "ball_query": "point_diffusion_refinement_tpu/ops/pallas_neighbors.py:88",
     "knn": "point_diffusion_refinement_tpu/ops/pallas_neighbors.py:169",
+    "ball_query_group": "point_diffusion_refinement_tpu/ops/pallas_neighbors.py:287",
+    # no Pallas kernel: the JAX backwards are one-hot einsums at these lines
+    "group_scatter_add": "point_diffusion_refinement_tpu/models/grouping.py:51",
 }
 LAUNCH_NAMES = {"fps_coords": "fps", "fps_idx": "fps_idx", "ball_group": "ball_group",
-                "ball_query": "ball_query", "knn": "knn"}
+                "ball_query": "ball_query", "knn": "knn",
+                "ball_query_group": "ball_query_group",
+                "group_scatter_add": "group_scatter_add"}
+# the kernels of a training step with both fused routes on (the fused
+# gather supersedes the ball-query kernel there)
+TRAIN_PATH_KERNELS = ("ball_query_group", "group_scatter_add", "ball_group", "fps", "knn")
 # the kernels of ancestral coarse generation (phase 3); fps_idx serves
 # mirror preprocessing
 COARSE_PATH_KERNELS = ("fps", "ball_group", "ball_query", "knn")
+# the kernels of the two-stage serving pipeline (phase 7)
+PIPELINE_PATH_KERNELS = ("fps", "fps_idx", "ball_group", "ball_query", "knn")
 SOURCES = {
     "fps_coords": "point_diffusion_refinement_tpu_torch/csrc/fps.cu",
     "fps_idx": "point_diffusion_refinement_tpu_torch/csrc/fps.cu",
     "ball_group": "point_diffusion_refinement_tpu_torch/csrc/ball_group.cu",
     "ball_query": "point_diffusion_refinement_tpu_torch/csrc/ball_query.cu",
     "knn": "point_diffusion_refinement_tpu_torch/csrc/knn.cu",
+    "ball_query_group": "point_diffusion_refinement_tpu_torch/csrc/ball_query_group.cu",
+    "group_scatter_add": "point_diffusion_refinement_tpu_torch/csrc/group_scatter.cu",
 }
 
 
@@ -280,18 +338,21 @@ def check_fps_idx(dev, rng):
 
 
 def print_row(r) -> None:
-    print(f"kernel {r['name']:<11} {r['shape']:<42} max_abs_err={r['max_abs_err']:.3g} "
+    print(f"kernel {r['name']:<17} {r['shape']:<42} max_abs_err={r['max_abs_err']:.3g} "
           f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
           f"({r['bound_by']}) library_ms={r['library_ms']}", flush=True)
 
 
-def profile_window(what: str, fn, steps: int = 3) -> None:
+def profile_window(what: str, fn, steps: int = 3, grad: bool = False,
+                   table: bool = True) -> None:
     """Device time by op and the device-busy share of a window of ``steps``
-    calls of ``fn`` (one stream, so kernel times do not overlap)."""
+    calls of ``fn`` (one stream, so kernel times do not overlap); ``grad``
+    keeps autograd on, for a training step; ``table=False`` prints the
+    summary line only."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch.no_grad(), profile(activities=acts) as prof:
+    with torch.set_grad_enabled(grad), profile(activities=acts) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
@@ -301,11 +362,11 @@ def profile_window(what: str, fn, steps: int = 3) -> None:
     avgs = prof.key_averages()
     dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in avgs
                  if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA)
-    table = avgs.table(sort_by="self_device_time_total", row_limit=25)
     busy = dev_us / 1e3 / wall_ms
     print(f"profile: {steps} {what}, wall_ms={wall_ms:.2f} (profiled) "
           f"device_ms={dev_us / 1e3:.2f} device_busy={busy:.3f}", flush=True)
-    print(table, flush=True)
+    if table:
+        print(avgs.table(sort_by="self_device_time_total", row_limit=25), flush=True)
 
 
 def preprocess(rng) -> None:
@@ -415,8 +476,8 @@ def pipeline(model, rng, dev):
         raise AssertionError("pipeline output is not a finite (4, 16384, 3) cloud")
     if not all(np.isfinite(res.metrics[k]).all() for k in ("cd_p", "cd_distance", "f1")):
         raise AssertionError("pipeline metrics are not finite")
-    for name, n in counts.items():
-        if n <= 0:
+    for name in PIPELINE_PATH_KERNELS:
+        if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched in the pipeline run")
     del refiner_model
     return counts
@@ -471,6 +532,427 @@ def evaluation_cost(rng, dev) -> None:
           f"cd_t_mean={float(cd[1].mean()):.6g} emd_mean={float(e.mean()):.6g}", flush=True)
     if not finite:
         raise AssertionError("evaluation metrics are not finite")
+
+
+def check_training_kernels(dev, rng):
+    """Phase 10: the kernels of the training routes against their plain
+    versions, at the shapes of a training step (B = 4)."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.ops import kernels
+
+    B, K = 4, 32
+    x_t = torch.from_numpy(rng.standard_normal((B, 2048, 3)).astype(np.float32)).to(dev)
+    cond = torch.from_numpy(rng.uniform(-0.5, 0.5, (B, 3072, 3)).astype(np.float32)).to(dev)
+    rows = []
+
+    # -- #8 at feature-transfer level 0 (support 3072, 2048 centres, table
+    #    [xyz, 32 features]) and at a deep level (support 64, 16 centres, a
+    #    wide table): idx, counts and gathered rows equal
+    deep_sup = cond[:, :64].contiguous() * 2.0
+    deep_q = deep_sup[:, :16] + 0.01
+    deep_q[:, ::5] += 9.0  # empty balls
+    cases = [("ft0", cond, x_t, torch.randn(B, 3072, 35, device=dev), 0.1),
+             ("deep", deep_sup, deep_q, torch.randn(B, 64, 3 + 512, device=dev), 1.6)]
+    seen_empty = seen_full = False
+    for tag, sup, q, table, r in cases:
+        g, i, n = ops.ball_query_group(sup, q, table, r, K)
+        rg, ri, rn = ops.ball_query_group_plain(sup, q, table, r, K)
+        qi, qn = ops.ball_query(sup, q, r, K)
+        torch.cuda.synchronize()
+        if not (torch.equal(i, ri) and torch.equal(n, rn) and torch.equal(i, qi)
+                and torch.equal(n, qn)):
+            raise AssertionError(f"ball_query_group {tag}: idx or counts differ")
+        err = float((g - rg).abs().max())
+        if err != 0.0:
+            raise AssertionError(f"ball_query_group {tag}: gathered rows differ by {err}")
+        seen_empty |= bool((n == 0).any())
+        seen_full |= bool((n == K).any())
+    if not (seen_empty and seen_full):
+        raise AssertionError("ball_query_group: the cases hold no empty or no overfull ball")
+    tag, sup, q, table, r = cases[0]
+    ms = time_ms(lambda: ops.ball_query_group(sup, q, table, r, K), 20)
+    plain_ms = time_ms(lambda: ops.ball_query_group_plain(sup, q, table, r, K), 5)
+    g, idx, cnt = ops.ball_query_group(sup, q, table, r, K)
+    b_ms, b_by = bound(nbytes(sup, q, table, g, idx, cnt),
+                       9.0 * scanned_pairs(idx, cnt, sup.shape[1]))
+    rows.append(dict(name="ball_query_group", shape="FT0 sup (4,3072) q (4,2048) K=32 C=3+32",
+                     max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=None))
+
+    # -- the fused group's idx output against the ball-query kernel
+    for mode in ("center_zero", "row0"):
+        _, n2, i2 = ops.ball_group(sup, [table[..., 3:]], q, r, K, True, mode, return_idx=True)
+        if not (torch.equal(i2, idx) and torch.equal(n2, cnt)):
+            raise AssertionError(f"ball_group {mode}: idx output differs from ball_query")
+    print("kernel ball_group idx output equal to ball_query (both empty modes)", flush=True)
+
+    # -- scatter-add at the cotangent shape of that gather, float32 and
+    #    bfloat16, against index_add_
+    N, M, C = sup.shape[1], q.shape[1], table.shape[-1]
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        dg = torch.randn(B, M, K, C, device=dev).to(dtype)
+        for counts in (None, cnt):
+            out = ops.group_scatter_add(dg, idx, N, counts)
+            ref = ops.group_scatter_add_plain(dg, idx, N, counts)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            if not err <= SCATTER_REL_TOL * float(ref.abs().max()):
+                raise AssertionError(f"group_scatter_add {dtype}: differs by {err}")
+            worst = max(worst, err)
+    dg = torch.randn(B, M, K, C, device=dev)
+    ms = time_ms(lambda: ops.group_scatter_add(dg, idx, N), 20)
+    ms_bf16 = time_ms(lambda: ops.group_scatter_add(dg.to(torch.bfloat16), idx, N), 20)
+    plain_ms = time_ms(lambda: ops.group_scatter_add_plain(dg, idx, N), 5)
+    flat = (idx.long() + torch.arange(B, device=dev)[:, None, None] * N).reshape(-1)
+    vals = dg.reshape(-1, C)
+    acc = torch.zeros(B * N, C, device=dev)
+    lib_ms = time_ms(lambda: acc.zero_().index_add_(0, flat, vals), 20)
+    b_ms, b_by = bound(nbytes(dg, idx) + B * N * C * 4, float(dg.numel()))
+    rows.append(dict(name="group_scatter_add", shape="dg (4,2048,32,35) f32 -> (4,3072,35)",
+                     max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=b_by, library_ms=lib_ms))
+    print(f"kernel group_scatter_add with a bfloat16 cotangent (cast included): "
+          f"ms={ms_bf16:.4f}", flush=True)
+
+    # -- ball_group_train: gradients to features, support and queries against
+    #    autograd through the plain version (x_t SA level 0: 1024 centres)
+    _, centres = ops.furthest_point_sample_and_gather(x_t, 1024)
+    centres = centres.clone()
+    centres[:, ::7] += 9.0  # empty balls
+    feats = torch.randn(B, 2048, 35, device=dev)
+    for mode in ("row0", "center_zero"):
+        leaves = [t.clone().requires_grad_() for t in (x_t, feats, centres)]
+        g, _, _ = ops.ball_group_train(*leaves, 0.1, K, True, mode)
+        w = torch.randn(g.shape, device=dev)
+        grads = torch.autograd.grad((g.float() * w).sum(), leaves)
+        with kernels.plain_ops():
+            (rg,), _ = ops.ball_group_plain(leaves[0], [leaves[1]], leaves[2], 0.1, K, True, mode)
+            refs = torch.autograd.grad((rg.float() * w).sum(), leaves)
+        torch.cuda.synchronize()
+        if not torch.equal(g, rg):
+            raise AssertionError(f"ball_group_train {mode}: forward differs")
+        errs = []
+        for a, b, what in zip(grads, refs, ("support", "features", "queries")):
+            err = float((a - b).abs().max())
+            errs.append(err)
+            if not err <= SCATTER_REL_TOL * float(b.abs().max()):
+                raise AssertionError(f"ball_group_train {mode}: d_{what} differs by {err}")
+        print(f"kernel ball_group_train {mode}: max_abs_err support/features/queries="
+              f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g} (tol {SCATTER_REL_TOL} of max)",
+              flush=True)
+    for row in rows:
+        print_row(row)
+    return rows
+
+
+def training_arrays(n: int, complete_points: int, seed: int):
+    """``n`` synthetic samples in the MVP training scale: complete clouds
+    spanning [-1, 1], mirrored 3072 x 4 conditions (the mirror and its FPS
+    run on the card), labels, and a noisy 2048-point subsample of the
+    complete cloud as the coarse input of the refine task."""
+    from point_diffusion_refinement_tpu_torch.data import (
+        generate_mirrored_partials,
+        make_synthetic_clouds,
+    )
+
+    shapes = -(-n // 26)
+    completes, partials, labels = make_synthetic_clouds(shapes, complete_points, 2048, seed=seed)
+    complete = np.repeat(completes, 26, axis=0)[:n].astype(np.float32) * 2.0
+    cond = generate_mirrored_partials(partials[:n], 3072)
+    cond[..., :3] *= 2.0
+    rng = np.random.default_rng(seed + 1)
+    coarse = complete[:, :2048] + 0.02 * rng.standard_normal((n, 2048, 3)).astype(np.float32)
+    return dict(complete=complete, partial=cond, label=labels[:n], generated=coarse)
+
+
+def grads_at(model, loss_call):
+    """(loss, {name: gradient}) of ``loss_call()`` at the model's state."""
+    model.zero_grad(set_to_none=True)
+    loss = loss_call()
+    loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {n: p.grad.detach().clone()
+                                  for n, p in model.named_parameters()}
+
+
+def grad_difference(got, ref):
+    """Relative difference of the global gradient norm, and the worst
+    tensor's ||a - b|| / ||b|| among the tensors that carry at least 1e-4
+    of the global norm."""
+    sq = lambda t: float(t.double().pow(2).sum())
+    total = sum(sq(v) for v in ref.values()) ** 0.5
+    diff = sum(sq(got[k] - ref[k]) for k in ref) ** 0.5
+    worst, worst_name = 0.0, ""
+    for k, b in ref.items():
+        nb = sq(b) ** 0.5
+        if nb >= 1e-4 * total:
+            rel = sq(got[k] - b) ** 0.5 / nb
+            if rel > worst:
+                worst, worst_name = rel, k
+    return diff / total, worst, worst_name
+
+
+def fit_batch(what: str, step_at, batch: int):
+    """The largest power-of-two batch <= ``batch`` at which ``step_at(B)``
+    (one whole training step on a fresh model) fits the card's memory, and
+    the peak of that step."""
+    import gc
+
+    while True:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            step_at(batch)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            print(f"{what}: batch {batch} fits, peak_memory_GiB={peak / 2 ** 30:.2f}", flush=True)
+            return batch
+        except torch.cuda.OutOfMemoryError:
+            print(f"{what}: batch {batch} does not fit the card's memory", flush=True)
+            if batch == 1:
+                raise
+            batch //= 2
+
+
+def check_trained(tag: str, result, fresh_model, counts) -> None:
+    """What every training run must show: finite losses, every kernel of the
+    training path launched, every parameter with a finite gradient and moved
+    away from its seeded start."""
+    losses = result["losses"]
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"{tag}: losses are not {TRAIN_STEPS} finite values: {losses}")
+    for name in TRAIN_PATH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"{tag}: kernel {name} was not launched by the training run")
+    start = dict(fresh_model.named_parameters())
+    for name, p in result["model"].named_parameters():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"{tag}: parameter {name} has no finite gradient")
+        if torch.equal(p.detach(), start[name].detach()):
+            raise AssertionError(f"{tag}: parameter {name} did not move")
+
+
+def compare_routes(tag: str, model, loss_for, step_for, state, batch_size: int) -> None:
+    """Step time of both routes (on, off, off, on), the gradients of the
+    fused routes against the unfused ones at one state and one draw, one
+    step through the kernels against one under ``plain_ops()``, and a
+    profile of one step of each route (device time; the op table for the
+    fused routes)."""
+    from point_diffusion_refinement_tpu_torch.ops import kernels
+
+    times = {True: [], False: []}
+    for fused in (True, False, False, True):
+        step = step_for(fused)
+        step()  # warm-up of this route's allocations
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            step()
+        torch.cuda.synchronize()
+        times[fused].append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
+    on, off = float(np.mean(times[True])), float(np.mean(times[False]))
+    print(f"{tag} step: B={batch_size} fused_ms={on:.1f} ({batch_size / on * 1e3:.1f} samples/s) "
+          f"unfused_ms={off:.1f} ({batch_size / off * 1e3:.1f} samples/s) "
+          f"blocks fused={[round(t, 1) for t in times[True]]} "
+          f"unfused={[round(t, 1) for t in times[False]]}", flush=True)
+
+    loss_on, g_on = grads_at(model, loss_for(True))
+    loss_off, g_off = grads_at(model, loss_for(False))
+    rel_loss = abs(loss_on - loss_off) / abs(loss_off)
+    rel_norm, worst, worst_name = grad_difference(g_on, g_off)
+    print(f"{tag} routes: fused vs unfused loss_rel={rel_loss:.3g} (tol {ROUTE_LOSS_REL_TOL}) "
+          f"grad_norm_rel={rel_norm:.3g} (tol {ROUTE_GRAD_NORM_REL_TOL}) "
+          f"worst_tensor_rel={worst:.3g} at {worst_name} (tol {ROUTE_GRAD_WORST_REL_TOL})",
+          flush=True)
+    if not (rel_loss <= ROUTE_LOSS_REL_TOL and rel_norm <= ROUTE_GRAD_NORM_REL_TOL
+            and worst <= ROUTE_GRAD_WORST_REL_TOL):
+        raise AssertionError(f"{tag}: the fused routes disagree with the unfused ones")
+
+    with kernels.plain_ops():
+        loss_p, g_p = grads_at(model, loss_for(True))
+    rel_loss = abs(loss_on - loss_p) / abs(loss_p)
+    rel_norm, worst, worst_name = grad_difference(g_on, g_p)
+    print(f"{tag} kernels vs plain: loss_rel={rel_loss:.3g} (tol {TRAIN_PLAIN_LOSS_REL_TOL}) "
+          f"grad_norm_rel={rel_norm:.3g} (tol {TRAIN_PLAIN_GRAD_REL_TOL}) "
+          f"worst_tensor_rel={worst:.3g} at {worst_name}", flush=True)
+    if not (rel_loss <= TRAIN_PLAIN_LOSS_REL_TOL and rel_norm <= TRAIN_PLAIN_GRAD_REL_TOL):
+        raise AssertionError(f"{tag}: a step through the kernels disagrees with the plain path")
+    model.zero_grad(set_to_none=True)
+    del g_on, g_off, g_p
+    profile_window(f"{tag} steps at B={batch_size} (unfused)", step_for(False), 1, grad=True,
+                   table=False)
+    profile_window(f"{tag} steps at B={batch_size} (fused routes)", step_for(True), 1, grad=True)
+
+
+def ddpm_training(dev, workdir: str):
+    """Phase 11: DDPM training at full width through ``train()``."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch import train as tr
+    from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
+    from point_diffusion_refinement_tpu_torch.data import ArrayDataset
+    from point_diffusion_refinement_tpu_torch.diffusion import calc_diffusion_hyperparams
+    from point_diffusion_refinement_tpu_torch.train.loop import build_model, train
+
+    arrays = training_arrays(TRAIN_BATCH * TRAIN_STEPS, 2048, seed=10)
+    dc = EXPERIMENTS["ddpm"]()["diffusion_config"]
+    schedule = calc_diffusion_hyperparams(dc["T"], dc["beta_0"], dc["beta_T"])
+
+    def config(root: str, batch: int) -> dict:
+        cfg = EXPERIMENTS["ddpm"]()
+        cfg["train_config"].update(root_directory=root, n_epochs=1, epochs_per_ckpt=1,
+                                   iters_per_logging=1, shuffle_seed=0)
+        cfg["mvp_dataset_config"].update(batch_size=batch, num_samples_tested=0)
+        return cfg
+
+    pc = config("", 1)["pointnet_config"]
+
+    def tensors(batch: int):
+        return (torch.from_numpy(arrays["complete"][:batch]).to(dev),
+                torch.from_numpy(arrays["partial"][:batch]).to(dev),
+                torch.from_numpy(arrays["label"][:batch]).to(dev))
+
+    def step_at(batch: int):
+        model = build_model(pc, device=dev, seed=0)
+        step = tr.make_completion_train_step(model, schedule, fused_gather=True, fused_sa=True)
+        step(tr.create_train_state(model, seed=1), *tensors(batch))
+
+    B = fit_batch("ddpm train", step_at, TRAIN_BATCH)
+    ds = ArrayDataset(**{k: v[: B * TRAIN_STEPS] for k, v in arrays.items()})
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train(config(f"{workdir}/ddpm_fused", B), dataset_override=ds,
+                   fused_gather=True, fused_sa=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"ddpm train: {TRAIN_STEPS} steps at B={B} through train() in "
+          f"{time.perf_counter() - t0:.1f} s (model build and checkpoints included), "
+          f"losses={[round(v, 5) for v in result['losses']]}", flush=True)
+    print(f"ddpm train launches: {counts} per_step="
+          f"{ {k: v / TRAIN_STEPS for k, v in counts.items()} }", flush=True)
+    check_trained("ddpm train", result, build_model(pc, device=dev, seed=0), counts)
+
+    plain = train(config(f"{workdir}/ddpm_unfused", B), dataset_override=ds)
+    rel = abs(result["losses"][0] - plain["losses"][0]) / abs(plain["losses"][0])
+    print(f"ddpm train unfused: losses={[round(v, 5) for v in plain['losses']]} "
+          f"first_step_loss_rel={rel:.3g} (tol {ROUTE_LOSS_REL_TOL})", flush=True)
+    if not rel <= ROUTE_LOSS_REL_TOL:
+        raise AssertionError("ddpm train: the routes' first-step losses disagree")
+    del plain
+
+    model, state = result["model"], result["state"]
+    x0, cond, label = tensors(B)
+    sched = schedule.to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    t = torch.randint(0, sched.T, (B,), generator=gen, device=dev)
+    z = torch.randn(x0.shape, generator=gen, device=dev)
+
+    def loss_for(fused: bool):
+        fn = tr.make_completion_loss(model, sched, fused_gather=fused, fused_sa=fused)
+        return lambda: fn(x0, cond, label, t, z)
+
+    def step_for(fused: bool):
+        step = tr.make_completion_train_step(model, schedule, fused_gather=fused, fused_sa=fused)
+        return lambda: step(state, x0, cond, label)
+
+    compare_routes("ddpm train", model, loss_for, step_for, state, B)
+    return counts
+
+
+def refine_training(dev, workdir: str):
+    """Phase 12: x8 refine training through ``train()``, with a checkpoint
+    resumed from."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch import train as tr
+    from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
+    from point_diffusion_refinement_tpu_torch.data import ArrayDataset
+    from point_diffusion_refinement_tpu_torch.train.loop import build_model, train
+
+    arrays = training_arrays(TRAIN_BATCH * 2, 16384, seed=20)
+
+    def config(root: str, batch: int) -> dict:
+        cfg = EXPERIMENTS["upsample_16384"]()
+        cfg["pointnet_config"]["intermediate_refined_X_loss_weight"] = 1.0
+        cfg["train_config"].update(root_directory=root, n_epochs=2, epochs_per_ckpt=1,
+                                   iters_per_logging=1, shuffle_seed=0,
+                                   only_save_the_best_model=False, compute_emd=False)
+        cfg["mvp_dataset_config"].update(batch_size=batch, num_samples_tested=batch,
+                                         eval_batch_size=batch)
+        cfg["refine_config"].update(
+            cd_loss_type="cd_t", use_output_scale_factor_schedule=True,
+            output_scale_factor_schedule={"init_epoch": 0, "final_epoch": 2, "init_value": 0.01},
+            decrease_epochs_per_ckpt_for_fine_tuning=False)
+        return cfg
+
+    cfg0 = config("", 1)
+    pc, rc = cfg0["pointnet_config"], cfg0["refine_config"]
+    opts = dict(scale=1.0, cd_loss_type=rc["cd_loss_type"],
+                point_upsample_factor=int(pc["point_upsample_factor"]),
+                include_displacement_center=bool(
+                    pc["include_displacement_center_to_final_output"]),
+                intermediate_loss_weight=float(pc["intermediate_refined_X_loss_weight"]))
+    osf = float(rc["output_scale_factor"])
+
+    def tensors(batch: int):
+        return tuple(torch.from_numpy(arrays[k][:batch]).to(dev)
+                     for k in ("complete", "partial", "label", "generated"))
+
+    def step_at(batch: int):
+        model = build_model(pc, device=dev, seed=0)
+        step = tr.make_refine_train_step(model, fused_gather=True, fused_sa=True, **opts)
+        step(tr.create_train_state(model, seed=1), *tensors(batch), osf)
+
+    B = fit_batch("refine train", step_at, TRAIN_BATCH)
+    ds = ArrayDataset(**{k: v[: B * 2] for k, v in arrays.items()})
+    eval_ds = ArrayDataset(**{k: v[:B] for k, v in arrays.items()})
+    kw = dict(dataset_override=ds, eval_dataset_override=eval_ds,
+              trainset_eval_dataset_override=eval_ds, fused_gather=True, fused_sa=True)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train(config(f"{workdir}/refine_fused", B), **kw)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    print(f"refine train: {TRAIN_STEPS} steps at B={B} (x8, cd_t + intermediate, output "
+          f"scale 0.01 -> 0.001) through train() in {time.perf_counter() - t0:.1f} s "
+          f"(two in-loop evals and checkpoints included), "
+          f"losses={[round(v, 6) for v in result['losses']]} "
+          f"eval_cd={result['eval_records']['avg_cd']}", flush=True)
+    print(f"refine train launches: {counts}", flush=True)
+    check_trained("refine train", result, build_model(pc, device=dev, seed=0), counts)
+    if not np.isfinite(result["eval_records"]["avg_cd"]).all():
+        raise AssertionError("refine train: in-loop eval CD is not finite")
+
+    # stop at the first checkpoint (end of epoch 0), then resume from it
+    part = train(config(f"{workdir}/refine_resumed", B), max_steps=2, **kw)
+    cfg = config(f"{workdir}/refine_resumed", B)
+    cfg["train_config"]["ckpt_iter"] = 1
+    rest = train(cfg, **kw)
+    full = result["losses"]
+    rels = [abs(a - b) / abs(b) for a, b in zip(part["losses"] + rest["losses"], full)]
+    print(f"refine train resumed: losses={[round(v, 6) for v in part['losses'] + rest['losses']]} "
+          f"rel_to_uninterrupted={[float(f'{r:.3g}') for r in rels]} (tol {RESUME_REL_TOL})",
+          flush=True)
+    if len(rest["losses"]) != 2 or rest["n_iter"] != TRAIN_STEPS or not max(rels) <= RESUME_REL_TOL:
+        raise AssertionError("refine train: the resumed run disagrees with the uninterrupted one")
+    del part, rest
+
+    model, state = result["model"], result["state"]
+    batch = tensors(B)
+
+    def loss_for(fused: bool):
+        fn = tr.make_refine_loss(model, fused_gather=fused, fused_sa=fused, **opts)
+        return lambda: fn(*batch, osf)
+
+    def step_for(fused: bool):
+        step = tr.make_refine_train_step(model, fused_gather=fused, fused_sa=fused, **opts)
+        return lambda: step(state, *batch, osf)
+
+    compare_routes("refine train", model, loss_for, step_for, state, B)
+    return counts
 
 
 def main() -> int:
@@ -569,21 +1051,34 @@ def main() -> int:
     profile_window("denoise steps", lambda: model.denoise(x, ts, label, cf, fused=True))
 
     preprocess(rng)
-    counts = pipeline(model, rng, dev)
+    path_counts = {"pipeline": pipeline(model, rng, dev)}
     refine_at_batch(rng, dev)
     evaluation_cost(rng, dev)
+    del model, cf, cf_p, sampler, short
 
-    # 10. report
+    # 10-12. training
+    rows += check_training_kernels(dev, rng)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        path_counts["ddpm_train"] = ddpm_training(dev, workdir)
+        path_counts["refine_train"] = refine_training(dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # 13. report
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a")
     kern = []
     for r in rows:
+        by_path = {path: c[LAUNCH_NAMES[r["name"]]] for path, c in path_counts.items()}
+        if sum(by_path.values()) <= 0:
+            raise AssertionError(f"kernel {r['name']} was launched on no driven path")
         kern.append({
             "name": r["name"], "route": "cuda", "source": SOURCES[r["name"]],
             "replaces": TPU_KERNELS[r["name"]],
-            "launches": counts[LAUNCH_NAMES[r["name"]]],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],

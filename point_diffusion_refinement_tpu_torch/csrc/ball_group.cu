@@ -16,7 +16,8 @@
 // ball follows empty_mode: 0 = "center_zero" (zero features, abs = query,
 // rel = 0; QueryAndGroup subset=False) or 1 = "row0" (every slot is
 // support row 0; the reference ball query's zeroed idx).  counts (B, M)
-// are capped at K.
+// are capped at K.  The training route also asks for idx (B, M, K): the
+// backward (csrc/group_scatter.cu) scatters the grouped cotangent by it.
 //
 // What bounds it on this card: bytes.  The grouped output (B*M*K*(Ci+6|9)
 // bf16 per table, ~28 MB at the level-0 feature-transfer shapes) dwarfs the
@@ -24,12 +25,11 @@
 // the K-th neighbour.
 //
 // Design: one warp per query, 8 queries per block.  The warp scans the
-// support 32 points at a time: each lane tests one point, a ballot gives
-// the in-radius lanes, and a popcount prefix gives each hit its slot, so
-// the first K hits land in index order in a per-warp slot list in shared
-// memory and the scan stops once K are found.  The warp then writes the
-// query's K * C output row for each table with consecutive lanes on
-// consecutive channels (coalesced), reading table rows (bf16) through L2.
+// support with pdr_warp_ball_scan (common.cuh): 32 points at a time, the
+// first K hits in index order in a per-warp slot list in shared memory,
+// stopping once K are found.  The warp then writes the query's K * C output
+// row for each table with consecutive lanes on consecutive channels
+// (coalesced), reading table rows (bf16) through L2.
 #include <cuda_bf16.h>
 
 #include "common.cuh"
@@ -83,7 +83,8 @@ ball_group_kernel(const float* __restrict__ support, const float* __restrict__ q
                   const __nv_bfloat16* __restrict__ tab0, int C0,
                   __nv_bfloat16* __restrict__ out0,
                   const __nv_bfloat16* __restrict__ tab1, int C1,
-                  __nv_bfloat16* __restrict__ out1, int* __restrict__ counts) {
+                  __nv_bfloat16* __restrict__ out1, int* __restrict__ counts,
+                  int* __restrict__ idx) {
   __shared__ int slots_all[kWarps][kMaxK];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -95,23 +96,14 @@ ball_group_kernel(const float* __restrict__ support, const float* __restrict__ q
   const size_t qrow = static_cast<size_t>(b) * M + m;
   const float q[3] = {queries[qrow * 3], queries[qrow * 3 + 1], queries[qrow * 3 + 2]};
 
-  int cnt = 0;
-  for (int base = 0; base < N && cnt < K; base += 32) {
-    const int n = base + lane;
-    bool hit = false;
-    if (n < N) {
-      const float d = pdr_sqdist3(pts[3 * n], pts[3 * n + 1], pts[3 * n + 2],
-                                  q[0], q[1], q[2]);
-      hit = d < r2;
-    }
-    const unsigned bal = __ballot_sync(PDR_FULL_MASK, hit);
-    const int rank = cnt + __popc(bal & ((1u << lane) - 1u));
-    if (hit && rank < K) slots[rank] = n;
-    cnt += __popc(bal);
-  }
-  cnt = min(cnt, K);
-  __syncwarp();
+  const int cnt = pdr_warp_ball_scan(pts, N, q[0], q[1], q[2], r2, K, slots, lane);
   if (lane == 0) counts[qrow] = cnt;
+  if (idx != nullptr) {
+    // original support indices, as the ball-query kernel pads them: slots
+    // past the count repeat the first neighbour, an empty ball is all zeros
+    const int first = cnt > 0 ? slots[0] : 0;
+    for (int k = lane; k < K; k += 32) idx[qrow * K + k] = k < cnt ? slots[k] : first;
+  }
 
   const bool center_zero = empty_mode == 0;
   const bool with_center = include_center != 0;
@@ -130,17 +122,20 @@ ball_group_kernel(const float* __restrict__ support, const float* __restrict__ q
 
 // support (B, N, 3) f32, queries (B, M, 3) f32, tab0 (B, N, C0) bf16 and an
 // optional tab1 (B, N, C1) bf16 (null when absent) -> out_i (B, M, K, Ci+6|9)
-// bf16, counts (B, M) i32.  K <= 64 (checked by the caller).
+// bf16, counts (B, M) i32 and, when idx is not null, idx (B, M, K) i32 (the
+// neighbours' original support indices, which the backward scatters by).
+// K <= 64 (checked by the caller).
 extern "C" int pdr_ball_group(const void* support, const void* queries, int B, int N,
                               int M, int K, float r2, int include_center,
                               int empty_mode, const void* tab0, int C0, void* out0,
                               const void* tab1, int C1, void* out1, void* counts,
-                              void* stream) {
+                              void* idx, void* stream) {
   const dim3 grid((M + kWarps - 1) / kWarps, B);
   ball_group_kernel<<<grid, kWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(support), static_cast<const float*>(queries), N, M,
       K, r2, include_center, empty_mode, static_cast<const __nv_bfloat16*>(tab0), C0,
       static_cast<__nv_bfloat16*>(out0), static_cast<const __nv_bfloat16*>(tab1), C1,
-      static_cast<__nv_bfloat16*>(out1), static_cast<int*>(counts));
+      static_cast<__nv_bfloat16*>(out1), static_cast<int*>(counts),
+      static_cast<int*>(idx));
   PDR_RETURN_LAUNCH_ERROR();
 }

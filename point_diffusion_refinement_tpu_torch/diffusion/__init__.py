@@ -1,4 +1,4 @@
-from .ddpm import sampling
+from .ddpm import q_sample, sampling, training_loss
 from .fastdpm import FastSamplingPlan, fast_sampling, make_fast_sampling_plan
 from .schedule import DiffusionSchedule, calc_diffusion_hyperparams, calc_t_emb
 
@@ -9,5 +9,7 @@ __all__ = [
     "calc_t_emb",
     "fast_sampling",
     "make_fast_sampling_plan",
+    "q_sample",
     "sampling",
+    "training_loss",
 ]

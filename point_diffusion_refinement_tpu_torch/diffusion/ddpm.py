@@ -1,6 +1,9 @@
-"""DDPM ancestral sampling.
+"""DDPM forward process, training loss and ancestral sampling.
 
-Counterpart of the JAX package's ``diffusion/ddpm.py::sampling``: the reverse
+Counterpart of the JAX package's ``diffusion/ddpm.py``.  ``q_sample`` and
+``training_loss`` are the forward process and the epsilon-prediction MSE of
+the training step; their ``t`` and noise can be passed in, so that two
+implementations can be fed the same draws.  ``sampling``: the reverse
 process is a Python loop of denoiser calls (the caller encodes the
 condition once and closes over it in ``denoise_fn``), with the warm start
 from a precomputed ``XT`` and the noise-free t-slice capture.  The starting
@@ -19,6 +22,36 @@ from .schedule import DiffusionSchedule
 
 # denoise_fn(x: (B, N, 3), ts: (B,) float32) -> eps_hat (B, N, 3)
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+
+
+def q_sample(x0: torch.Tensor, t: torch.Tensor, noise: torch.Tensor,
+             schedule: DiffusionSchedule) -> torch.Tensor:
+    """Forward-process sample x_t ~ q(x_t | x_0): x0 (B, N, D), t (B,) int,
+    noise (B, N, D) standard normal; ``schedule`` on x0's device."""
+    ab = schedule.alpha_bar[t.long()][:, None, None]
+    return torch.sqrt(ab) * x0 + torch.sqrt(1.0 - ab) * noise
+
+
+def training_loss(
+    denoise_fn: DenoiseFn,
+    x0: torch.Tensor,
+    schedule: DiffusionSchedule,
+    *,
+    generator: Optional[torch.Generator] = None,
+    t: Optional[torch.Tensor] = None,
+    z: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Epsilon-prediction MSE: t ~ U[0, T), z ~ N(0, 1), mean((eps_hat - z)^2).
+    ``t`` and ``z`` are drawn from ``generator`` (on x0's device) where they
+    are not given."""
+    B = x0.shape[0]
+    if t is None:
+        t = torch.randint(0, schedule.T, (B,), generator=generator, device=x0.device)
+    if z is None:
+        z = torch.randn(x0.shape, generator=generator, device=x0.device, dtype=x0.dtype)
+    x_t = q_sample(x0, t, z, schedule)
+    eps_hat = denoise_fn(x_t, t.to(torch.float32))
+    return torch.mean(torch.square(eps_hat - z))
 
 
 def sampling(

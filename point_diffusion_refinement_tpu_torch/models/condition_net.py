@@ -20,6 +20,13 @@ gathers both tables, and the x_t SA grouping of levels with >= 1024 points
 takes it too (``SetAbstraction.fused_eligible``).  Every other radius
 grouping goes through the ball-query kernel, and every kNN feature
 propagation through the kNN kernel.
+
+The training forward (``forward``) is unfused by default, as in the JAX
+package.  Its two opt-in routes are keyword arguments threaded through
+``forward``/``encode_condition``/``denoise``: ``fused_sa`` (the
+differentiable fused ball group at the eligible set-abstraction levels) and
+``fused_gather`` (ball query + gather in one kernel at every other radius
+grouping); see ``models/modules.py``.
 """
 
 from __future__ import annotations
@@ -381,7 +388,8 @@ class PointNet2CloudCondition(nn.Module):
         return levels
 
     # ---- the two halves -------------------------------------------------
-    def encode_condition(self, condition: torch.Tensor) -> CondFeatures:
+    def encode_condition(self, condition: torch.Tensor, fused_gather: bool = False,
+                         fused_sa: bool = False) -> CondFeatures:
         """Run the condition branch (SA + FP ladders + global PointNet) once.
         condition: (B, M, 3 + partial_extra), e.g. (B, 3072, 4)."""
         uvw, cond_features = self._split(condition)
@@ -392,7 +400,8 @@ class PointNet2CloudCondition(nn.Module):
         l_uvw, l_feats = [uvw], [cond_features]
         if self.include_local_feature:
             for i, sa in enumerate(self.sa_cond):
-                ui, fi = sa(l_uvw[i], l_feats[i], pooling=self.pooling, fps_ordered=i > 0)
+                ui, fi = sa(l_uvw[i], l_feats[i], pooling=self.pooling, fps_ordered=i > 0,
+                            fused_gather=fused_gather, fused_sa=fused_sa)
                 l_uvw.append(ui)
                 l_feats.append(fi)
             encoder_feats = tuple(l_feats)
@@ -408,12 +417,13 @@ class PointNet2CloudCondition(nn.Module):
         return CondFeatures(tuple(l_uvw), encoder_feats, decoder_feats, global_feature)
 
     def denoise(self, pointcloud, ts=None, label=None, cond: Optional[CondFeatures] = None,
-                fused: bool = False):
+                fused: bool = False, fused_gather: bool = False, fused_sa: bool = False):
         """The x_t branch given precomputed condition features.
 
         pointcloud (B, N, 3); ts (B,) float; label (B,) int -> (B, N, out_dim).
         ``fused=True`` (inference) routes the eligible groupings through the
-        fused ball-group kernel."""
+        fused ball-group kernel; ``fused_gather`` and ``fused_sa`` are the
+        training step's routes."""
         xyz, features = self._split(pointcloud)
         t_emb = self._t_embedding(ts) if (ts is not None and self.include_t) else None
         class_emb = None
@@ -450,12 +460,13 @@ class PointNet2CloudCondition(nn.Module):
                 mapped = self.enc_map[i](
                     cond.l_uvw[i], cond.encoder_feats[i], l_xyz[i],
                     query_feats=l_features[i], subset=False, pooling=self.pooling,
-                    pregrouped=enc_group(i, l_xyz[i]),
+                    pregrouped=enc_group(i, l_xyz[i]), fused_gather=fused_gather,
                 )
                 input_feature = self._cat([mapped, l_features[i]])
             else:
                 input_feature = l_features[i]
-            xi, fi = sa(l_xyz[i], input_feature, fused=fused, fps_ordered=i > 0, **kw)
+            xi, fi = sa(l_xyz[i], input_feature, fused=fused, fps_ordered=i > 0,
+                        fused_gather=fused_gather, fused_sa=fused_sa, **kw)
             l_xyz.append(xi)
             l_features.append(fi)
 
@@ -466,7 +477,7 @@ class PointNet2CloudCondition(nn.Module):
                 mapped = self.dec_map[i](
                     cond.l_uvw[i], cond.decoder_feats[i], l_xyz[i],
                     query_feats=l_features[i], subset=False, pooling=self.pooling,
-                    pregrouped=dec_groups.get(lvl),
+                    pregrouped=dec_groups.get(lvl), fused_gather=fused_gather,
                 )
                 input_feature = self._cat([mapped, l_features[i]])
             else:
@@ -479,16 +490,19 @@ class PointNet2CloudCondition(nn.Module):
             mapped = self.dec_map[0](
                 cond.l_uvw[0], cond.decoder_feats[0], l_xyz[0],
                 query_feats=l_features[0], subset=False, pooling=self.pooling,
-                pregrouped=dec_groups.get(0),
+                pregrouped=dec_groups.get(0), fused_gather=fused_gather,
             )
             out_feature = self._cat([mapped, l_features[0]])
         else:
             out_feature = l_features[0]
         return self._head(self._cat([out_feature, xyz]))
 
-    def forward(self, pointcloud, condition=None, ts=None, label=None):
-        """Training-path forward = encode_condition + denoise (unfused)."""
+    def forward(self, pointcloud, condition=None, ts=None, label=None,
+                fused_gather: bool = False, fused_sa: bool = False):
+        """Training-path forward = encode_condition + denoise, unfused unless
+        a training route is asked for."""
         if self.include_global_feature or self.include_local_feature:
             assert condition is not None
-        cond = self.encode_condition(condition) if condition is not None else None
-        return self.denoise(pointcloud, ts=ts, label=label, cond=cond)
+        routes = dict(fused_gather=fused_gather, fused_sa=fused_sa)
+        cond = self.encode_condition(condition, **routes) if condition is not None else None
+        return self.denoise(pointcloud, ts=ts, label=label, cond=cond, **routes)

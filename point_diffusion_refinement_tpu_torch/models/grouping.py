@@ -2,7 +2,10 @@
 
 Counterpart of the JAX package's ``models/grouping.py``.  Pure functions;
 variable neighbour counts ride as a (B, M) count tensor plus repeat-first /
-zero-feature padding.
+zero-feature padding.  ``fused_ball_gather`` is the differentiable ball
+query + gather in one kernel (the counterpart of ``_fused_ball_gather``
+there), which ``query_and_group(fused_gather=True)`` takes for radius
+neighbourhoods; it is off by default, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -11,8 +14,9 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
-from ..ops.neighbors import ball_query, knn
+from ..ops.neighbors import ball_query, ball_query_group, knn
 from ..ops.sampling import group_points
+from ..ops.scatter import group_scatter_add
 
 Counts = Union[torch.Tensor, str]  # (B, M) int32, or 'all' for kNN groups
 
@@ -31,6 +35,36 @@ def grouped_width(in_features: int, use_xyz: bool, include_abs: bool,
     return pos
 
 
+class _FusedBallGather(torch.autograd.Function):
+    """``ball_query_group`` with the scatter-add of the gathered cotangent as
+    its backward.  Differentiable in ``table`` only: the neighbour selection
+    carries no gradient."""
+
+    @staticmethod
+    def forward(ctx, xyz, new_xyz, table, radius, nsample):
+        gathered, idx, counts = ball_query_group(xyz, new_xyz, table, radius, nsample)
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[1]
+        ctx.table_dtype = table.dtype
+        ctx.mark_non_differentiable(idx, counts)
+        return gathered, idx, counts
+
+    @staticmethod
+    def backward(ctx, d_gathered, _d_idx, _d_counts):
+        (idx,) = ctx.saved_tensors
+        d_table = group_scatter_add(d_gathered, idx, ctx.n_rows).to(ctx.table_dtype)
+        return None, None, d_table, None, None
+
+
+def fused_ball_gather(xyz: torch.Tensor, new_xyz: torch.Tensor, table: torch.Tensor,
+                      radius: float, nsample: int):
+    """Ball query + gather of table rows as one kernel: equivalent to
+    ``idx, counts = ball_query(...); g = group_points(table, idx)``.  Returns
+    (gathered (B, M, nsample, C) float32, idx, counts); gradients flow to
+    ``table`` through a float32 scatter-add."""
+    return _FusedBallGather.apply(xyz, new_xyz, table, float(radius), int(nsample))
+
+
 def query_and_group(
     xyz: torch.Tensor,
     new_xyz: torch.Tensor,
@@ -43,26 +77,36 @@ def query_and_group(
     include_abs_coordinate: bool = False,
     include_center_coordinate: bool = False,
     subset: bool = True,
+    fused_gather: bool = False,
 ) -> Grouped:
     """Ball-query or kNN grouping with positional channels, in the channel
     order [features, relative_xyz, abs_xyz?, center_xyz?].  With subset=False
     and radius neighbours, centres with empty balls substitute themselves as
-    the neighbour with zero features.
+    the neighbour with zero features.  ``fused_gather`` routes a radius
+    grouping through ``fused_ball_gather`` on the table [xyz, features]
+    (float32), with the same values as the unfused route.
 
     Args:
       xyz: (B, N, 3) support points; new_xyz: (B, M, 3) centres;
       features: (B, N, C) or None.
     """
-    if neighbor_def == "radius":
-        idx, counts_arr = ball_query(xyz, new_xyz, radius, nsample)
+    fused = fused_gather and neighbor_def == "radius"
+    if fused:
+        xyz32 = xyz.to(torch.float32)
+        table = (torch.cat([xyz32, features.to(torch.float32)], dim=-1)
+                 if features is not None else xyz32)
+        gathered, idx, counts_arr = fused_ball_gather(xyz, new_xyz, table, radius, nsample)
         counts: Counts = counts_arr
+    elif neighbor_def == "radius":
+        idx, counts_arr = ball_query(xyz, new_xyz, radius, nsample)
+        counts = counts_arr
     elif neighbor_def == "nn":
         _, idx = knn(new_xyz, xyz, min(nsample, xyz.shape[1]))
         counts = "all"
     else:
         raise ValueError(f"Neighbor definition {neighbor_def} is not supported")
 
-    abs_xyz = group_points(xyz.to(torch.float32), idx)
+    abs_xyz = gathered[..., :3] if fused else group_points(xyz.to(torch.float32), idx)
     center = new_xyz.to(torch.float32)[:, :, None, :]
     substitute = (not subset) and neighbor_def == "radius"
     if substitute:
@@ -77,7 +121,7 @@ def query_and_group(
         grouped_xyz = torch.cat([grouped_xyz, center.expand_as(abs_xyz)], dim=-1)
 
     if features is not None:
-        grouped_features = group_points(features, idx)
+        grouped_features = gathered[..., 3:] if fused else group_points(features, idx)
         if substitute:
             grouped_features = have.to(grouped_features.dtype) * grouped_features
         if not use_xyz:

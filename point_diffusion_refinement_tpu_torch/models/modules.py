@@ -10,7 +10,16 @@ JAX package's routing of its windowed kernel: inference only (``fused``),
 bf16 compute, radius neighbourhoods, the [features, rel, abs(, center)]
 layout, a support of >= 1024 points and a query count that is a multiple
 of 128.  The JAX package also falls back when its packed table would pass
-128 lanes, a TPU layout limit with no counterpart here.  The global
+128 lanes, a TPU layout limit with no counterpart here.
+
+The training step has two opt-in routes, both off by default as in the JAX
+package (environment variables there, keyword arguments here):
+``fused_sa`` sends the set-abstraction levels that pass
+``SetAbstraction.train_fused_eligible`` (the JAX package's
+``_train_windowed_eligible``, width limit included) through the
+differentiable fused ball group ``ops.ball_group_train``, and
+``fused_gather`` sends every other radius grouping through
+``grouping.fused_ball_gather``.  The global
 self-attention option, the merged first-layer matmuls and the grouper
 inside feature propagation are not ported (all off in the shipped
 configs); asking for them raises.
@@ -23,7 +32,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from ..ops.ball_group import ball_group
+from ..ops.ball_group import ball_group, ball_group_train
 from ..ops.interpolate import inverse_distance_weights, three_interpolate, three_nn
 from ..ops.sampling import furthest_point_sample_and_gather, gather_points
 from .attention import AttentionPool
@@ -34,6 +43,8 @@ from .grouping import group_knn_features, grouped_width, query_and_group
 # so that the fused kernel serves exactly the call sites its TPU kernel does.
 FUSED_MIN_SUPPORT = 1024
 FUSED_QUERY_MULTIPLE = 128
+# the TPU kernel's packed table holds 8 position lanes + the features in 128
+TRAIN_FUSED_MAX_TABLE = 128
 
 
 def _unsupported(flag: bool, what: str) -> None:
@@ -98,9 +109,23 @@ class SetAbstraction(nn.Module):
             and self.npoint % FUSED_QUERY_MULTIPLE == 0
         )
 
+    def train_fused_eligible(self, xyz, features, fused_sa: bool) -> bool:
+        """The levels the training step's ``fused_sa`` route serves."""
+        return (
+            fused_sa
+            and self.neighbor_def == "radius"
+            and features is not None
+            and 8 + features.shape[-1] <= TRAIN_FUSED_MAX_TABLE
+            and self.use_xyz and self.include_abs
+            and self.dtype is not None
+            and xyz.shape[1] >= FUSED_MIN_SUPPORT
+            and self.npoint % FUSED_QUERY_MULTIPLE == 0
+        )
+
     def forward(self, xyz, features, t_emb=None, condition_emb=None,
                 second_condition_emb=None, pooling: str = "max", fused: bool = False,
-                fps_ordered: bool = False):
+                fps_ordered: bool = False, fused_gather: bool = False,
+                fused_sa: bool = False):
         if fps_ordered:
             # the input is the previous level's FPS output in selection order,
             # and greedy FPS is prefix-stable: FPS here is the identity prefix
@@ -109,7 +134,12 @@ class SetAbstraction(nn.Module):
         else:
             fps_idx, new_xyz = furthest_point_sample_and_gather(xyz, self.npoint)
 
-        if self.fused_eligible(xyz, features, fused):
+        if not fused and self.train_fused_eligible(xyz, features, fused_sa):
+            grouped, counts, _ = ball_group_train(
+                xyz, features, new_xyz, self.radius, self.nsample,
+                include_center=self.include_center, empty_mode="row0",
+            )
+        elif self.fused_eligible(xyz, features, fused):
             (grouped,), counts = ball_group(
                 xyz, [features], new_xyz, self.radius, self.nsample,
                 include_center=self.include_center, empty_mode="row0",
@@ -120,6 +150,7 @@ class SetAbstraction(nn.Module):
                 neighbor_def=self.neighbor_def, use_xyz=self.use_xyz,
                 include_abs_coordinate=self.include_abs,
                 include_center_coordinate=self.include_center, subset=True,
+                fused_gather=fused_gather,
             )
         out = self.ConditionedMLP_0(
             grouped,
@@ -319,7 +350,7 @@ class FeatureTransfer(nn.Module):
             )
 
     def forward(self, xyz, features, new_xyz, query_feats=None, subset: bool = False,
-                pooling: str = "max", pregrouped=None):
+                pooling: str = "max", pregrouped=None, fused_gather: bool = False):
         if pregrouped is not None:
             grouped, counts = pregrouped
         else:
@@ -328,6 +359,7 @@ class FeatureTransfer(nn.Module):
                 neighbor_def=self.neighbor_def, use_xyz=self.use_xyz,
                 include_abs_coordinate=self.include_abs,
                 include_center_coordinate=self.include_center, subset=subset,
+                fused_gather=fused_gather,
             )
         out = self.ConditionedMLP_0(grouped)
         if self.use_attention:

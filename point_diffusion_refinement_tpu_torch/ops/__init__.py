@@ -1,8 +1,10 @@
-from .ball_group import ball_group, ball_group_plain
+from .ball_group import ball_group, ball_group_plain, ball_group_train
 from .interpolate import inverse_distance_weights, three_interpolate, three_nn
 from .kernels import launch_counts, plain_ops, reset_launch_counts
 from .neighbors import (
     ball_query,
+    ball_query_group,
+    ball_query_group_plain,
     ball_query_plain,
     count_to_mask,
     knn,
@@ -10,6 +12,7 @@ from .neighbors import (
     masked_mean,
     pairwise_sqdist,
 )
+from .scatter import group_scatter_add, group_scatter_add_plain
 from .sampling import (
     furthest_point_sample,
     furthest_point_sample_and_gather,
@@ -22,7 +25,10 @@ from .sampling import (
 __all__ = [
     "ball_group",
     "ball_group_plain",
+    "ball_group_train",
     "ball_query",
+    "ball_query_group",
+    "ball_query_group_plain",
     "ball_query_plain",
     "count_to_mask",
     "furthest_point_sample",
@@ -31,6 +37,8 @@ __all__ = [
     "furthest_point_sample_plain",
     "gather_points",
     "group_points",
+    "group_scatter_add",
+    "group_scatter_add_plain",
     "inverse_distance_weights",
     "knn",
     "knn_plain",

@@ -55,7 +55,15 @@ KERNELS = {
     "knn": ("knn.cu", "pdr_knn", [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
     "ball_group": (
         "ball_group.cu", "pdr_ball_group",
-        [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P],
+        [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P],
+    ),
+    "ball_query_group": (
+        "ball_query_group.cu", "pdr_ball_query_group",
+        [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+    ),
+    "group_scatter_add": (
+        "group_scatter.cu", "pdr_group_scatter_add",
+        [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     ),
 }
 

@@ -1,9 +1,12 @@
 """Neighbourhood queries: ball query and k nearest neighbours.
 
-Counterpart of the JAX package's ``ops/neighbors.py``.  ``ball_query`` and
-``knn`` launch the CUDA kernels ``csrc/ball_query.cu`` and ``csrc/knn.cu`` on
-GPU tensors; their plain PyTorch versions (``*_plain``) run for CPU tensors
-and serve as the reference the kernels are held against.
+Counterpart of the JAX package's ``ops/neighbors.py``.  ``ball_query``,
+``knn`` and ``ball_query_group`` (ball query + gather of float32 table rows,
+the counterpart of ``ops/pallas_neighbors.py::ball_query_group_pallas``)
+launch the CUDA kernels ``csrc/ball_query.cu``, ``csrc/knn.cu`` and
+``csrc/ball_query_group.cu`` on GPU tensors; their plain PyTorch versions
+(``*_plain``) run for CPU tensors and serve as the reference the kernels are
+held against.
 
 Reference semantics:
   * ball query: for each centre, the first <= nsample points with
@@ -21,6 +24,7 @@ from typing import Tuple, Union
 import torch
 
 from . import kernels
+from .sampling import group_points
 
 
 def pairwise_sqdist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -83,6 +87,53 @@ def ball_query(
         _radius_sq(radius), idx.data_ptr(), counts.data_ptr(),
     )
     return idx, counts
+
+
+BALL_QUERY_GROUP_MAX_K = 128
+
+
+def ball_query_group_plain(
+    xyz: torch.Tensor, new_xyz: torch.Tensor, table: torch.Tensor, radius: float,
+    nsample: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of ``ball_query_group``: ball query, then an indexed
+    gather of the table rows."""
+    idx, counts = ball_query_plain(xyz, new_xyz, radius, nsample)
+    return group_points(table.to(torch.float32), idx), idx, counts
+
+
+def ball_query_group(
+    xyz: torch.Tensor, new_xyz: torch.Tensor, table: torch.Tensor, radius: float,
+    nsample: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Ball query and gather in one kernel: gathered (B, M, nsample, C)
+    float32 = table[idx], idx (B, M, nsample) int32 and counts (B, M) int32
+    as ``ball_query`` gives them (repeat-first padding, row 0 for an empty
+    ball).  xyz (B, N, 3), new_xyz (B, M, 3), table (B, N, C) float32.  The
+    gathered rows are exact (the TPU kernel keeps ~16 mantissa bits)."""
+    if kernels.use_plain(xyz):
+        return ball_query_group_plain(xyz, new_xyz, table, radius, nsample)
+    xyz, new_xyz, table = kernels.as_f32(xyz), kernels.as_f32(new_xyz), kernels.as_f32(table)
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    C = table.shape[-1]
+    kernels.check(xyz, "ball_query_group xyz", torch.float32, (None, None, 3))
+    kernels.check(new_xyz, "ball_query_group new_xyz", torch.float32, (B, None, 3))
+    kernels.check(table, "ball_query_group table", torch.float32, (B, N, None))
+    if not 1 <= nsample <= BALL_QUERY_GROUP_MAX_K:
+        raise ValueError(
+            f"ball_query_group kernel needs 1 <= nsample <= {BALL_QUERY_GROUP_MAX_K}")
+    if C < 1:
+        raise ValueError("ball_query_group: the table needs at least one channel")
+    gathered = torch.empty((B, M, nsample, C), dtype=torch.float32, device=xyz.device)
+    idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz.device)
+    counts = torch.empty((B, M), dtype=torch.int32, device=xyz.device)
+    kernels.launch(
+        "ball_query_group", xyz.data_ptr(), new_xyz.data_ptr(), table.data_ptr(),
+        B, N, M, nsample, C, _radius_sq(radius), gathered.data_ptr(), idx.data_ptr(),
+        counts.data_ptr(),
+    )
+    return gathered, idx, counts
 
 
 KNN_MAX_K = 16

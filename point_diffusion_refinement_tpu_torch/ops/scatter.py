@@ -1,0 +1,82 @@
+"""Scatter-add of grouped cotangents into table rows.
+
+The backward of the two grouping kernels (``ops/neighbors.py::
+ball_query_group`` and ``ops/ball_group.py::ball_group``):
+``dtable[b, idx[b, m, k], c] += dg[b, m, k, c]`` over all (m, k), summed in
+float32.  The JAX package computes it as an einsum against a (B, M, K, N)
+bf16 one-hot with bf16-rounded cotangents (``models/grouping.py::
+_fused_ball_gather_bwd``, ``ops/windowed_grad.py::_bwd``), a TPU stand-in
+for the atomic scatter-add of the original CUDA code; the port scatters
+directly and does not round the cotangent.  ``group_scatter_add`` launches
+``csrc/group_scatter.cu`` on GPU tensors; its plain version (``index_add_``)
+runs for CPU tensors.  The kernel's atomics land in an order that changes
+from run to run, so its sums vary in the last float32 bits.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import kernels
+
+
+def group_scatter_add_plain(
+    dg: torch.Tensor, idx: torch.Tensor, n_rows: int,
+    counts: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Plain version of ``group_scatter_add``: one ``index_add_`` over the
+    flattened (b, row) index."""
+    B, M, K, C = dg.shape
+    vals = dg.to(torch.float32)
+    if counts is not None:
+        vals = vals * (counts > 0).to(torch.float32)[..., None, None]
+    flat = idx.long() + torch.arange(B, device=idx.device)[:, None, None] * n_rows
+    out = torch.zeros((B * n_rows, C), dtype=torch.float32, device=dg.device)
+    out.index_add_(0, flat.reshape(-1), vals.reshape(-1, C))
+    return out.reshape(B, n_rows, C)
+
+
+def group_scatter_add(
+    dg: torch.Tensor, idx: torch.Tensor, n_rows: int,
+    counts: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sum grouped values back into the rows they were gathered from.
+
+    Args:
+      dg: (B, M, K, C) float32 or bfloat16; may be a channel slice of a wider
+        contiguous tensor (it is read in place).
+      idx: (B, M, K) int32 row indices in [0, n_rows).
+      n_rows: N of the (B, N, C) result.
+      counts: optional (B, M) int32; balls with count 0 are skipped.
+
+    Returns:
+      (B, N, C) float32.
+    """
+    if kernels.use_plain(dg):
+        return group_scatter_add_plain(dg, idx, n_rows, counts)
+    if dg.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"group_scatter_add: expected float32 or bfloat16, got {dg.dtype}")
+    if dg.dim() != 4:
+        raise ValueError(f"group_scatter_add: expected (B, M, K, C), got {tuple(dg.shape)}")
+    B, M, K, C = dg.shape
+    ld = dg.stride(2)
+    if dg.stride() != (M * K * ld, K * ld, ld, 1) or ld < C:
+        dg = dg.contiguous()
+        ld = C
+    if dg.device.type != "cuda":
+        raise ValueError(f"group_scatter_add: expected a CUDA tensor, got {dg.device}")
+    idx = idx.contiguous()
+    kernels.check(idx, "group_scatter_add idx", torch.int32, (B, M, K))
+    if counts is not None:
+        counts = counts.contiguous()
+        kernels.check(counts, "group_scatter_add counts", torch.int32, (B, M))
+    # zeroed on the current stream, which the launch also uses
+    out = torch.zeros((B, n_rows, C), dtype=torch.float32, device=dg.device)
+    kernels.launch(
+        "group_scatter_add", dg.data_ptr(), int(dg.dtype == torch.bfloat16), ld,
+        idx.data_ptr(), counts.data_ptr() if counts is not None else None,
+        B, n_rows, M, K, C, out.data_ptr(),
+    )
+    return out

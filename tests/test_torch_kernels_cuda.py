@@ -7,7 +7,9 @@ JAX nor the JAX package, so it runs on a GPU machine without them:
 
 Indices, counts, coordinates, kNN distances and grouped bf16 values must
 be equal: kernel and plain version compute the same separately rounded
-float32 distances and round the same float32 values to bf16.
+float32 distances and round the same float32 values to bf16.  The
+scatter-add kernel sums float32 with atomics, in an order that changes from
+run to run: it is held to SCATTER_TOL of the largest row sum.
 """
 
 import numpy as np
@@ -17,6 +19,9 @@ import torch
 from point_diffusion_refinement_tpu_torch import ops
 
 pytestmark = pytest.mark.cuda
+
+# float32 sums of up to a few thousand terms in a different order
+SCATTER_TOL = 1e-5
 
 
 @pytest.fixture
@@ -105,6 +110,64 @@ def test_ball_group(dev, mode):
             assert o.dtype == torch.bfloat16 and torch.equal(o, r)
 
 
+@pytest.mark.parametrize("N,M,K,C,r", [(3072, 2050, 32, 35, 0.3), (64, 16, 32, 259, 1.3),
+                                       (300, 170, 8, 3, 0.3), (16, 100, 32, 7, 1.6)])
+def test_ball_query_group(dev, N, M, K, C, r):
+    """Kernel #8 at a level-0 shape (M not a multiple of the block), a deep
+    level with a wide table, a 3-channel table and K > N: idx and counts
+    equal the ball-query kernel's, gathered rows are the exact table rows."""
+    rng = np.random.default_rng(5)
+    x, c = _cloud(rng, 2, N, 3).to(dev), _cloud(rng, 2, M, 3).to(dev)
+    c[:, ::9] += 5.0  # empty balls
+    table = _cloud(rng, 2, N, C, lo=-9, hi=9).to(dev)
+    g, i, n = ops.ball_query_group(x, c, table, r, K)
+    rg, ri, rn = ops.ball_query_group_plain(x, c, table, r, K)
+    qi, qn = ops.ball_query(x, c, r, K)
+    assert (n == 0).any() and (n == min(K, N)).any()
+    assert torch.equal(i, ri) and torch.equal(n, rn) and torch.equal(g, rg)
+    assert torch.equal(i, qi) and torch.equal(n, qn)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_group_scatter_add(dev, dtype, masked):
+    rng = np.random.default_rng(6)
+    B, N, M, K, C = 2, 500, 300, 16, 37
+    x, c = _cloud(rng, B, N, 3).to(dev), _cloud(rng, B, M, 3).to(dev)
+    c[:, ::5] += 5.0  # empty balls: every slot is row 0
+    idx, counts = ops.ball_query(x, c, 0.3, K)
+    wide = torch.randn(B, M, K, C + 9, device=dev).to(dtype)
+    for dg in (wide[..., :C], wide[..., :C].contiguous(), wide[..., C:C + 3]):
+        out = ops.group_scatter_add(dg, idx, N, counts if masked else None)
+        ref = ops.group_scatter_add_plain(dg, idx, N, counts if masked else None)
+        assert out.dtype == torch.float32 and out.shape == (B, N, dg.shape[-1])
+        assert float((out - ref).abs().max()) <= SCATTER_TOL * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("mode", ["center_zero", "row0"])
+def test_ball_group_idx_and_grads(dev, mode):
+    """The fused group's idx output equals the ball-query kernel's, and
+    ``ball_group_train``'s three gradients equal autograd through the plain
+    version (float32 tables, so both sum the cotangent in float32)."""
+    rng = np.random.default_rng(7)
+    x, q = _cloud(rng, 2, 1100, 3).to(dev), _cloud(rng, 2, 384, 3).to(dev)
+    q[:, ::7] += 3.0
+    f = torch.randn(2, 1100, 33, device=dev)
+    _, n, i = ops.ball_group(x, [f], q, 0.25, 32, True, mode, return_idx=True)
+    qi, qn = ops.ball_query(x, q, 0.25, 32)
+    assert torch.equal(i, qi) and torch.equal(n, qn)
+    leaves = [t.clone().requires_grad_() for t in (x, f, q)]
+    g, _, _ = ops.ball_group_train(*leaves, 0.25, 32, True, mode)
+    w = torch.randn_like(g, dtype=torch.float32)
+    grads = torch.autograd.grad((g.float() * w).sum(), leaves)
+    with ops.plain_ops():
+        (rg,), _ = ops.ball_group_plain(leaves[0], [leaves[1]], leaves[2], 0.25, 32, True, mode)
+        refs = torch.autograd.grad((rg.float() * w).sum(), leaves)
+    assert torch.equal(g, rg)
+    for a, b in zip(grads, refs):
+        assert float((a - b).abs().max()) <= SCATTER_TOL * float(b.abs().max())
+
+
 def test_launch_counts(dev):
     x = torch.rand(1, 64, 3, device=dev)
     ops.reset_launch_counts()
@@ -113,8 +176,11 @@ def test_launch_counts(dev):
     ops.furthest_point_sample_and_gather(x, 8)
     ops.furthest_point_sample(x, 8)
     ops.ball_group(x, [x, x], x, 0.2, 8)
+    _, i, _ = ops.ball_query_group(x, x, x, 0.2, 8)
+    ops.group_scatter_add(torch.ones(1, 64, 8, 3, device=dev), i, 64)
     with ops.plain_ops():  # reference runs on the card are not launches
         ops.ball_query(x, x, 0.2, 8)
         ops.furthest_point_sample(x, 8)
     assert ops.launch_counts() == {"fps": 1, "fps_idx": 1, "ball_query": 1, "knn": 1,
-                                   "ball_group": 1}
+                                   "ball_group": 1, "ball_query_group": 1,
+                                   "group_scatter_add": 1}
