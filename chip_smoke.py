@@ -10,8 +10,9 @@
    within the stated tolerance.  Prints each kernel's time, the plain
    version's time, the time of one PyTorch library call that computes the
    same function where there is one, and the least time the card could take
-   (``bound_ms``: the larger of bytes over 3.35 TB/s and float32 operations
-   over 67 TFLOP/s, counted for this run's data).  The idx-only FPS is held
+   (``bound_ms``: the larger of bytes over 3.35 TB/s and operations over the
+   peak rate of their type, 67 TFLOP/s in float32 and 989 TFLOP/s for the
+   attention sweeps' bf16 products, counted for this run's data).  The idx-only FPS is held
    at the mirror-preprocessing shapes (64 clouds of 4096 points, with exact
    duplicates, padding and an all-padding cloud, to 3072 and 2048) and at a
    row beyond shared memory (16384 points), where the coordinates kernel
@@ -64,9 +65,27 @@
    x8 upsampling, cd_t with the intermediate loss on and the output-scale
    schedule ticking, in-loop eval, the same checks; a run stopped at a
    checkpoint and resumed is held against the uninterrupted one.
-13. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
-   (``launches``: the sum over the three driven paths, the pipeline of phase
-   7 and the two training runs, each counted from zero; ``launches_by_path``
+13. The accelerated inference configuration (``fused_attention``,
+   ``fused_knn``, ``packed``; all off by default), run before the training
+   phases.  Prints every attention site of one denoise step (M, K, Cq, Ck,
+   Cv, c_out) and holds the fused attention pool against its plain version
+   and against the unfused pool at each of them, on the tensors the step
+   gives it and with the other kind of counts (none, or counts that include
+   0 and K); the three sweeps one by one at the level-0 feature transfer,
+   the level-0 set abstraction, the level-0 kNN feature propagation and the
+   deepest site (weights beyond shared memory); ``knn_group`` at the level-0
+   feature propagation and at a small support with duplicates and k = N.
+   Then the pipeline of phase 7 once more with ``fused_attention`` and
+   ``fused_knn`` on, launch counts reset just before and read just after:
+   fails unless the three sweeps and ``knn_group`` were launched on every
+   denoise step and in the refine forward.  One denoise step and one B=32
+   refine forward with the variants on against off and against
+   ``plain_ops()``, one denoise step with ``packed`` against off, and what
+   each variant costs: step ms and device-busy share of the denoise step,
+   ms of the B=32 refine forward.
+14. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
+   (``launches``: the sum over the four driven paths, the two pipelines and
+   the two training runs, each counted from zero; ``launches_by_path``
    splits it), and last ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and convolutions throughout, so the float32 parts
@@ -88,6 +107,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 FP32_OPS_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM, dense bf16 in the tensor cores
 # position channels of the fused group are bf16 of float32 values computed
 # the same way by both versions: they must agree exactly like the features
 DENOISE_REL_TOL = 1e-2  # kernels vs plain versions, one bf16 denoise step
@@ -116,6 +136,36 @@ TRAIN_PLAIN_GRAD_REL_TOL = 1e-2
 # the atomics of the backward land in another order
 RESUME_REL_TOL = 1e-2
 
+# The attention sweeps repeat their plain versions' rounding points and add
+# the same float32 products in another order, so a few bf16 roundings flip
+# (2^-8 of one term each).  Statistics: float32 sums of bf16 values, relative
+# to the largest.  Output: relative to the largest output value.
+ATTENTION_STATS_REL_TOL = 2e-3
+ATTENTION_OUT_REL_TOL = 2e-2
+# the fused pool keeps float32 softmax weights and a float32 result where the
+# unfused pool rounds both to bf16
+ATTENTION_UNFUSED_REL_TOL = 4e-2
+# One bf16 network evaluation with the variants on against off: the JAX
+# package's own bound for its whole network with its fused kernels on against
+# off (absolute, outputs of order 1).
+VARIANT_MAX_TOL = 8e-2
+VARIANT_MEAN_TOL = 1.5e-2
+# The same evaluation with the variants on, kernels against plain versions
+# (relative L2).  The other kernels equal their plain versions bit for bit;
+# the sweeps do not (up to 2.3e-3 of the largest output at the wide kNN-FP
+# sites, above), and a bf16 network amplifies that like any other bf16
+# perturbation: 0.8e-2 found at the B=4 denoise step, 1.2e-2 at the B=32
+# refine forward, the size of the on-against-off difference itself.
+VARIANT_PLAIN_REL_TOL = 3e-2
+VARIANTS = (
+    ("off", {}),
+    ("attention", dict(fused_attention=True)),
+    ("knn", dict(fused_knn=True)),
+    ("packed", dict(packed=True)),
+    ("all", dict(fused_attention=True, fused_knn=True, packed=True)),
+    ("off again", {}),
+)
+
 TPU_KERNELS = {
     "fps_coords": "point_diffusion_refinement_tpu/ops/pallas_fps.py:197",
     "fps_idx": "point_diffusion_refinement_tpu/ops/pallas_fps.py:250",
@@ -125,11 +175,18 @@ TPU_KERNELS = {
     "ball_query_group": "point_diffusion_refinement_tpu/ops/pallas_neighbors.py:287",
     # no Pallas kernel: the JAX backwards are one-hot einsums at these lines
     "group_scatter_add": "point_diffusion_refinement_tpu/models/grouping.py:51",
+    "attention_stats": "point_diffusion_refinement_tpu/ops/pallas_attention.py:79",
+    "attention_hstats": "point_diffusion_refinement_tpu/ops/pallas_attention.py:110",
+    "attention_out": "point_diffusion_refinement_tpu/ops/pallas_attention.py:138",
+    # and its layout twin _knn_window_kernel_t at pallas_window.py:1385
+    "knn_group": "point_diffusion_refinement_tpu/ops/pallas_window.py:1156",
 }
 LAUNCH_NAMES = {"fps_coords": "fps", "fps_idx": "fps_idx", "ball_group": "ball_group",
                 "ball_query": "ball_query", "knn": "knn",
                 "ball_query_group": "ball_query_group",
-                "group_scatter_add": "group_scatter_add"}
+                "group_scatter_add": "group_scatter_add",
+                "attention_stats": "attention_stats", "attention_hstats": "attention_hstats",
+                "attention_out": "attention_out", "knn_group": "knn_group"}
 # the kernels of a training step with both fused routes on (the fused
 # gather supersedes the ball-query kernel there)
 TRAIN_PATH_KERNELS = ("ball_query_group", "group_scatter_add", "ball_group", "fps", "knn")
@@ -138,6 +195,9 @@ TRAIN_PATH_KERNELS = ("ball_query_group", "group_scatter_add", "ball_group", "fp
 COARSE_PATH_KERNELS = ("fps", "ball_group", "ball_query", "knn")
 # the kernels of the two-stage serving pipeline (phase 7)
 PIPELINE_PATH_KERNELS = ("fps", "fps_idx", "ball_group", "ball_query", "knn")
+# ... and what the accelerated inference configuration adds, on every denoise
+# step and in the refine forward
+VARIANT_PATH_KERNELS = ("attention_stats", "attention_hstats", "attention_out", "knn_group")
 SOURCES = {
     "fps_coords": "point_diffusion_refinement_tpu_torch/csrc/fps.cu",
     "fps_idx": "point_diffusion_refinement_tpu_torch/csrc/fps.cu",
@@ -146,6 +206,10 @@ SOURCES = {
     "knn": "point_diffusion_refinement_tpu_torch/csrc/knn.cu",
     "ball_query_group": "point_diffusion_refinement_tpu_torch/csrc/ball_query_group.cu",
     "group_scatter_add": "point_diffusion_refinement_tpu_torch/csrc/group_scatter.cu",
+    "attention_stats": "point_diffusion_refinement_tpu_torch/csrc/attention_pool.cu",
+    "attention_hstats": "point_diffusion_refinement_tpu_torch/csrc/attention_pool.cu",
+    "attention_out": "point_diffusion_refinement_tpu_torch/csrc/attention_pool.cu",
+    "knn_group": "point_diffusion_refinement_tpu_torch/csrc/knn_group.cu",
 }
 
 
@@ -168,9 +232,9 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = bytes_moved / HBM_BYTES_PER_S
-    t_ops = ops / FP32_OPS_PER_S
+    t_ops = ops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -389,9 +453,10 @@ def preprocess(rng) -> None:
         raise AssertionError("preprocessing output or launches are wrong")
 
 
-def upsample_refiner(seed: int):
+def upsample_refiner(seed: int, **routes):
     """The ``upsample_16384`` refine net (bf16, include_t=False, x8) with
-    seeded weights, and its refiner."""
+    seeded weights, and its refiner (``routes``: the opt-in inference
+    routes of ``make_refiner``)."""
     from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
     from point_diffusion_refinement_tpu_torch.models import PointNet2CloudCondition
     from point_diffusion_refinement_tpu_torch.sample import make_refiner
@@ -400,7 +465,7 @@ def upsample_refiner(seed: int):
     pc = cfg["pointnet_config"]
     model = PointNet2CloudCondition.from_config(pc, device="cuda", seed=seed)
     refine = make_refiner(model, int(pc["point_upsample_factor"]),
-                          bool(pc["include_displacement_center_to_final_output"]))
+                          bool(pc["include_displacement_center_to_final_output"]), **routes)
     return model, refine, float(cfg["refine_config"]["output_scale_factor"])
 
 
@@ -410,9 +475,11 @@ def conditions(rng, B: int, dev) -> torch.Tensor:
          rng.integers(0, 2, (B, 3072, 1)) * 2.0 - 1.0], axis=-1).astype(np.float32)).to(dev)
 
 
-def pipeline(model, rng, dev):
+def pipeline(model, rng, dev, tag: str = "pipeline", **routes):
     """Phase 7: mirror -> FastDPM-50 -> refine x8 -> CD/F1 at B=4, with the
-    launch counts of the whole run."""
+    launch counts of the whole run.  ``routes`` turns on the opt-in inference
+    routes of the sampler and the refiner; their kernels must then have been
+    launched on every denoise step and in the refine forward."""
     from point_diffusion_refinement_tpu_torch import ops
     from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
     from point_diffusion_refinement_tpu_torch.data import mirror_and_concat
@@ -429,8 +496,8 @@ def pipeline(model, rng, dev):
     plan = make_fast_sampling_plan(schedule, T, b0, bT, length=FAST_STEPS,
                                    sampling_method="var", noise_schedule="quadratic",
                                    kappa=0.5)
-    sampler = make_coarse_sampler(model, schedule, 2048, fast_plan=plan)
-    refiner_model, refine, osf = upsample_refiner(seed=1)
+    sampler = make_coarse_sampler(model, schedule, 2048, fast_plan=plan, **routes)
+    refiner_model, refine, osf = upsample_refiner(seed=1, **routes)
     raw = torch.from_numpy(mirrored_partials(rng, B, 2048)).to(dev)
     gt = rng.uniform(-0.5, 0.5, (B, 16384, 3)).astype(np.float32)
     label = torch.zeros(B, dtype=torch.int64, device=dev)
@@ -448,6 +515,7 @@ def pipeline(model, rng, dev):
     coarse = sampler(cond, label, generator=gen)
     torch.cuda.synchronize()
     t2 = time.perf_counter()
+    sampler_counts = ops.launch_counts()
     timing = {}
 
     def generate(batch):
@@ -463,14 +531,14 @@ def pipeline(model, rng, dev):
     fast_ms = (t2 - t1) * 1e3
     out = res.generated
     finite = bool(np.isfinite(out).all())
-    print(f"pipeline: B={B} mirror_ms={(t1 - t0) * 1e3:.2f} fastdpm{FAST_STEPS}_ms={fast_ms:.1f} "
+    print(f"{tag}: B={B} routes={routes} mirror_ms={(t1 - t0) * 1e3:.2f} fastdpm{FAST_STEPS}_ms={fast_ms:.1f} "
           f"fastdpm_step_ms={fast_ms / FAST_STEPS:.2f} "
           f"fastdpm_ms_per_completion={fast_ms / B:.1f} refine_ms={timing['refine_ms']:.2f}",
           flush=True)
-    print(f"pipeline metrics: cd_p={res.metrics['cd_p'].tolist()} "
+    print(f"{tag} metrics: cd_p={res.metrics['cd_p'].tolist()} "
           f"cd_t={res.metrics['cd_distance'].tolist()} f1={res.metrics['f1'].tolist()}",
           flush=True)
-    print(f"pipeline output: coarse={tuple(coarse.shape)} refined={out.shape} "
+    print(f"{tag} output: coarse={tuple(coarse.shape)} refined={out.shape} "
           f"finite={finite} launches={counts}", flush=True)
     if out.shape != (B, 16384, 3) or not finite or tuple(coarse.shape) != (B, 2048, 3):
         raise AssertionError("pipeline output is not a finite (4, 16384, 3) cloud")
@@ -478,7 +546,19 @@ def pipeline(model, rng, dev):
         raise AssertionError("pipeline metrics are not finite")
     for name in PIPELINE_PATH_KERNELS:
         if counts[name] <= 0:
-            raise AssertionError(f"kernel {name} was not launched in the pipeline run")
+            raise AssertionError(f"kernel {name} was not launched in the {tag} run")
+    if routes:
+        # encode_condition takes none of these routes, so the sampler's
+        # launches are those of its FAST_STEPS denoise steps
+        per_step = {n: sampler_counts[n] / FAST_STEPS for n in VARIANT_PATH_KERNELS}
+        in_refine = {n: counts[n] - sampler_counts[n] for n in VARIANT_PATH_KERNELS}
+        print(f"{tag} launches of the routes: per_denoise_step={per_step} "
+              f"refine_forward={in_refine}", flush=True)
+        for name in VARIANT_PATH_KERNELS:
+            if per_step[name] < 1 or per_step[name] != int(per_step[name]):
+                raise AssertionError(f"kernel {name} was not launched on every denoise step")
+            if in_refine[name] < 1:
+                raise AssertionError(f"kernel {name} was not launched in the refine forward")
     del refiner_model
     return counts
 
@@ -532,6 +612,301 @@ def evaluation_cost(rng, dev) -> None:
           f"cd_t_mean={float(cd[1].mean()):.6g} emd_mean={float(e.mean()):.6g}", flush=True)
     if not finite:
         raise AssertionError("evaluation metrics are not finite")
+
+
+def capture_calls(model, kinds, call):
+    """(name, module, args, kwargs) of every forward of ``model``'s submodules
+    of the classes ``kinds`` during ``call()``, in call order."""
+    seen, hooks = [], []
+    for name, mod in model.named_modules():
+        if isinstance(mod, kinds):
+            hooks.append(mod.register_forward_pre_hook(
+                lambda m, args, kwargs, name=name: seen.append((name, m, args, kwargs)),
+                with_kwargs=True))
+    try:
+        with torch.no_grad():
+            call()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def rel_to_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
+
+
+def check_attention(sites, dev):
+    """Phase 13, kernel #7: the fused attention pool at every attention site
+    of one denoise step, on the tensors the step gives it."""
+    from point_diffusion_refinement_tpu_torch.ops import attention_pool as ap
+    from point_diffusion_refinement_tpu_torch.ops import kernels
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    pool_rows = {}
+    print("attention sites of one denoise step: name (M, K, Cq, Ck, Cv, c_out) counts",
+          flush=True)
+    for name, pool, (feat, grouped, gfo, counts), kw in sites:
+        B, M, K, Ck = grouped.shape
+        Cq, Cv, w = feat.shape[-1], gfo.shape[-1], pool.widths
+        given = "all" if isinstance(counts, str) else "ball counts"
+        if not (kw.get("fused") and pool.fused_eligible(True, kw.get("key_pre"))):
+            raise AssertionError(f"attention site {name} did not take the fused pool")
+        synthetic = torch.randint(0, K + 1, (B, M), generator=gen, device=dev, dtype=torch.int32)
+        synthetic[:, 0], synthetic[:, 1] = 0, K
+        other = synthetic if isinstance(counts, str) else "all"
+        worst = worst_unfused = 0.0
+        with torch.no_grad():
+            for cnt in (counts, other):
+                out = pool(feat, grouped, gfo, cnt, fused=True)
+                with kernels.plain_ops():
+                    ref = pool(feat, grouped, gfo, cnt, fused=True)
+                unfused = pool(feat, grouped, gfo, cnt)
+                torch.cuda.synchronize()
+                if tuple(out.shape) != (B, M, w["c_out"]) or not bool(torch.isfinite(out).all()):
+                    raise AssertionError(f"attention {name}: output is not finite (B, M, c_out)")
+                worst = max(worst, rel_to_max(out, ref))
+                worst_unfused = max(worst_unfused, rel_to_max(out, unfused))
+            if not worst <= ATTENTION_OUT_REL_TOL:
+                raise AssertionError(f"attention {name}: kernels differ from plain by {worst}")
+            if not worst_unfused <= ATTENTION_UNFUSED_REL_TOL:
+                raise AssertionError(
+                    f"attention {name}: fused differs from unfused by {worst_unfused}")
+            fused_ms = time_ms(lambda: pool(feat, grouped, gfo, counts, fused=True), 10)
+            unfused_ms = time_ms(lambda: pool(feat, grouped, gfo, counts), 10)
+            with kernels.plain_ops():
+                plain_ms = time_ms(lambda: pool(feat, grouped, gfo, counts, fused=True), 3, 1)
+        rows_total = float(B * M * K)
+        ops_once = 2.0 * rows_total * (Ck * w["c2"] + w["c2"] * w["inter_c"]
+                                       + w["inter_c"] * w["c_out"] + Cv * w["c_out"])
+        b_ms, b_by = bound(nbytes(feat, grouped, gfo) + B * M * w["c_out"] * 4, ops_once,
+                           BF16_OPS_PER_S)
+        pool_rows[name] = dict(pool_ms=fused_ms, pool_unfused_ms=unfused_ms,
+                               pool_plain_ms=plain_ms, pool_bound_ms=b_ms, pool_bound_by=b_by)
+        print(f"attention site {name:<10} ({M}, {K}, {Cq}, {Ck}, {Cv}, {w['c_out']}) {given:<11} "
+              f"vs_plain={worst:.3g} (tol {ATTENTION_OUT_REL_TOL} of max) "
+              f"vs_unfused={worst_unfused:.3g} (tol {ATTENTION_UNFUSED_REL_TOL}) "
+              f"fused_ms={fused_ms:.4f} unfused_ms={unfused_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+
+    # -- the sweeps one by one, at four sites; rows at the level-0 decoder
+    #    feature transfer (the most rows, 2048 x 32 a cloud)
+    by_name = {name: (pool, args) for name, pool, args, _ in sites}
+    rows = []
+    deepest = max(by_name, key=lambda n: by_name[n][1][1].shape[-1])  # the widest key
+    for tag, name in (("FT0", "dec_map_0"), ("SA0", "sa_0"), ("FP0", "fp_0"), ("deepest", deepest)):
+        pool, (feat, grouped, gfo, counts) = by_name[name]
+        B, M, K, Ck = grouped.shape
+        Cv, w = gfo.shape[-1], pool.widths
+        c2, I, Co = w["c2"], w["inter_c"], w["c_out"]
+        p = pool._fused_weights()
+        g2 = grouped.reshape(B, M * K, Ck).contiguous()
+        gfo2 = gfo.reshape(B, M * K, Cv).contiguous()
+        cnt = None if isinstance(counts, str) else counts.to(torch.int32).contiguous()
+
+        def vec(c, centre, spread, dtype=torch.float32):
+            return (centre + spread * torch.randn(B, c, generator=gen, device=dev)).to(dtype)
+
+        mul_k, add_k = vec(c2, 1.0, 0.2), vec(c2, 0.0, 0.1)
+        qp = torch.randn(B, M, I, generator=gen, device=dev).to(torch.bfloat16)
+        gn1 = (vec(I, 0.1, 0.1), vec(I, 1.0, 0.2), vec(I, 0.0, 0.1))
+        gn2 = (vec(Co, 0.1, 0.1), vec(Co, 1.0, 0.2), vec(Co, 0.0, 0.1))
+        sweeps = {
+            "attention_stats": (
+                lambda: torch.cat(ap.attention_stats(g2, gfo2, p.key, p.value, K), -1),
+                lambda: torch.cat(ap.attention_stats_plain(g2, gfo2, p.key, p.value), -1),
+                nbytes(g2, gfo2) + B * 2 * (c2 + Co) * 4, Ck * c2 + Cv * Co,
+                ATTENTION_STATS_REL_TOL),
+            "attention_hstats": (
+                lambda: ap.attention_hstats(g2, qp, p.key, p.hidden, mul_k, add_k, K),
+                lambda: ap.attention_hstats_plain(g2, qp, p.key, p.hidden, mul_k, add_k, K),
+                nbytes(g2, qp) + B * 2 * I * 4, Ck * c2 + c2 * I, ATTENTION_STATS_REL_TOL),
+            "attention_out": (
+                lambda: ap.attention_out(g2, gfo2, qp, cnt, p.key, p.hidden, p.score, p.value,
+                                         mul_k, add_k, gn1, gn2, K),
+                lambda: ap.attention_out_plain(g2, gfo2, qp, cnt, p.key, p.hidden, p.score,
+                                               p.value, mul_k, add_k, gn1, gn2, K),
+                nbytes(g2, gfo2, qp) + B * M * (Co + 1) * 4,
+                Ck * c2 + c2 * I + I * Co + Cv * Co, ATTENTION_OUT_REL_TOL),
+        }
+        for sweep, (run, run_plain, moved, macs, tol) in sweeps.items():
+            got, ref = run(), run_plain()
+            torch.cuda.synchronize()
+            rel = rel_to_max(got, ref)
+            if not rel <= tol:
+                raise AssertionError(f"{sweep} at {tag}: differs from plain by {rel} of max")
+            ms = time_ms(run, 10)
+            plain_ms = time_ms(run_plain, 3, 1)
+            b_ms, b_by = bound(moved, 2.0 * B * M * K * macs, BF16_OPS_PER_S)
+            row = dict(name=sweep,
+                       shape=f"{tag} {name} ({B},{M},{K}) Ck={Ck} Cv={Cv} c_out={Co}",
+                       max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            print_row(row)
+            print(f"       {sweep} at {tag}: rel_to_max={rel:.3g} (tol {tol})", flush=True)
+            if tag == "FT0":
+                if sweep == "attention_out":
+                    row.update(pool_rows[name])
+                rows.append(row)
+    return rows
+
+
+def check_knn_group(fp_call, dev, rng):
+    """Phase 13, kernels #9/#10: ``knn_group`` at the level-0 feature
+    propagation of one denoise step and at a small support with duplicates
+    and k = N."""
+    from point_diffusion_refinement_tpu_torch import ops
+
+    _, fp, (unknown, known, _, known_feats), _ = fp_call
+    small_pts = torch.from_numpy(rng.uniform(-1, 1, (2, 8, 3)).astype(np.float32)).to(dev)
+    small_pts[:, 4:6] = small_pts[:, :2]  # duplicate points: ties
+    small_q = torch.from_numpy(rng.uniform(-1, 1, (2, 130, 3)).astype(np.float32)).to(dev)
+    small_tab = torch.randn(2, 8, 5, device=dev)
+    cases = [("FP0", unknown.float().contiguous(), known.float().contiguous(), known_feats, fp.k),
+             ("small", small_q, small_pts, small_tab, 8)]
+    for tag, q, pts, table, k in cases:
+        C = table.shape[-1]
+        out = ops.knn_group(q, pts, table, k)
+        ref = ops.knn_group_plain(q, pts, table, k)
+        d, i = ops.knn(q, pts, k)
+        torch.cuda.synchronize()
+        if tuple(out.shape) != (*q.shape[:2], k, C + 11) or out.dtype != torch.bfloat16:
+            raise AssertionError(f"knn_group {tag}: wrong shape or type")
+        if not torch.equal(out[..., :C], ops.group_points(table.to(torch.bfloat16), i)):
+            raise AssertionError(f"knn_group {tag}: rows are not those of knn's indices")
+        if not torch.equal(out[..., C], d.to(torch.bfloat16)):
+            raise AssertionError(f"knn_group {tag}: distances differ from knn's")
+        if not torch.equal(out, ref):
+            err = float((out.float() - ref.float()).abs().max())
+            raise AssertionError(f"knn_group {tag}: differs from plain by {err}")
+    tag, q, pts, table, k = cases[0]
+    B, M, N, C = *q.shape[:2], pts.shape[1], table.shape[-1]
+
+    def library():
+        _, i = torch.topk(torch.cdist(q, pts), k, dim=-1, largest=False)
+        return torch.gather(table[:, None].expand(B, M, N, C), 2,
+                            i[..., None].expand(B, M, k, C))
+
+    ms = time_ms(lambda: ops.knn_group(q, pts, table, k), 20)
+    plain_ms = time_ms(lambda: ops.knn_group_plain(q, pts, table, k), 5)
+    lib_ms = time_ms(library, 20)
+    b_ms, b_by = bound(nbytes(q, pts, table) + B * M * k * (C + 11) * 2, 10.0 * B * M * N)
+    row = dict(name="knn_group", shape=f"FP0 q ({B},{M}) pts ({B},{N}) k={k} C={C}",
+               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=lib_ms)
+    print_row(row)
+    return row
+
+
+def compare_variants(what: str, call) -> None:
+    """One network evaluation ``call(**routes)`` with the variants on
+    against off and against the plain versions, and packed against off."""
+    from point_diffusion_refinement_tpu_torch.ops import kernels
+
+    on = dict(fused_attention=True, fused_knn=True)
+    with torch.no_grad():
+        y_off = call().float()
+        y_on = call(**on).float()
+        y_packed = call(packed=True).float()
+        with kernels.plain_ops():
+            y_plain = call(**on).float()
+    d_on, d_packed = (y_on - y_off).abs(), (y_packed - y_off).abs()
+    rel = float((y_on - y_plain).norm() / y_plain.norm())
+    print(f"{what} variants on vs off: max={float(d_on.max()):.3g} (tol {VARIANT_MAX_TOL}) "
+          f"mean={float(d_on.mean()):.3g} (tol {VARIANT_MEAN_TOL}) "
+          f"output_abs_mean={float(y_off.abs().mean()):.3g}; "
+          f"on vs plain rel_err={rel:.3g} (tol {VARIANT_PLAIN_REL_TOL}); "
+          f"packed vs off: max={float(d_packed.max()):.3g} mean={float(d_packed.mean()):.3g} "
+          f"(same tolerances)", flush=True)
+    if not (float(d_on.max()) <= VARIANT_MAX_TOL and float(d_on.mean()) <= VARIANT_MEAN_TOL):
+        raise AssertionError(f"{what}: the variants on disagree with the variants off")
+    if not rel <= VARIANT_PLAIN_REL_TOL:
+        raise AssertionError(f"{what}: the variants' kernels disagree with their plain versions")
+    if not (float(d_packed.max()) <= VARIANT_MAX_TOL
+            and float(d_packed.mean()) <= VARIANT_MEAN_TOL):
+        raise AssertionError(f"{what}: packed disagrees with unpacked")
+
+
+def variant_costs(what: str, call, reps: int, steps: int) -> None:
+    """What each variant of ``call(**routes)`` costs, in turn (off first and
+    last, so the spread shows): host-clock ms of ``reps`` calls, each ending
+    in a synchronise (mean and least: the host's load moves the mean), then
+    device time and device-busy share of a profiled window of ``steps``."""
+    for tag, routes in VARIANTS:
+        fn = lambda: call(**routes)
+        times = []
+        with torch.no_grad():
+            fn()  # warm-up of this variant's allocations
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+        print(f"{what} cost: variant={tag:<9} ms_mean={np.mean(times):.2f} "
+              f"ms_min={min(times):.2f}", flush=True)
+        profile_window(f"{what} ({tag})", fn, steps, table=tag == "attention")
+
+
+def accelerated_inference(model, cf, x, ts, label, rng, dev):
+    """Phase 13: the accelerated inference configuration."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.models.attention import AttentionPool
+    from point_diffusion_refinement_tpu_torch.models.modules import KnnFeaturePropagation
+
+    def denoise(**routes):
+        return model.denoise(x, ts, label, cf, fused=True, **routes)
+
+    on = dict(fused_attention=True, fused_knn=True)
+    ops.reset_launch_counts()
+    calls = capture_calls(model, (AttentionPool, KnnFeaturePropagation), lambda: denoise(**on))
+    step_counts = {n: ops.launch_counts()[n] for n in VARIANT_PATH_KERNELS}
+    # a pool is named by the module that owns it (``fp_0.AttentionPool_0``)
+    sites = [(c[0].rsplit(".", 1)[0], *c[1:]) for c in calls if isinstance(c[1], AttentionPool)]
+    fps = [c for c in calls if isinstance(c[1], KnnFeaturePropagation)]
+    print(f"one denoise step with the variants on: {len(sites)} attention pools, "
+          f"launches={step_counts}", flush=True)
+    if any(step_counts[n] != len(sites) for n in VARIANT_PATH_KERNELS[:3]):
+        raise AssertionError("an attention site of the denoise step was not fused")
+    eligible = [c[0] for c in fps if c[1].fused_knn_eligible(c[2][0], c[2][1], c[2][3], True)]
+    print(f"kNN feature propagations eligible for knn_group: {eligible} of "
+          f"{[c[0] for c in fps]}", flush=True)
+    if step_counts["knn_group"] != len(eligible) or not eligible:
+        raise AssertionError("knn_group launches do not match the eligible sites")
+    rows = check_attention(sites, dev)
+    rows.append(check_knn_group(next(c for c in fps if c[0] == eligible[0]), dev, rng))
+    del calls, sites, fps
+
+    counts = pipeline(model, rng, dev, tag="pipeline with variants", **on)
+    compare_variants("denoise step B=4", denoise)
+    variant_costs("denoise step B=4", denoise, 10, 3)
+    return rows, counts
+
+
+def refine_variants(rng, dev) -> None:
+    """Phase 13 at the refine net: the B=32 x8 forward with the variants on
+    against off and against the plain versions, and what each costs."""
+    B = 32
+    model, _, _ = upsample_refiner(seed=2)
+    coarse = torch.from_numpy(rng.uniform(-0.5, 0.5, (B, 2048, 3)).astype(np.float32)).to(dev)
+    cond = conditions(rng, B, dev)
+    label = torch.from_numpy(rng.integers(0, 16, (B,))).to(dev)
+    with torch.no_grad():
+        cf = model.encode_condition(cond)
+
+    def forward(**routes):
+        return model.denoise(coarse, None, label, cf, fused=True, **routes)
+
+    compare_variants("refine forward B=32", forward)
+
+    variant_costs("refine forward B=32", forward, 5, 1)
+    with torch.no_grad():
+        encode_ms = time_ms(lambda: model.encode_condition(cond), 3, 1)
+        shipped_ms = time_ms(lambda: model(coarse, cond, None, label), 3, 1)
+    print(f"refine forward B=32 cost: the condition branch, which no variant touches, "
+          f"ms={encode_ms:.2f}; forward() whole, the shipped refiner's route, "
+          f"ms={shipped_ms:.2f} (CUDA events)", flush=True)
 
 
 def check_training_kernels(dev, rng):
@@ -1054,6 +1429,12 @@ def main() -> int:
     path_counts = {"pipeline": pipeline(model, rng, dev)}
     refine_at_batch(rng, dev)
     evaluation_cost(rng, dev)
+
+    # 13. the accelerated inference configuration
+    variant_rows, path_counts["pipeline_variants"] = accelerated_inference(
+        model, cf, x, ts, label, rng, dev)
+    rows += variant_rows
+    refine_variants(rng, dev)
     del model, cf, cf_p, sampler, short
 
     # 10-12. training
@@ -1065,7 +1446,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    # 13. report
+    # 14. report
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)
@@ -1082,6 +1463,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            # the whole fused pool at the row's site beside the unfused pool
+            **{k: v for k, v in r.items() if k.startswith("pool_")},
         })
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

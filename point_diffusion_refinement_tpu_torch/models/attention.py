@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.attention_pool import fused_attention_pool, prepare_attention_weights
 from ..ops.neighbors import count_to_mask
 from .common import Dense, PartialGroupNorm, _GNParams, _group_affine
 
@@ -35,7 +36,9 @@ class SplitConcatGroupNorm(nn.Module):
         if self.normed_c:
             self.GroupNorm_0 = _GNParams(self.normed_c)
 
-    def forward(self, q, k):
+    def forward(self, q, k, k_stats=None):
+        """``k_stats``: float32 per-channel (sum, sum of squares) of ``k``
+        over its (M, K) axes, each (B, C2), computed elsewhere."""
         c1, c2 = q.shape[-1], k.shape[-1]
         nc = self.normed_c
         if nc == 0:
@@ -45,8 +48,12 @@ class SplitConcatGroupNorm(nn.Module):
         cnt = float(M) * float(K) * (nc // self.num_groups)
         xq = q.to(torch.float32)
         xk = k.to(torch.float32)
-        sum_c = torch.cat([xq.sum(dim=1) * K, xk.sum(dim=(1, 2))], dim=-1)[:, :nc]
-        ssq_c = torch.cat([(xq * xq).sum(dim=1) * K, (xk * xk).sum(dim=(1, 2))], dim=-1)[:, :nc]
+        if k_stats is not None:
+            sum_k, ssq_k = k_stats
+        else:
+            sum_k, ssq_k = xk.sum(dim=(1, 2)), (xk * xk).sum(dim=(1, 2))
+        sum_c = torch.cat([xq.sum(dim=1) * K, sum_k], dim=-1)[:, :nc]
+        ssq_c = torch.cat([(xq * xq).sum(dim=1) * K, ssq_k], dim=-1)[:, :nc]
         mean, rstd, _ = _group_affine(
             sum_c, ssq_c, cnt, self.num_groups,
             torch.ones_like(self.GroupNorm_0.scale), torch.zeros_like(self.GroupNorm_0.bias),
@@ -99,6 +106,12 @@ class AttentionPool(nn.Module):
 
     Scores are an MLP over [Dense(query) broadcast, Dense(key)]; softmax over
     K with invalid slots set to -1e9; the output is the weighted value sum.
+
+    ``forward(..., fused=True)`` (inference only: no gradient) sends the
+    whole pool through ``ops.fused_attention_pool`` and returns float32, as
+    the JAX package's fused path does; it is taken only under bf16 compute
+    with the three flags true and no ``key_pre``, and with the same
+    parameters as the unfused path.
     """
 
     def __init__(self, query_features: int, key_features: int, value_features: int,
@@ -114,6 +127,8 @@ class AttentionPool(nn.Module):
         self.transform_out = transform_grouped_feat_out
         self.last_activation = last_activation
         self.dtype = dtype
+        self.widths = dict(c1=c1, c2=c2, inter_c=inter_c, c_out=c_out)
+        self._prepared = None  # (parameter versions, PreparedWeights)
         self.Dense_0 = Dense(query_features, c1, dtype=dtype)
         self.Dense_1 = Dense(key_features, c2, dtype=dtype)
         if attention_bn:
@@ -127,14 +142,60 @@ class AttentionPool(nn.Module):
             if last_activation and attention_bn:
                 self.PartialGroupNorm_2 = PartialGroupNorm(c_out, min(32, c_out), dtype)
 
-    def forward(self, feat, grouped_feat, grouped_feat_out, counts):
+    def fused_eligible(self, fused: bool, key_pre) -> bool:
+        """The sites the fused kernels serve: the shipped all-flags-true
+        shape under bf16 compute, with the key Dense not precomputed."""
+        return (
+            fused
+            and self.dtype == torch.bfloat16
+            and self.attention_bn and self.transform_out and self.last_activation
+            and key_pre is None
+        )
+
+    def _fused_weights(self):
+        """The parameters as the sweeps read them, rebuilt when a parameter
+        was updated, replaced or moved."""
+        names = ("Dense_0", "Dense_1", "Dense_2", "Dense_3", "Dense_4")
+        norms = ("PartialGroupNorm_0", "PartialGroupNorm_1", "PartialGroupNorm_2")
+        params = []
+        for n in names:
+            d = getattr(self, n)
+            params += [d.weight, d.bias]
+        gns = []
+        for n in norms:
+            g = getattr(self, n)
+            if g.normed_c:
+                gns.append((g.GroupNorm_0.scale, g.GroupNorm_0.bias))
+            else:  # narrower than its group count: nothing is normalised
+                gns.append((params[0].new_ones(0), params[0].new_zeros(0)))
+        flat = params + [t for pair in gns for t in pair]
+        stamp = tuple((t.data_ptr(), t._version, t.device) for t in flat)
+        if self._prepared is None or self._prepared[0] != stamp:
+            (w0, b0), (w1, b1), (w2, b2), (w3, b3), (w4, b4) = (
+                (getattr(self, n).weight.t(), getattr(self, n).bias) for n in names)
+            self._prepared = (stamp, prepare_attention_weights(
+                w0, b0, w1, b1, *gns[0], w2, b2, *gns[1], w3, b3, w4, b4, *gns[2],
+                c1=self.widths["c1"]))
+        return self._prepared[1]
+
+    def forward(self, feat, grouped_feat, grouped_feat_out, counts, fused: bool = False,
+                key_pre=None, key_stats=None):
+        """``key_pre``: ``Dense_1(grouped_feat)`` computed elsewhere (a merged
+        product that reads the grouped tensor once for all its consumers);
+        the key Dense is then skipped.  ``key_stats``: float32 (sum, sum of
+        squares) of relu(key_pre) over (M, K), for the first GroupNorm."""
         K = grouped_feat.shape[-2]
+        if self.fused_eligible(fused, key_pre):
+            cnt = None if isinstance(counts, str) else counts
+            return fused_attention_pool(
+                feat, grouped_feat, grouped_feat_out, cnt, K=K,
+                prepared=self._fused_weights(), **self.widths)
         q = self.Dense_0(feat)
-        k = self.Dense_1(grouped_feat)
+        k = key_pre if key_pre is not None else self.Dense_1(grouped_feat)
         hq = torch.relu(q)  # ReLU precedes the norm
         hk = torch.relu(k)
         if self.attention_bn:
-            hq, hk = self.PartialGroupNorm_0(hq, hk)
+            hq, hk = self.PartialGroupNorm_0(hq, hk, k_stats=key_stats)
         qp, kp = self.Dense_2(hq, hk)
         h = torch.relu(qp[:, :, None, :] + kp)
         if self.attention_bn:

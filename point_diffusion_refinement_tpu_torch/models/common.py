@@ -105,17 +105,24 @@ class PartialGroupNorm(nn.Module):
         if self.normed_c:
             self.GroupNorm_0 = _GNParams(self.normed_c)
 
-    def forward(self, x):
+    def forward(self, x, stats=None):
+        """``stats``: per-channel float32 (sum, sum of squares) over the
+        spatial axes, each (B, >= C), computed elsewhere (next to a merged
+        first-layer product)."""
         if self.normed_c == 0:
             return x
         c, nc = x.shape[-1], self.normed_c
         B = x.shape[0]
         spatial = tuple(range(1, x.dim() - 1))
         cnt = float(math.prod(x.shape[a] for a in spatial)) * (nc // self.num_groups)
-        head = x[..., :nc].to(torch.float32)
+        if stats is not None:
+            sum_c, ssq_c = stats[0][:, :nc], stats[1][:, :nc]
+        else:
+            head = x[..., :nc].to(torch.float32)
+            sum_c, ssq_c = head.sum(dim=spatial), (head * head).sum(dim=spatial)
         mu, s, b = _group_affine(
-            head.sum(dim=spatial), (head * head).sum(dim=spatial), cnt,
-            self.num_groups, self.GroupNorm_0.scale, self.GroupNorm_0.bias,
+            sum_c, ssq_c, cnt, self.num_groups, self.GroupNorm_0.scale,
+            self.GroupNorm_0.bias,
         )
         if nc != c:
             pad = c - nc
@@ -162,8 +169,14 @@ class SharedMLP(nn.Module):
             setattr(self, f"Dense_{i}", Dense(width, f, use_bias=bias, dtype=dtype))
             width = f
 
-    def forward(self, x):
+    def forward(self, x, first_pre: bool = False, first_stats=None):
+        """``first_pre=True``: ``x`` is already the first Dense's output
+        (from a merged product that reads the grouped tensor once for all
+        its consumers); that Dense is skipped.  Dense-first stacks only.
+        ``first_stats``: that output's (sum, sum of squares) for its norm."""
         n = len(self.features)
+        if first_pre:
+            assert not self.bn_first
         for i in range(n):
             if self.bn_first:
                 if self._has_norm[i]:
@@ -171,10 +184,12 @@ class SharedMLP(nn.Module):
                 x = self.act(x)
                 x = getattr(self, f"Dense_{i}")(x)
             else:
-                x = getattr(self, f"Dense_{i}")(x)
+                if not (first_pre and i == 0):
+                    x = getattr(self, f"Dense_{i}")(x)
                 if not (self.trim_last and i == n - 1):
                     if self._has_norm[i]:
-                        x = getattr(self, f"PartialGroupNorm_{i}")(x)
+                        x = getattr(self, f"PartialGroupNorm_{i}")(
+                            x, stats=first_stats if (first_pre and i == 0) else None)
                     x = self.act(x)
         return x
 
@@ -207,6 +222,7 @@ class ConditionedMLP(nn.Module):
             assert len(feats) >= 3
         self.features = feats
         self.out_features = feats[-1]
+        self.bn, self.bn_first = bn, bn_first
         self.include_t = include_t
         self.include_condition = include_condition
         self.include_second_condition = include_second_condition
@@ -244,10 +260,18 @@ class ConditionedMLP(nn.Module):
             self.res_proj = next(names)
             setattr(self, self.res_proj, Dense(width, feats[-1], use_bias=bias, dtype=dtype))
 
-    def forward(self, feature, t_emb=None, condition_emb=None, second_condition_emb=None):
+    def forward(self, feature, t_emb=None, condition_emb=None, second_condition_emb=None,
+                first_pre=None, res_pre=None, first_stats=None):
+        """``first_pre`` / ``res_pre``: the first Dense's output and the
+        residual projection's output computed elsewhere
+        (``modules._packed_first_layers``); those layers are then skipped."""
         if self.first_conv is not None:
+            assert first_pre is None
             feature = getattr(self, self.first_conv)(feature)
-        h = self.SharedMLP_0(feature)
+        if first_pre is not None:
+            h = self.SharedMLP_0(first_pre, first_pre=True, first_stats=first_stats)
+        else:
+            h = self.SharedMLP_0(feature)
         if self.include_t:
             assert t_emb is not None
             h = h + getattr(self, self.t_proj)(t_emb)[:, None, None, :]
@@ -267,7 +291,9 @@ class ConditionedMLP(nn.Module):
         else:
             assert second_condition_emb is None
         if self.res_connect:
-            if self.res_identity:
+            if res_pre is not None:
+                h = h + res_pre
+            elif self.res_identity:
                 h = h + feature
             else:
                 h = h + getattr(self, self.res_proj)(feature)

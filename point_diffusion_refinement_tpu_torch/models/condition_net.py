@@ -27,6 +27,14 @@ package.  Its two opt-in routes are keyword arguments threaded through
 differentiable fused ball group at the eligible set-abstraction levels) and
 ``fused_gather`` (ball query + gather in one kernel at every other radius
 grouping); see ``models/modules.py``.
+
+``denoise`` has three more opt-in routes, for inference only and off by
+default: ``fused_attention`` (the three-sweep attention-pool kernel at every
+attention site of the x_t branch), ``fused_knn`` (kNN + gather in one kernel
+at the eligible kNN feature propagations) and ``packed`` (merged first-layer
+products).  As in the JAX package they take effect only together with the
+fused inference routing (``fused=True`` with at least one eligible FT level)
+and never in ``encode_condition`` or ``forward``.
 """
 
 from __future__ import annotations
@@ -417,13 +425,16 @@ class PointNet2CloudCondition(nn.Module):
         return CondFeatures(tuple(l_uvw), encoder_feats, decoder_feats, global_feature)
 
     def denoise(self, pointcloud, ts=None, label=None, cond: Optional[CondFeatures] = None,
-                fused: bool = False, fused_gather: bool = False, fused_sa: bool = False):
+                fused: bool = False, fused_gather: bool = False, fused_sa: bool = False,
+                fused_attention: bool = False, fused_knn: bool = False,
+                packed: bool = False):
         """The x_t branch given precomputed condition features.
 
         pointcloud (B, N, 3); ts (B,) float; label (B,) int -> (B, N, out_dim).
         ``fused=True`` (inference) routes the eligible groupings through the
-        fused ball-group kernel; ``fused_gather`` and ``fused_sa`` are the
-        training step's routes."""
+        fused ball-group kernel; ``fused_attention``, ``fused_knn`` and
+        ``packed`` are inference routes on top of it; ``fused_gather`` and
+        ``fused_sa`` are the training step's routes."""
         xyz, features = self._split(pointcloud)
         t_emb = self._t_embedding(ts) if (ts is not None and self.include_t) else None
         class_emb = None
@@ -438,6 +449,8 @@ class PointNet2CloudCondition(nn.Module):
 
         ft_levels = self._ft_fused_levels(cond) if (fused and cond is not None) else set()
         fused = bool(ft_levels)
+        # the inference routes ride on the fused inference routing
+        inference = dict(fused_attention=fused and fused_attention, packed=fused and packed)
         dec_groups = {}  # level -> (grouped, counts) for the decoder FT
 
         def enc_group(i, q_xyz):
@@ -461,12 +474,13 @@ class PointNet2CloudCondition(nn.Module):
                     cond.l_uvw[i], cond.encoder_feats[i], l_xyz[i],
                     query_feats=l_features[i], subset=False, pooling=self.pooling,
                     pregrouped=enc_group(i, l_xyz[i]), fused_gather=fused_gather,
+                    **inference,
                 )
                 input_feature = self._cat([mapped, l_features[i]])
             else:
                 input_feature = l_features[i]
             xi, fi = sa(l_xyz[i], input_feature, fused=fused, fps_ordered=i > 0,
-                        fused_gather=fused_gather, fused_sa=fused_sa, **kw)
+                        fused_gather=fused_gather, fused_sa=fused_sa, **inference, **kw)
             l_xyz.append(xi)
             l_features.append(fi)
 
@@ -478,19 +492,23 @@ class PointNet2CloudCondition(nn.Module):
                     cond.l_uvw[i], cond.decoder_feats[i], l_xyz[i],
                     query_feats=l_features[i], subset=False, pooling=self.pooling,
                     pregrouped=dec_groups.get(lvl), fused_gather=fused_gather,
+                    **inference,
                 )
                 input_feature = self._cat([mapped, l_features[i]])
             else:
                 input_feature = l_features[i]
+            fp_kw = {}
+            if isinstance(self.fp[i], KnnFeaturePropagation):
+                fp_kw = dict(fused_knn=fused and fused_knn, **inference)
             l_features[i - 1] = self.fp[i](
-                l_xyz[i - 1], l_xyz[i], l_features[i - 1], input_feature, **kw
+                l_xyz[i - 1], l_xyz[i], l_features[i - 1], input_feature, **fp_kw, **kw
             )
 
         if self.include_local_feature:
             mapped = self.dec_map[0](
                 cond.l_uvw[0], cond.decoder_feats[0], l_xyz[0],
                 query_feats=l_features[0], subset=False, pooling=self.pooling,
-                pregrouped=dec_groups.get(0), fused_gather=fused_gather,
+                pregrouped=dec_groups.get(0), fused_gather=fused_gather, **inference,
             )
             out_feature = self._cat([mapped, l_features[0]])
         else:

@@ -14,7 +14,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
-from ..ops.neighbors import ball_query, ball_query_group, knn
+from ..ops.neighbors import ball_query, ball_query_group, knn, knn_group
 from ..ops.sampling import group_points
 from ..ops.scatter import group_scatter_add
 
@@ -150,7 +150,7 @@ def group_all(
 
 def group_knn_features(
     x: torch.Tensor, y: torch.Tensor, features_at_y: torch.Tensor, k: int,
-    lossy_features: bool = False,
+    lossy_features: bool = False, fused: bool = False,
 ) -> torch.Tensor:
     """kNN gather producing group_knn's (C+11) channels:
     [neighbour feats (C), squared dist (1), inverse-distance weight (1),
@@ -158,7 +158,13 @@ def group_knn_features(
 
     x: (B, N1, 3) queries; y: (B, N2, 3) support; features_at_y: (B, N2, C)
     -> (B, N1, k, C+11), bf16 when ``lossy_features`` (the consumer Dense
-    computes in bf16 anyway)."""
+    computes in bf16 anyway).  ``fused`` (inference, bf16 output only) does
+    the selection, the gather and the packing in one kernel,
+    ``ops.knn_group``."""
+    if fused:
+        if not lossy_features:
+            raise ValueError("the fused kNN group emits bf16: it needs lossy_features=True")
+        return knn_group(x, y, features_at_y, k)
     dist, idx = knn(x, y, k)
     nn_abs = group_points(y.to(torch.float32), idx)
     neigh_feats = group_points(features_at_y, idx)

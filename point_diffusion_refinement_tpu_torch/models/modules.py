@@ -19,10 +19,23 @@ package (environment variables there, keyword arguments here):
 ``_train_windowed_eligible``, width limit included) through the
 differentiable fused ball group ``ops.ball_group_train``, and
 ``fused_gather`` sends every other radius grouping through
-``grouping.fused_ball_gather``.  The global
-self-attention option, the merged first-layer matmuls and the grouper
-inside feature propagation are not ported (all off in the shipped
-configs); asking for them raises.
+``grouping.fused_ball_gather``.
+
+Inference has three more opt-in routes, off by default as in the JAX package
+(environment variables for fused attention, the windowed kNN and the packed
+first layers there, keyword arguments of ``forward`` here):
+``fused_attention`` sends an attention pool through the three-sweep kernel
+(``ops.fused_attention_pool``) at the sites ``AttentionPool.fused_eligible`` accepts, ``fused_knn`` sends
+the kNN grouping of a feature propagation through ``ops.knn_group`` at the
+sites ``KnnFeaturePropagation.fused_knn_eligible`` accepts (the JAX
+package's size rule, kept so that both packages take the same sites), and
+``packed`` merges the products that read a grouped tensor (the MLP's first
+Dense, its residual projection and the pool's key Dense) into one
+(``_packed_first_layers``).  Where ``packed`` hands a pool its key, that pool
+stays unfused: packed wins.
+
+The global self-attention option and the grouper inside feature propagation
+are not ported (both off in the shipped configs); asking for them raises.
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.ball_group import ball_group, ball_group_train
 from ..ops.interpolate import inverse_distance_weights, three_interpolate, three_nn
@@ -45,11 +59,84 @@ FUSED_MIN_SUPPORT = 1024
 FUSED_QUERY_MULTIPLE = 128
 # the TPU kernel's packed table holds 8 position lanes + the features in 128
 TRAIN_FUSED_MAX_TABLE = 128
+# ... and in 256 for the kNN group of a feature propagation
+KNN_FUSED_MAX_TABLE = 256
 
 
 def _unsupported(flag: bool, what: str) -> None:
     if flag:
         raise NotImplementedError(f"{what} is not ported yet")
+
+
+def _packed_first_layers(grouped: torch.Tensor, cm: ConditionedMLP,
+                         ap: Optional[AttentionPool], dtype):
+    """The products that each read the (B, M, K, C) grouped tensor (the
+    conditioned MLP's first Dense, its residual projection and the attention
+    pool's key Dense) as one product over the row-wise concatenation of their
+    weights, sliced afterwards: the same per-output arithmetic, one read.
+
+    Returns (first_pre, res_pre, key_pre, first_stats, key_stats), the
+    layers' outputs with the float32 (sum, sum of squares) their GroupNorms
+    need, or None where the configuration does not match (norm-first or
+    first-conv stacks, other widths) or there is nothing to merge."""
+    if cm.bn_first or cm.first_conv is not None:
+        return None
+    first = cm.SharedMLP_0.Dense_0
+    C = grouped.shape[-1]
+    if first.in_features != C:
+        return None
+    f_last = cm.features[-1]
+    layers = [first]
+    res_needed = cm.res_connect and C != f_last
+    if res_needed:
+        res = getattr(cm, cm.res_proj) if cm.res_proj is not None else None
+        if res is None or (res.in_features, res.features) != (C, f_last):
+            return None
+        layers.append(res)
+    if ap is not None:
+        key = ap.Dense_1
+        if (key.in_features, key.features) != (C, max(C, 32)):
+            return None
+        layers.append(key)
+    if len(layers) == 1:
+        return None
+    d = dtype or torch.float32
+    w_cat = torch.cat([m.weight for m in layers], dim=0).to(d)
+    b_cat = torch.cat([m.bias if m.bias is not None else m.weight.new_zeros(m.features)
+                       for m in layers]).to(d)
+    out = F.linear(grouped.to(d), w_cat) + b_cat
+    f0 = first.features
+    first_pre = out[..., :f0]
+    off = f0
+    res_pre = None
+    if res_needed:
+        res_pre = out[..., off:off + f_last]
+        off += f_last
+    key_pre = out[..., off:] if ap is not None else None
+
+    spatial = tuple(range(1, out.dim() - 1))
+
+    def sums(x):
+        x32 = x.to(torch.float32)
+        return x32.sum(dim=spatial), (x32 * x32).sum(dim=spatial)
+
+    first_stats = sums(first_pre) if cm.bn and not cm.bn_first else None
+    key_stats = sums(torch.relu(key_pre)) if ap is not None and ap.attention_bn else None
+    return first_pre, res_pre, key_pre, first_stats, key_stats
+
+
+def _mlp_and_pool(cm: ConditionedMLP, ap: Optional[AttentionPool], grouped, counts, query,
+                  pooling: str, dtype, fused_attention: bool, packed: bool, **emb):
+    """The conditioned MLP over a grouped tensor, then the attention pool
+    (``ap`` with ``query``) or the max/avg pool, with the two inference
+    routes applied where they are eligible."""
+    pre = _packed_first_layers(grouped, cm, ap, dtype) if packed else None
+    first_pre, res_pre, key_pre, first_stats, key_stats = pre if pre is not None else (None,) * 5
+    out = cm(grouped, first_pre=first_pre, res_pre=res_pre, first_stats=first_stats, **emb)
+    if ap is None:
+        return pool_features(out, counts, pooling)
+    return ap(query, grouped, out, counts, fused=fused_attention, key_pre=key_pre,
+              key_stats=key_stats)
 
 
 class SetAbstraction(nn.Module):
@@ -125,7 +212,8 @@ class SetAbstraction(nn.Module):
     def forward(self, xyz, features, t_emb=None, condition_emb=None,
                 second_condition_emb=None, pooling: str = "max", fused: bool = False,
                 fps_ordered: bool = False, fused_gather: bool = False,
-                fused_sa: bool = False):
+                fused_sa: bool = False, fused_attention: bool = False,
+                packed: bool = False):
         if fps_ordered:
             # the input is the previous level's FPS output in selection order,
             # and greedy FPS is prefix-stable: FPS here is the identity prefix
@@ -152,20 +240,19 @@ class SetAbstraction(nn.Module):
                 include_center_coordinate=self.include_center, subset=True,
                 fused_gather=fused_gather,
             )
-        out = self.ConditionedMLP_0(
-            grouped,
+        query = None
+        if self.use_attention:
+            query = (features[:, : self.npoint] if fps_ordered
+                     else gather_points(features, fps_idx))
+        new_features = _mlp_and_pool(
+            self.ConditionedMLP_0, self.AttentionPool_0 if self.use_attention else None,
+            grouped, counts, query, pooling, self.dtype, fused_attention, packed,
             t_emb=t_emb if self.include_t else None,
             condition_emb=condition_emb if self.include_condition else None,
             second_condition_emb=(
                 second_condition_emb if self.include_second_condition else None
             ),
         )
-        if self.use_attention:
-            query = (features[:, : self.npoint] if fps_ordered
-                     else gather_points(features, fps_idx))
-            new_features = self.AttentionPool_0(query, grouped, out, counts)
-        else:
-            new_features = pool_features(out, counts, pooling)
         # new_xyz stays in FPS selection order: the next level's
         # fps_ordered=True relies on it
         return new_xyz, new_features
@@ -268,23 +355,37 @@ class KnnFeaturePropagation(nn.Module):
             **common,
         )
 
+    def fused_knn_eligible(self, unknown, known, known_feats, fused_knn: bool) -> bool:
+        """The sites the fused kNN group serves (the JAX package's rule for
+        its windowed kernel, table width included)."""
+        return (
+            fused_knn
+            and known is not None
+            and known_feats is not None
+            and self.dtype is not None
+            and known.shape[1] >= FUSED_MIN_SUPPORT
+            and unknown.shape[1] % FUSED_QUERY_MULTIPLE == 0
+            and self.k <= known.shape[1]
+            and 8 + known_feats.shape[-1] <= KNN_FUSED_MAX_TABLE
+        )
+
     def forward(self, unknown, known, unknown_feats, known_feats, t_emb=None,
-                condition_emb=None, second_condition_emb=None, pooling: str = "max"):
+                condition_emb=None, second_condition_emb=None, pooling: str = "max",
+                fused_attention: bool = False, fused_knn: bool = False,
+                packed: bool = False):
         if known is not None:
             grouped = group_knn_features(
                 unknown, known, known_feats, min(self.k, known.shape[1]),
                 lossy_features=self.dtype is not None,
+                fused=self.fused_knn_eligible(unknown, known, known_feats, fused_knn),
             )
-            out1 = self.ConditionedMLP_0(
-                grouped,
+            interpolated = _mlp_and_pool(
+                self.ConditionedMLP_0, self.AttentionPool_0 if self.use_attention else None,
+                grouped, "all", unknown_feats, pooling, self.dtype, fused_attention, packed,
                 condition_emb=(
                     second_condition_emb if self.include_second_condition else None
                 ),
             )
-            if self.use_attention:
-                interpolated = self.AttentionPool_0(unknown_feats, grouped, out1, "all")
-            else:
-                interpolated = pool_features(out1, "all", pooling)
         else:
             interpolated = known_feats.expand(
                 known_feats.shape[0], unknown.shape[1], known_feats.shape[-1]
@@ -350,7 +451,8 @@ class FeatureTransfer(nn.Module):
             )
 
     def forward(self, xyz, features, new_xyz, query_feats=None, subset: bool = False,
-                pooling: str = "max", pregrouped=None, fused_gather: bool = False):
+                pooling: str = "max", pregrouped=None, fused_gather: bool = False,
+                fused_attention: bool = False, packed: bool = False):
         if pregrouped is not None:
             grouped, counts = pregrouped
         else:
@@ -361,8 +463,8 @@ class FeatureTransfer(nn.Module):
                 include_center_coordinate=self.include_center, subset=subset,
                 fused_gather=fused_gather,
             )
-        out = self.ConditionedMLP_0(grouped)
         if self.use_attention:
             assert query_feats is not None
-            return self.AttentionPool_0(query_feats, grouped, out, counts)
-        return pool_features(out, counts, pooling)
+        return _mlp_and_pool(
+            self.ConditionedMLP_0, self.AttentionPool_0 if self.use_attention else None,
+            grouped, counts, query_feats, pooling, self.dtype, fused_attention, packed)

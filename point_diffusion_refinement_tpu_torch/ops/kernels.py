@@ -5,7 +5,8 @@ own shared library with a plain C interface, at first use, into
 ``<repo>/build/kernels/`` (listed in ``.gitignore``) under a name keyed by a
 hash of the sources and flags, so a clean checkout builds them and a changed
 source rebuilds.  A source may hold several kernels (``fps.cu`` has the
-idx-only and the coordinates entry); each kernel has its own launch count.
+idx-only and the coordinates entry, ``attention_pool.cu`` the three sweeps of
+the fused attention pool); each kernel has its own launch count.
 The libraries are bound with ``ctypes``: every pointer and the stream are
 ``c_void_p``, the stream is PyTorch's current one, and each C entry returns
 ``cudaGetLastError()``, which the launch checks.
@@ -65,6 +66,17 @@ KERNELS = {
         "group_scatter.cu", "pdr_group_scatter_add",
         [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     ),
+    # the three sweeps of the fused attention pool
+    "attention_stats": (
+        "attention_pool.cu", "pdr_attention_stats", [_P] * 8 + [_I] * 7 + [_P],
+    ),
+    "attention_hstats": (
+        "attention_pool.cu", "pdr_attention_hstats", [_P] * 9 + [_I] * 6 + [_P],
+    ),
+    "attention_out": (
+        "attention_pool.cu", "pdr_attention_out", [_P] * 21 + [_I] * 8 + [_P],
+    ),
+    "knn_group": ("knn_group.cu", "pdr_knn_group", [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

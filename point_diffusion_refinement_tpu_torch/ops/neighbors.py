@@ -1,10 +1,12 @@
 """Neighbourhood queries: ball query and k nearest neighbours.
 
 Counterpart of the JAX package's ``ops/neighbors.py``.  ``ball_query``,
-``knn`` and ``ball_query_group`` (ball query + gather of float32 table rows,
-the counterpart of ``ops/pallas_neighbors.py::ball_query_group_pallas``)
-launch the CUDA kernels ``csrc/ball_query.cu``, ``csrc/knn.cu`` and
-``csrc/ball_query_group.cu`` on GPU tensors; their plain PyTorch versions
+``knn``, ``ball_query_group`` (ball query + gather of float32 table rows,
+the counterpart of ``ops/pallas_neighbors.py::ball_query_group_pallas``) and
+``knn_group`` (kNN + gather + position channels, the counterpart of
+``ops/pallas_window.py::windowed_knn_group``) launch the CUDA kernels
+``csrc/ball_query.cu``, ``csrc/knn.cu``, ``csrc/ball_query_group.cu`` and
+``csrc/knn_group.cu`` on GPU tensors; their plain PyTorch versions
 (``*_plain``) run for CPU tensors and serve as the reference the kernels are
 held against.
 
@@ -169,6 +171,65 @@ def knn(
         dist.data_ptr(), idx.data_ptr(),
     )
     return dist, idx
+
+
+def _pack_knn_group(query, points, table, dist, idx) -> torch.Tensor:
+    """[table rows, squared distance, inverse-distance weight, neighbour xyz,
+    neighbour - query, query xyz] in bf16, each channel rounded from float32
+    once; the weights' denominator is summed in slot order."""
+    nn_abs = group_points(points.to(torch.float32), idx)
+    rows = group_points(table.to(torch.bfloat16), idx)
+    centre = query.to(torch.float32)[:, :, None, :].expand_as(nn_abs)
+    recip = 1.0 / (dist + 1e-8)
+    wsum = recip[..., 0]
+    for j in range(1, recip.shape[-1]):
+        wsum = wsum + recip[..., j]
+    weight = recip / wsum[..., None]
+    parts = [dist[..., None], weight[..., None], nn_abs, nn_abs - centre, centre]
+    return torch.cat([rows] + [p.to(torch.bfloat16) for p in parts], dim=-1)
+
+
+def knn_group_plain(query: torch.Tensor, points: torch.Tensor, table: torch.Tensor,
+                    k: int) -> torch.Tensor:
+    """Plain version of ``knn_group``: the plain kNN, an indexed gather and
+    the channel packing."""
+    dist, idx = knn_plain(query, points, k)
+    return _pack_knn_group(query, points, table, dist, idx)
+
+
+def knn_group(query: torch.Tensor, points: torch.Tensor, table: torch.Tensor,
+              k: int) -> torch.Tensor:
+    """kNN + gather + the 11 distance and position channels of a kNN feature
+    propagation in one kernel (the counterpart of
+    ``ops/pallas_window.py::windowed_knn_group`` and its layout twin
+    ``windowed_knn_group_t``), in the queries' own order.
+
+    query (B, M, 3), points (B, N, 3), table (B, N, C) -> (B, M, k, C + 11)
+    bf16: [table rows (rounded to bf16), squared distance, w_j =
+    (1 / (d_j + 1e-8)) / sum_i 1 / (d_i + 1e-8), neighbour xyz, neighbour -
+    query, query xyz].  Neighbours as ``knn`` gives them (ascending, ties to
+    the lowest index); positions come from the float32 support, so they may
+    differ from the TPU kernel's hi/lo bf16 reconstruction by one bf16 ulp."""
+    if kernels.use_plain(query):
+        return knn_group_plain(query, points, table, k)
+    query, points = kernels.as_f32(query), kernels.as_f32(points)
+    table = table.to(torch.bfloat16).contiguous()
+    B, M, _ = query.shape
+    N, C = points.shape[1], table.shape[-1]
+    kernels.check(query, "knn_group query", torch.float32, (None, None, 3))
+    kernels.check(points, "knn_group points", torch.float32, (B, None, 3))
+    kernels.check(table, "knn_group table", torch.bfloat16, (B, N, None))
+    if not 1 <= k <= min(N, KNN_MAX_K):
+        raise ValueError(
+            f"knn_group kernel needs 1 <= k <= min(N, {KNN_MAX_K}), got k={k}, N={N}")
+    if C < 1:
+        raise ValueError("knn_group: the table needs at least one channel")
+    out = torch.empty((B, M, k, C + 11), dtype=torch.bfloat16, device=query.device)
+    kernels.launch(
+        "knn_group", query.data_ptr(), points.data_ptr(), table.data_ptr(), B, M, N, C, k,
+        out.data_ptr(),
+    )
+    return out
 
 
 def count_to_mask(counts: torch.Tensor, k: int) -> torch.Tensor:

@@ -26,6 +26,9 @@ def make_coarse_sampler(
     fast_plan: Optional[fastdpm.FastSamplingPlan] = None,
     t_slices: Optional[Sequence[int]] = None,
     warm_start_step: Optional[int] = None,
+    fused_attention: bool = False,
+    fused_knn: bool = False,
+    packed: bool = False,
 ):
     """Build a sampler for ``model`` (a PointNet2CloudCondition).
 
@@ -37,7 +40,12 @@ def make_coarse_sampler(
     (``t_slices`` and the warm start are not read); otherwise it is
     ancestral, warm-started from ``XT`` at ``warm_start_step`` when ``XT``
     is given.
+
+    ``fused_attention``, ``fused_knn`` and ``packed`` turn on the opt-in
+    inference routes of ``denoise`` (the fused attention-pool kernel, the
+    fused kNN group, merged first-layer products); all off by default.
     """
+    routes = dict(fused_attention=fused_attention, fused_knn=fused_knn, packed=packed)
 
     def sampler(condition: torch.Tensor, label: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -52,7 +60,7 @@ def make_coarse_sampler(
             cond = model.encode_condition(condition)
 
             def denoise_fn(x, ts):
-                return model.denoise(x, ts, label, cond, fused=True)
+                return model.denoise(x, ts, label, cond, fused=True, **routes)
 
             if fast_plan is not None:
                 return fastdpm.fast_sampling(
@@ -69,7 +77,9 @@ def make_coarse_sampler(
 
 
 def make_refiner(model, point_upsample_factor: int = 1,
-                 include_displacement_center: bool = False):
+                 include_displacement_center: bool = False, *,
+                 fused_attention: bool = False, fused_knn: bool = False,
+                 packed: bool = False):
     """One-forward refinement with ``model`` (a PointNet2CloudCondition
     built with ``include_t=False``).
 
@@ -78,7 +88,12 @@ def make_refiner(model, point_upsample_factor: int = 1,
     ``forward`` gives the displacement, which ``point_upsample`` spreads
     into the upsampled cloud, or which is added as
     ``coarse + displacement * output_scale_factor`` when the factor is 1.
+
+    With ``fused_attention``, ``fused_knn`` or ``packed`` on, the forward
+    takes the inference routing instead (``encode_condition`` +
+    ``denoise(fused=True, ...)``), where those routes exist.
     """
+    routes = dict(fused_attention=fused_attention, fused_knn=fused_knn, packed=packed)
 
     def refine(coarse: torch.Tensor, condition: torch.Tensor, label: torch.Tensor,
                output_scale_factor: float) -> torch.Tensor:
@@ -86,7 +101,12 @@ def make_refiner(model, point_upsample_factor: int = 1,
         coarse = coarse.to(device=device, dtype=torch.float32)
         condition = condition.to(device=device, dtype=torch.float32)
         with torch.no_grad():
-            displacement = model(coarse, condition, None, label.to(device))
+            if any(routes.values()):
+                cond = model.encode_condition(condition)
+                displacement = model.denoise(coarse, None, label.to(device), cond,
+                                             fused=True, **routes)
+            else:
+                displacement = model(coarse, condition, None, label.to(device))
             if point_upsample_factor > 1:
                 refined, _ = point_upsample(
                     coarse, displacement, point_upsample_factor,

@@ -1,0 +1,269 @@
+"""The port's fused attention pool against the JAX package's, on the CPU.
+
+The same numpy-seeded inputs and the same weights (the port's ``state_dict``
+converted by ``utils/weights.py``) go through the JAX ``AttentionPool`` on its
+fused path (``PDR_FUSED_ATTENTION=1``, the Pallas kernels in interpret mode,
+as ``tests/test_pallas_attention.py`` runs them) and through the port's
+``AttentionPool(..., fused=True)``, which on CPU tensors runs the plain
+version of the three sweeps.  Both sides round at the same places (bf16
+products with float32 accumulation, bf16 GroupNorm affines, float32 softmax),
+so they differ by float32 summation order and by the bf16 roundings that this
+flips: rtol = atol = 2e-2, the JAX test's own tolerance for fused against
+unfused.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from point_diffusion_refinement_tpu.models import attention as j_att
+from point_diffusion_refinement_tpu.ops import pallas_attention as j_pa
+from point_diffusion_refinement_tpu_torch.models import attention as t_att
+from point_diffusion_refinement_tpu_torch.ops import attention_pool as t_pa
+from point_diffusion_refinement_tpu_torch.utils.weights import (
+    load_flax_params,
+    state_dict_to_flax,
+)
+
+TOL = dict(rtol=2e-2, atol=2e-2)
+
+CASES = [
+    # name, M, K, Cq, Ck, Cv, c_out, use_counts
+    ("ft0", 128, 32, 4, 38, 32, 32, True),
+    ("sa0", 64, 32, 35, 44, 32, 64, True),
+    ("knnfp", 128, 8, 128, 166, 128, 128, False),
+    ("tiny_m", 16, 32, 35, 38, 32, 32, True),
+    ("wide_q", 64, 16, 70, 35, 64, 128, True),
+]
+IDS = [c[0] for c in CASES]
+
+
+@pytest.fixture(autouse=True)
+def no_grad():
+    with torch.no_grad():
+        yield
+
+
+def _randomize(module, seed):
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            noise = torch.randn(p.shape, generator=g)
+            if name.endswith("scale"):
+                p.copy_(1.0 + 0.2 * noise)
+            elif name.endswith("bias"):
+                p.copy_(0.1 * noise)
+            else:
+                p.copy_(noise / max(p.shape[-1], 1) ** 0.5)
+    return module.eval()
+
+
+def _inputs(case, B=2):
+    name, M, K, Cq, Ck, Cv, c_out, use_counts = case
+    rng = np.random.default_rng(sum(map(ord, name)))
+    feat = rng.standard_normal((B, M, Cq)).astype(np.float32)
+    grouped = rng.standard_normal((B, M, K, Ck)).astype(np.float32)
+    gfo = rng.standard_normal((B, M, K, Cv)).astype(np.float32)
+    counts = rng.integers(0, K + 1, (B, M)).astype(np.int32) if use_counts else "all"
+    if use_counts:
+        counts[0, :2] = (0, K)  # an empty ball and a full one
+    return feat, grouped, gfo, counts
+
+
+def _port_pool(case, seed=3):
+    _, M, K, Cq, Ck, Cv, c_out, _ = case
+    return _randomize(t_att.AttentionPool(Cq, Ck, Cv, c_out, dtype=torch.bfloat16), seed)
+
+
+def _port_apply(port, feat, grouped, gfo, counts, **kw):
+    cnt = counts if isinstance(counts, str) else torch.from_numpy(counts)
+    out = port(torch.from_numpy(feat), torch.from_numpy(grouped).to(torch.bfloat16),
+               torch.from_numpy(gfo).to(torch.bfloat16), cnt, **kw)
+    return out
+
+
+def _jax_apply(port, case, feat, grouped, gfo, counts, fused):
+    mod = j_att.AttentionPool(case[6], dtype=jnp.bfloat16)
+    cnt = counts if isinstance(counts, str) else jnp.asarray(counts)
+    out = mod.apply(state_dict_to_flax(port.state_dict()), jnp.asarray(feat),
+                    jnp.asarray(grouped).astype(jnp.bfloat16),
+                    jnp.asarray(gfo).astype(jnp.bfloat16), cnt, fused=fused)
+    return np.asarray(jnp.asarray(out, jnp.float32))
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_fused_matches_jax_fused(case, monkeypatch):
+    """Port fused (plain sweeps) == JAX fused (Pallas, interpret mode)."""
+    monkeypatch.setenv("PDR_FUSED_ATTENTION", "1")
+    data = _inputs(case)
+    port = _port_pool(case)
+    ref = _jax_apply(port, case, *data, fused=True)
+    out = _port_apply(port, *data, fused=True)
+    assert out.dtype == torch.float32 and tuple(out.shape) == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    assert np.median(np.abs(out.numpy() - ref)) < 5e-3
+    assert np.abs(ref).mean() > 1e-2
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_fused_matches_own_unfused(case):
+    """The fused path keeps float32 softmax weights where the unfused one
+    rounds them to bf16, and returns float32 where it returns bf16."""
+    data = _inputs(case)
+    port = _port_pool(case)
+    fused = _port_apply(port, *data, fused=True)
+    unfused = _port_apply(port, *data)
+    assert unfused.dtype == torch.bfloat16 and fused.dtype == torch.float32
+    np.testing.assert_allclose(fused.numpy(), unfused.float().numpy(), **TOL)
+
+
+def test_function_signature_matches_jax(monkeypatch):
+    """``fused_attention_pool`` called like the JAX function, with the
+    sixteen parameter tensors in the JAX layout (kernels (in, out))."""
+    case = CASES[4]
+    _, M, K, Cq, Ck, Cv, c_out, _ = case
+    feat, grouped, gfo, counts = _inputs(case)
+    port = _port_pool(case, seed=5)
+    p = state_dict_to_flax(port.state_dict())["params"]
+    order = [("Dense_0", "kernel"), ("Dense_0", "bias"), ("Dense_1", "kernel"),
+             ("Dense_1", "bias"), ("PartialGroupNorm_0", "scale"), ("PartialGroupNorm_0", "bias"),
+             ("Dense_2", "kernel"), ("Dense_2", "bias"), ("PartialGroupNorm_1", "scale"),
+             ("PartialGroupNorm_1", "bias"), ("Dense_3", "kernel"), ("Dense_3", "bias"),
+             ("Dense_4", "kernel"), ("Dense_4", "bias"), ("PartialGroupNorm_2", "scale"),
+             ("PartialGroupNorm_2", "bias")]
+
+    def leaf(mod, name):
+        node = p[mod]
+        return node["GroupNorm_0"][name] if mod.startswith("Partial") else node[name]
+
+    weights = [leaf(m, n) for m, n in order]
+    widths = dict(c1=max(Cq, 32), c2=max(Ck, 32), c_out=c_out, K=K)
+    widths["inter_c"] = min(widths["c1"] + widths["c2"], c_out)
+    ref = j_pa.fused_attention_pool(
+        jnp.asarray(feat), jnp.asarray(grouped).astype(jnp.bfloat16),
+        jnp.asarray(gfo).astype(jnp.bfloat16), jnp.asarray(counts),
+        *map(jnp.asarray, weights), interpret=True, **widths)
+    args = (torch.from_numpy(feat), torch.from_numpy(grouped).to(torch.bfloat16),
+            torch.from_numpy(gfo).to(torch.bfloat16), torch.from_numpy(counts))
+    tw = [torch.from_numpy(np.asarray(w)) for w in weights]
+    out = t_pa.fused_attention_pool(*args, *tw, **widths)
+    plain = t_pa.fused_attention_pool_plain(*args, *tw, **widths)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
+    np.testing.assert_array_equal(out.numpy(), plain.numpy())  # CPU tensors: the plain sweeps
+    # and through the module, which keeps its prepared weights
+    np.testing.assert_array_equal(_port_apply(port, feat, grouped, gfo, counts,
+                                              fused=True).numpy(), out.numpy())
+
+
+@pytest.mark.parametrize("num_groups,normed,c", [(32, 64, 64), (32, 64, 70), (20, 20, 20)])
+def test_groupnorm_glue_matches_jax(num_groups, normed, c):
+    rng = np.random.default_rng(normed + c)
+    cnt = 4096.0 * (normed // num_groups)
+    x = rng.standard_normal((3, 4096, normed)).astype(np.float32) * 2.0 + 0.5
+    sum_c, ssq_c = x.sum(1), (x * x).sum(1)
+    scale = (1.0 + 0.2 * rng.standard_normal(normed)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(normed)).astype(np.float32)
+    ja = [jnp.asarray(a) for a in (sum_c, ssq_c, scale, bias)]
+    ta = [torch.from_numpy(a) for a in (sum_c, ssq_c, scale, bias)]
+    for got, ref in zip(t_pa._group_mul_add(*ta, cnt, num_groups),
+                        j_pa._group_mul_add(*ja, cnt, num_groups)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+    for got, ref in zip(t_pa._pgn_mu_s_b(*ta, cnt, num_groups, c),
+                        j_pa._pgn_mu_s_b(*ja, cnt, num_groups, c)):
+        assert tuple(got.shape) == (3, c)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+class TestRouting:
+    """Which calls reach the fused function."""
+
+    @pytest.fixture
+    def calls(self, monkeypatch):
+        seen = []
+        real = t_att.fused_attention_pool
+
+        def spy(*a, **kw):
+            seen.append(kw["K"])
+            return real(*a, **kw)
+
+        monkeypatch.setattr(t_att, "fused_attention_pool", spy)
+        return seen
+
+    def _pool(self, dtype=torch.bfloat16, **flags):
+        return _randomize(t_att.AttentionPool(8, 12, 32, 32, dtype=dtype, **flags), 1)
+
+    def _data(self, dtype):
+        rng = np.random.default_rng(0)
+        return (torch.from_numpy(rng.standard_normal((2, 16, 8)).astype(np.float32)),
+                torch.from_numpy(rng.standard_normal((2, 16, 8, 12)).astype(np.float32)).to(dtype),
+                torch.from_numpy(rng.standard_normal((2, 16, 8, 32)).astype(np.float32)).to(dtype))
+
+    def test_fused_taken(self, calls):
+        out = self._pool()(*self._data(torch.bfloat16), "all", fused=True)
+        assert calls == [8] and out.dtype == torch.float32
+
+    def test_default_is_unfused(self, calls):
+        out = self._pool()(*self._data(torch.bfloat16), "all")
+        assert calls == [] and out.dtype == torch.bfloat16
+
+    def test_float32_stays_unfused(self, calls):
+        pool = self._pool(dtype=None)
+        data = self._data(torch.float32)
+        a, b = pool(*data, "all"), pool(*data, "all", fused=True)
+        assert calls == [] and torch.equal(a, b)
+
+    @pytest.mark.parametrize("flag", ["attention_bn", "transform_grouped_feat_out",
+                                      "last_activation"])
+    def test_a_flag_off_stays_unfused(self, calls, flag):
+        pool = self._pool(**{flag: False})
+        data = self._data(torch.bfloat16)
+        a, b = pool(*data, "all"), pool(*data, "all", fused=True)
+        assert calls == [] and torch.equal(a, b)
+
+    def test_key_pre_stays_unfused(self, calls):
+        pool = self._pool()
+        data = self._data(torch.bfloat16)
+        key_pre = pool.Dense_1(data[1])
+        hk = torch.relu(key_pre).float()
+        stats = (hk.sum(dim=(1, 2)), (hk * hk).sum(dim=(1, 2)))
+        ref = pool(*data, "all")
+        out = pool(*data, "all", fused=True, key_pre=key_pre, key_stats=stats)
+        assert calls == [] and out.dtype == torch.bfloat16
+        np.testing.assert_allclose(out.float().numpy(), ref.float().numpy(),
+                                   rtol=2.0 ** -7, atol=1e-2)
+
+    def test_parameters_unchanged(self, calls):
+        """Same state_dict keys with and without ``fused``, and the JAX fused
+        path's own parameter tree loads through ``utils/weights.py`` as is."""
+        pool = self._pool()
+        keys = list(pool.state_dict())
+        data = self._data(torch.bfloat16)
+        pool(*data, "all", fused=True)
+        assert list(pool.state_dict()) == keys
+        assert keys == list(self._pool().state_dict())
+        mod = j_att.AttentionPool(32, dtype=jnp.bfloat16)
+        jd = [jnp.asarray(t.float().numpy()) for t in data]
+        tree = mod.init(jax.random.key(0), jd[0], jd[1].astype(jnp.bfloat16),
+                        jd[2].astype(jnp.bfloat16), "all", fused=True)
+        load_flax_params(pool, jax.tree_util.tree_map(np.asarray, tree))
+
+    def test_prepared_weights_follow_updates(self, calls):
+        pool = self._pool()
+        data = self._data(torch.bfloat16)
+        a = pool(*data, "all", fused=True)
+        with torch.no_grad():
+            pool.Dense_3.weight.mul_(0.5)
+        b = pool(*data, "all", fused=True)
+        fresh = self._pool()
+        with torch.no_grad():
+            fresh.Dense_3.weight.mul_(0.5)
+        assert not torch.equal(a, b)
+        assert torch.equal(b, fresh(*data, "all", fused=True))
+
+
+def test_kernel_takes_no_cpu_prepared_weights():
+    """Weights prepared on the CPU carry no kernel layout."""
+    w = t_pa._layer(torch.randn(5, 7), torch.randn(7))
+    assert w.wt is None and w.bp is None and w.w.dtype == torch.bfloat16

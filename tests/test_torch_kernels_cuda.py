@@ -9,7 +9,10 @@ Indices, counts, coordinates, kNN distances and grouped bf16 values must
 be equal: kernel and plain version compute the same separately rounded
 float32 distances and round the same float32 values to bf16.  The
 scatter-add kernel sums float32 with atomics, in an order that changes from
-run to run: it is held to SCATTER_TOL of the largest row sum.
+run to run: it is held to SCATTER_TOL of the largest row sum.  The attention
+sweeps repeat their plain versions' rounding points but add their float32
+products in another order: statistics are held to STATS_TOL, the pooled
+output to ATTENTION_TOL (a bf16 rounding that flips moves one term by 2^-8).
 """
 
 import numpy as np
@@ -22,6 +25,9 @@ pytestmark = pytest.mark.cuda
 
 # float32 sums of up to a few thousand terms in a different order
 SCATTER_TOL = 1e-5
+# float32 sums of bf16 values, a few of which round the other way
+STATS_TOL = 2e-3
+ATTENTION_TOL = 2e-2
 
 
 @pytest.fixture
@@ -168,6 +174,115 @@ def test_ball_group_idx_and_grads(dev, mode):
         assert float((a - b).abs().max()) <= SCATTER_TOL * float(b.abs().max())
 
 
+@pytest.mark.parametrize("k,N,M,C", [(8, 1024, 2048, 160), (3, 700, 257, 5), (16, 16, 100, 33),
+                                     (1, 50, 130, 1)])
+def test_knn_group(dev, k, N, M, C):
+    """Fused kNN + gather + packing: every channel equals the plain version's
+    (same float32 distances, same ties, each channel rounded to bf16 once),
+    at the level-0 shape, at an M that is no multiple of the block, at
+    k = N with duplicates, and at a one-channel table."""
+    rng = np.random.default_rng(8)
+    x, q = _cloud(rng, 2, N, 3).to(dev), _cloud(rng, 2, M, 3).to(dev)
+    x[:, N // 2: N // 2 + 4] = x[:, :4]  # duplicate points: ties
+    table = _cloud(rng, 2, N, C, lo=-9, hi=9).to(dev)
+    out = ops.knn_group(q, x, table, k)
+    ref = ops.knn_group_plain(q, x, table, k)
+    assert out.dtype == torch.bfloat16 and out.shape == (2, M, k, C + 11)
+    assert torch.equal(out, ref)
+    d, i = ops.knn(q, x, k)
+    assert torch.equal(out[..., :C], ops.group_points(table.to(torch.bfloat16), i))
+    assert torch.equal(out[..., C], d.to(torch.bfloat16))
+
+
+def _attention_site(dev, seed, B, M, K, Cq, Ck, Cv, c_out, counts):
+    from point_diffusion_refinement_tpu_torch.models.attention import AttentionPool
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    pool = AttentionPool(Cq, Ck, Cv, c_out, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for name, p in pool.named_parameters():
+            noise = torch.randn(p.shape, generator=g)
+            if name.endswith("scale"):
+                p.copy_(1.0 + 0.2 * noise)
+            elif name.endswith("bias"):
+                p.copy_(0.1 * noise)
+            else:
+                p.copy_(noise / p.shape[-1] ** 0.5)
+    pool = pool.to(dev).eval()
+    feat = torch.randn(B, M, Cq, generator=g).to(dev)
+    grouped = torch.randn(B, M, K, Ck, generator=g).to(dev).to(torch.bfloat16)
+    gfo = torch.randn(B, M, K, Cv, generator=g).to(dev).to(torch.bfloat16)
+    cnt = None
+    if counts:
+        cnt = torch.randint(0, K + 1, (B, M), generator=g).to(torch.int32)
+        cnt[0, :2] = torch.tensor([0, K], dtype=torch.int32)
+        cnt = cnt.to(dev)
+    return pool, feat, grouped, gfo, cnt
+
+
+ATTENTION_SITES = [
+    # name, B, M, K, Cq, Ck, Cv, c_out, counts
+    ("ft0", 2, 256, 32, 3, 41, 32, 32, True),
+    ("sa0", 2, 128, 32, 35, 44, 32, 64, True),
+    ("knnfp", 2, 256, 8, 128, 171, 128, 128, False),
+    ("odd_m_k", 2, 37, 24, 35, 38, 32, 32, True),  # a last tile with one centre
+    ("narrow", 1, 16, 4, 8, 12, 20, 20, True),  # GroupNorms of 20 channels
+    ("deep", 2, 16, 8, 512, 651, 512, 512, False),  # weights beyond shared memory
+]
+
+
+@pytest.mark.parametrize("site", ATTENTION_SITES, ids=[s[0] for s in ATTENTION_SITES])
+def test_attention_sweeps(dev, site):
+    """The three sweeps against their plain versions on the same inputs, then
+    the whole pool against the plain pool and the unfused module."""
+    from point_diffusion_refinement_tpu_torch.ops import attention_pool as ap
+
+    _, B, M, K, Cq, Ck, Cv, c_out, counts = site
+    pool, feat, grouped, gfo, cnt = _attention_site(dev, 11, B, M, K, Cq, Ck, Cv, c_out, counts)
+    p = pool._fused_weights()
+    w = pool.widths
+    g2 = grouped.reshape(B, M * K, Ck)
+    gfo2 = gfo.reshape(B, M * K, Cv)
+
+    def close(a, b, tol):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert float((a - b).abs().max()) <= tol * max(float(b.abs().max()), 1.0)
+
+    kst, vst = ap.attention_stats(g2, gfo2, p.key, p.value, K)
+    rkst, rvst = ap.attention_stats_plain(g2, gfo2, p.key, p.value)
+    close(kst, rkst, STATS_TOL), close(vst, rvst, STATS_TOL)
+    gk = torch.Generator(device="cpu").manual_seed(12)
+    mul_k = (1.0 + 0.2 * torch.randn(B, w["c2"], generator=gk)).to(dev)
+    add_k = (0.1 * torch.randn(B, w["c2"], generator=gk)).to(dev)
+    qp = torch.randn(B, M, w["inter_c"], generator=gk).to(dev).to(torch.bfloat16)
+    hst = ap.attention_hstats(g2, qp, p.key, p.hidden, mul_k, add_k, K)
+    rhst = ap.attention_hstats_plain(g2, qp, p.key, p.hidden, mul_k, add_k, K)
+    close(hst, rhst, STATS_TOL)
+
+    with torch.no_grad():
+        out = pool(feat, grouped, gfo, cnt if counts else "all", fused=True)
+        with ops.plain_ops():
+            ref = pool(feat, grouped, gfo, cnt if counts else "all", fused=True)
+        unfused = pool(feat, grouped, gfo, cnt if counts else "all").float()
+    assert out.dtype == torch.float32 and out.shape == (B, M, c_out)
+    assert bool(torch.isfinite(out).all())
+    close(out, ref, ATTENTION_TOL)
+    assert float((out - ref).abs().mean()) <= 1e-3 * max(float(ref.abs().mean()), 1e-3) + 1e-4
+    close(out, unfused, 4e-2)
+
+
+def test_attention_raises_on_what_it_cannot_take(dev):
+    from point_diffusion_refinement_tpu_torch.ops import attention_pool as ap
+
+    pool, feat, grouped, gfo, _ = _attention_site(dev, 13, 1, 2, 65, 8, 12, 32, 32, False)
+    with pytest.raises(ValueError, match="K <= 64"):
+        pool(feat, grouped, gfo, "all", fused=True)
+    cpu = ap._layer(torch.randn(12, 32), torch.randn(32))
+    with pytest.raises(ValueError, match="prepared on the CPU"):
+        ap.attention_stats(grouped[:, :, :8].reshape(1, 16, 12).contiguous(),
+                           gfo[:, :, :8].reshape(1, 16, 32).contiguous(), cpu, cpu, 8)
+
+
 def test_launch_counts(dev):
     x = torch.rand(1, 64, 3, device=dev)
     ops.reset_launch_counts()
@@ -178,9 +293,19 @@ def test_launch_counts(dev):
     ops.ball_group(x, [x, x], x, 0.2, 8)
     _, i, _ = ops.ball_query_group(x, x, x, 0.2, 8)
     ops.group_scatter_add(torch.ones(1, 64, 8, 3, device=dev), i, 64)
+    ops.knn_group(x, x, x, 4)
+    pool, feat, grouped, gfo, _ = _attention_site(dev, 14, 1, 16, 8, 8, 12, 32, 32, False)
+    with torch.no_grad():
+        pool(feat, grouped, gfo, "all", fused=True)
+        pool(feat, grouped, gfo, "all")  # the unfused pool launches nothing
     with ops.plain_ops():  # reference runs on the card are not launches
         ops.ball_query(x, x, 0.2, 8)
         ops.furthest_point_sample(x, 8)
+        ops.knn_group(x, x, x, 4)
+        with torch.no_grad():
+            pool(feat, grouped, gfo, "all", fused=True)
     assert ops.launch_counts() == {"fps": 1, "fps_idx": 1, "ball_query": 1, "knn": 1,
                                    "ball_group": 1, "ball_query_group": 1,
-                                   "group_scatter_add": 1}
+                                   "group_scatter_add": 1, "knn_group": 1,
+                                   "attention_stats": 1, "attention_hstats": 1,
+                                   "attention_out": 1}
