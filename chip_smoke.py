@@ -16,7 +16,15 @@
    at the mirror-preprocessing shapes (64 clouds of 4096 points, with exact
    duplicates, padding and an all-padding cloud, to 3072 and 2048) and at a
    row beyond shared memory (16384 points), where the coordinates kernel
-   runs too.
+   runs too.  FPS with coordinates is swept at npoint 1024 over N = 1024 to
+   12288 (B=4), the wrapper's (threads, points a thread) beside the
+   runners-up the kernel builds, each bit-equal to the plain version, with
+   µs a pick and the line through the wrapper's times (per-pick latency +
+   per-point work).  The ball query is held and timed at every shape one
+   denoise step of the model below launches it at, on the tensors the step
+   gives it.  Kernel times of FPS are CUDA-event means over wrapper calls;
+   those of the ball query are the profiler's device time a launch (its
+   wrapper's host time, ``wrapper_ms``, exceeds it).
 3. Builds ``DEFAULT_POINTNET_CONFIG`` in bfloat16 with seeded random weights
    and runs ``make_coarse_sampler`` end to end at B=4, 2048 points, a
    3072 x 4 condition, over a schedule of STEPS steps, with every launch count
@@ -25,8 +33,9 @@
 4. Runs one denoise step through the kernels and through the plain versions
    on the card and checks their relative difference.
 5. Traces three denoise steps with ``torch.profiler`` and prints the
-   device-busy share of the window and the ops that take the most device
-   time.
+   device-busy share of the window, the ops that take the most device
+   time, and the device ms a denoise step of the ``fps``, ``fps_idx``,
+   ``ball_query``, ``ball_group`` and ``knn`` kernels.
 6. Preprocessing: ``generate_mirrored_partials`` over 256 seeded partials of
    2048 points at batch 64 to 3072 points; checks shape, flags and one
    ``fps_idx`` launch a batch, and prints clouds/s.
@@ -36,10 +45,12 @@
    quadratic, kappa 0.5) -> the ``upsample_16384`` refine net (bf16,
    x8, seeded weights) -> CD-p / CD-t / F1 through ``evaluate``; fails unless
    the output is a finite (4, 16384, 3) cloud and every kernel was launched.
+   Then the same pipeline once more under the profiler (CUDA activity only):
+   device ms of those five kernels a pipeline.
 8. The ``upsample_16384`` refine forward at B=32: ms a batch,
    completions/s, and one forward through the kernels against one under
    ``plain_ops()`` (relative error of the displacement); then a profile of
-   one forward.
+   one forward, with the device ms of those five kernels in it.
 9. Evaluation cost: ``calc_cd`` at (32, 16384) against (32, 16384) and
    ``earth_mover_distance`` at (32, 2048) against (32, 2048).
 10. Training kernels against their plain versions: the fused ball query +
@@ -86,7 +97,11 @@
 14. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
    (``launches``: the sum over the four driven paths, the two pipelines and
    the two training runs, each counted from zero; ``launches_by_path``
-   splits it), and last ``{"ok": true, "device": {...}}``.
+   splits it; the FPS rows add ``latency_floor_ms``, the sweep's per-pick
+   time at its smallest N times the row's npoint - 1, beside the roofline
+   ``bound_ms``; the rows of those five kernels add their device ms a
+   denoise step and a pipeline), and last
+   ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and convolutions throughout, so the float32 parts
 of the model and of the plain versions run in full float32.  Exits non-zero
@@ -190,6 +205,18 @@ LAUNCH_NAMES = {"fps_coords": "fps", "fps_idx": "fps_idx", "ball_group": "ball_g
 # the kernels of a training step with both fused routes on (the fused
 # gather supersedes the ball-query kernel there)
 TRAIN_PATH_KERNELS = ("ball_query_group", "group_scatter_add", "ball_group", "fps", "knn")
+# the profiler's names of the kernels whose device time a denoise step and a
+# pipeline is reported (fps_reg_kernel<kCoords, threads, per> and the
+# workspace path's fps_global_kernel<kCoords>): the redesigned three, and #2
+# and #4, the next candidates
+PROFILED_KERNELS = {
+    "fps": ("fps_reg_kernel<true", "fps_global_kernel<true"),
+    "fps_idx": ("fps_reg_kernel<false", "fps_global_kernel<false"),
+    "ball_query": ("ball_query_kernel",),
+    "ball_group": ("ball_group_kernel",),
+    "knn": ("knn_kernel",),
+}
+FPS_SWEEP_N = (1024, 2048, 3072, 4096, 12288)  # npoint 1024, B = 4
 # the kernels of ancestral coarse generation (phase 3); fps_idx serves
 # mirror preprocessing
 COARSE_PATH_KERNELS = ("fps", "ball_group", "ball_query", "knn")
@@ -247,8 +274,100 @@ def scanned_pairs(idx: torch.Tensor, counts: torch.Tensor, n: int) -> float:
     return float(torch.where(full, last, torch.full_like(last, float(n))).sum())
 
 
-def check_kernels(dev, rng):
-    """Phase 2: every kernel against its plain version at main-path shapes."""
+def kernel_sums(avgs) -> dict:
+    """{kernel: (device ms, launches)} of PROFILED_KERNELS in a profile's
+    ``key_averages()``."""
+    out = {name: [0.0, 0] for name in PROFILED_KERNELS}
+    for e in avgs:
+        for name, keys in PROFILED_KERNELS.items():
+            if any(k in e.key for k in keys):
+                out[name][0] += e.self_device_time_total / 1e3
+                out[name][1] += e.count
+    return {name: tuple(v) for name, v in out.items()}
+
+
+def format_sums(sums: dict, per: int = 1) -> str:
+    return " ".join(f"{name}={ms / per:.4f} ms ({n / per:g} launches)"
+                    for name, (ms, n) in sums.items())
+
+
+def device_ms(fn, name: str, iters: int = 30) -> float:
+    """Mean device time a launch of kernel ``name`` (PROFILED_KERNELS) over
+    ``iters`` calls of ``fn``, from the profiler: a CUDA-event time of a
+    small kernel would measure its wrapper's host time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    ms, n = kernel_sums(prof.key_averages())[name]
+    if n != iters:
+        raise AssertionError(f"profiler saw {n} launches of {name}, not {iters}")
+    return ms / n
+
+
+def ball_query_row(sup, q, r: float, K: int, name: str) -> dict:
+    """Kernel vs plain (idx and counts equal) and the times of one ball-query
+    shape."""
+    from point_diffusion_refinement_tpu_torch.ops import neighbors
+
+    idx, cnt = neighbors.ball_query(sup, q, r, K)
+    ridx, rcnt = neighbors.ball_query_plain(sup, q, r, K)
+    torch.cuda.synchronize()
+    if not (torch.equal(idx, ridx) and torch.equal(cnt, rcnt)):
+        raise AssertionError(f"ball_query: differs at {name}")
+    run = lambda: neighbors.ball_query(sup, q, r, K)
+    ms = device_ms(run, "ball_query")
+    wrapper_ms = time_ms(run, 20)
+    plain_ms = time_ms(lambda: neighbors.ball_query_plain(sup, q, r, K), 5)
+    b_ms, b_by = bound(nbytes(sup, q, ridx, rcnt), 9.0 * scanned_pairs(ridx, rcnt, sup.shape[1]))
+    return dict(name="ball_query", shape=name, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=None, wrapper_ms=wrapper_ms,
+                mean_count=float(rcnt.float().mean()))
+
+
+def fps_sweep(dev, rng) -> float:
+    """Phase 2: FPS with coordinates at npoint 1024 over FPS_SWEEP_N (B = 4):
+    the wrapper's (threads, points a thread), marked *, and every runner-up
+    the kernel builds that holds N in at most twice N slots, each bit-equal
+    to the plain version.  Returns the latency floor a pick: the wrapper's
+    time at the smallest N over npoint - 1."""
+    from point_diffusion_refinement_tpu_torch.ops import sampling
+
+    B, npoint = 4, 1024
+    chosen = []
+    for N in FPS_SWEEP_N:
+        pts = torch.from_numpy(rng.uniform(-0.5, 0.5, (B, N, 3)).astype(np.float32)).to(dev)
+        ridx, rco = sampling.furthest_point_sample_and_gather_plain(pts, npoint)
+        best = sampling.fps_block_config(N)
+        configs = [best] + [c for c in sampling.FPS_CONFIGS
+                            if c != best and N <= c[0] * c[1] <= 2 * N]
+        cells = []
+        for cfg in configs:
+            run = lambda cfg=cfg: sampling._fps_launch(pts, npoint, True, config=cfg)
+            idx, co = run()
+            torch.cuda.synchronize()
+            if not (torch.equal(idx, ridx) and torch.equal(co, rco)):
+                raise AssertionError(f"fps: {cfg[0]}x{cfg[1]} differs from plain at N={N}")
+            ms = time_ms(run, 10)
+            if cfg == best:
+                chosen.append(ms)
+            cells.append(f"{cfg[0]}x{cfg[1]}{'*' if cfg == best else ''} ms={ms:.4f} "
+                         f"us_per_pick={ms * 1e3 / (npoint - 1):.4f}")
+        print(f"fps sweep (4,{N})->{npoint} equal to plain: " + "; ".join(cells), flush=True)
+    slope, intercept = np.polyfit(np.array(FPS_SWEEP_N, dtype=np.float64), chosen, 1)
+    print(f"fps sweep fit: ms = {intercept:.4f} + {slope * 1e3:.6f} us x N, i.e. "
+          f"{intercept * 1e3 / (npoint - 1):.4f} us a pick + "
+          f"{slope * 1e6 / (npoint - 1):.4f} ns a point a pick", flush=True)
+    return chosen[0] / (npoint - 1)
+
+
+def check_kernels(dev, rng, pick_floor_ms: float):
+    """Phase 2: every kernel against its plain version at main-path shapes;
+    ``pick_floor_ms`` is the FPS sweep's latency floor a pick."""
     from point_diffusion_refinement_tpu_torch.ops import ball_group, ball_group_plain
     from point_diffusion_refinement_tpu_torch.ops import neighbors, sampling
 
@@ -277,7 +396,7 @@ def check_kernels(dev, rng):
     b_ms, b_by = bound(nbytes(pts) + B * 1024 * 16, 10.0 * B * 1023 * N)
     rows.append(dict(name="fps_coords", shape="(4,2048,3)->1024", max_abs_err=worst,
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=None))
+                     library_ms=None, latency_floor_ms=pick_floor_ms * 1023))
 
     # -- fused ball group: the level-0 feature-transfer pair (two tables,
     #    queries = x_t, support = condition) and the x_t SA level-0 grouping
@@ -324,14 +443,7 @@ def check_kernels(dev, rng):
         torch.cuda.synchronize()
         if not (torch.equal(idx, ridx) and torch.equal(cnt, rcnt)):
             raise AssertionError(f"ball_query: differs at N={sup.shape[1]}, M={q.shape[1]}")
-    sup, q = cond, c_centres
-    ms = time_ms(lambda: neighbors.ball_query(sup, q, 0.1, 32), 20)
-    plain_ms = time_ms(lambda: neighbors.ball_query_plain(sup, q, 0.1, 32), 5)
-    ridx, rcnt = neighbors.ball_query_plain(sup, q, 0.1, 32)
-    b_ms, b_by = bound(nbytes(sup, q, ridx, rcnt), 9.0 * scanned_pairs(ridx, rcnt, sup.shape[1]))
-    rows.append(dict(name="ball_query", shape="sup (4,3072) centres (4,1024) K=32",
-                     max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=None))
+    rows.append(ball_query_row(cond, c_centres, 0.1, 32, "sup (4,3072) centres (4,1024) K=32"))
 
     # -- kNN: the x_t feature propagation at level 0 (2048 queries, 1024 known)
     unknown, known = x_t, sa_centres
@@ -366,7 +478,7 @@ def mirrored_partials(rng, B: int, n: int) -> np.ndarray:
     return p
 
 
-def check_fps_idx(dev, rng):
+def check_fps_idx(dev, rng, pick_floor_ms: float):
     """Phase 2, idx-only FPS: the mirror-preprocessing shapes and a row
     beyond shared memory, against the plain version."""
     from point_diffusion_refinement_tpu_torch.ops import gather_points, sampling
@@ -396,23 +508,29 @@ def check_fps_idx(dev, rng):
     plain_ms = time_ms(lambda: sampling.furthest_point_sample_plain(pre, npoint), 1, 1)
     b_ms, b_by = bound(nbytes(pre) + B * npoint * 4, 10.0 * B * (npoint - 1) * N)
     row = dict(name="fps_idx", shape="(64,4096)->3072", max_abs_err=0.0, ms=ms,
-               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               latency_floor_ms=pick_floor_ms * (npoint - 1))
     print_row(row)
     return row
 
 
+ROW_EXTRAS = ("latency_floor_ms", "wrapper_ms", "mean_count")
+
+
 def print_row(r) -> None:
+    extras = "".join(f" {k}={r[k]:.4f}" for k in ROW_EXTRAS if k in r)
     print(f"kernel {r['name']:<17} {r['shape']:<42} max_abs_err={r['max_abs_err']:.3g} "
           f"ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.5f} "
-          f"({r['bound_by']}) library_ms={r['library_ms']}", flush=True)
+          f"({r['bound_by']}) library_ms={r['library_ms']}{extras}", flush=True)
 
 
 def profile_window(what: str, fn, steps: int = 3, grad: bool = False,
-                   table: bool = True) -> None:
+                   table: bool = True, kernels: str = ""):
     """Device time by op and the device-busy share of a window of ``steps``
     calls of ``fn`` (one stream, so kernel times do not overlap); ``grad``
     keeps autograd on, for a training step; ``table=False`` prints the
-    summary line only."""
+    summary line only; ``kernels`` names one call (``"a denoise step"``) and
+    prints the device ms of PROFILED_KERNELS a call, which it returns."""
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
@@ -431,6 +549,44 @@ def profile_window(what: str, fn, steps: int = 3, grad: bool = False,
           f"device_ms={dev_us / 1e3:.2f} device_busy={busy:.3f}", flush=True)
     if table:
         print(avgs.table(sort_by="self_device_time_total", row_limit=25), flush=True)
+    if kernels:
+        sums = kernel_sums(avgs)
+        print(f"kernel device ms {kernels}: {format_sums(sums, steps)}", flush=True)
+        return {name: ms / steps for name, (ms, _) in sums.items()}
+    return None
+
+
+def check_denoise_ball_queries(model, cond, label, dev) -> None:
+    """Phase 2: the ball query at every shape one denoise step launches it at
+    (SA and FT levels >= 2, and the decoder FT's 16-point level, where
+    K > N), on the tensors the step gives it."""
+    from point_diffusion_refinement_tpu_torch.models import grouping
+
+    B = cond.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    x = torch.randn(B, 2048, 3, generator=gen, device=dev)
+    ts = torch.full((B,), 5.0, device=dev)
+    seen, calls, orig = {}, {}, grouping.ball_query
+
+    def spy(xyz, new_xyz, radius, nsample):
+        key = (xyz.shape[1], new_xyz.shape[1], float(radius), int(nsample))
+        calls[key] = calls.get(key, 0) + 1
+        seen.setdefault(key, (xyz.clone(), new_xyz.clone()))
+        return orig(xyz, new_xyz, radius, nsample)
+
+    with torch.no_grad():
+        cf = model.encode_condition(cond)
+        grouping.ball_query = spy
+        try:
+            model.denoise(x, ts, label, cf, fused=True)
+        finally:
+            grouping.ball_query = orig
+    print(f"ball queries of one denoise step, (N, M, r, K): launches = {calls}", flush=True)
+    if not calls:
+        raise AssertionError("the denoise step launched no ball query")
+    for (N, M, r, K), (sup, q) in seen.items():
+        print_row(ball_query_row(sup, q, r, K, f"step sup ({B},{N}) centres ({B},{M}) K={K} r={r}"))
 
 
 def preprocess(rng) -> None:
@@ -475,11 +631,13 @@ def conditions(rng, B: int, dev) -> torch.Tensor:
          rng.integers(0, 2, (B, 3072, 1)) * 2.0 - 1.0], axis=-1).astype(np.float32)).to(dev)
 
 
-def pipeline(model, rng, dev, tag: str = "pipeline", **routes):
+def pipeline(model, rng, dev, tag: str = "pipeline", kernel_ms_out=None, **routes):
     """Phase 7: mirror -> FastDPM-50 -> refine x8 -> CD/F1 at B=4, with the
     launch counts of the whole run.  ``routes`` turns on the opt-in inference
     routes of the sampler and the refiner; their kernels must then have been
-    launched on every denoise step and in the refine forward."""
+    launched on every denoise step and in the refine forward.  Given a dict
+    ``kernel_ms_out``, mirror -> FastDPM-50 -> refine runs once more under the
+    profiler and the device ms of PROFILED_KERNELS go into it."""
     from point_diffusion_refinement_tpu_torch import ops
     from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
     from point_diffusion_refinement_tpu_torch.data import mirror_and_concat
@@ -547,6 +705,18 @@ def pipeline(model, rng, dev, tag: str = "pipeline", **routes):
     for name in PIPELINE_PATH_KERNELS:
         if counts[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched in the {tag} run")
+    if kernel_ms_out is not None:
+        from torch.profiler import ProfilerActivity, profile
+
+        with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            cond2 = mirror_and_concat(raw, 3072)
+            gen.manual_seed(4)
+            refine(sampler(cond2, label, generator=gen), cond2, label, osf)
+            torch.cuda.synchronize()
+        sums = kernel_sums(prof.key_averages())
+        print(f"kernel device ms a pipeline (B={B}: mirror, FastDPM-{FAST_STEPS}, refine x8; "
+              f"profiled again): {format_sums(sums)}", flush=True)
+        kernel_ms_out.update({name: ms for name, (ms, _) in sums.items()})
     if routes:
         # encode_condition takes none of these routes, so the sampler's
         # launches are those of its FAST_STEPS denoise steps
@@ -591,7 +761,8 @@ def refine_at_batch(rng, dev) -> None:
     print(f"refine kernels vs plain: rel_err={rel:.3g} (tol {REFINE_REL_TOL})", flush=True)
     if not rel <= REFINE_REL_TOL:
         raise AssertionError("refine forward through the kernels disagrees with the plain path")
-    profile_window("refine forwards at B=32", lambda: model(coarse, cond, None, label), 1)
+    profile_window("refine forwards at B=32", lambda: model(coarse, cond, None, label), 1,
+                   kernels="a refine forward at B=32")
 
 
 def evaluation_cost(rng, dev) -> None:
@@ -1356,10 +1527,10 @@ def main() -> int:
 
     # 2. kernels vs plain versions
     rng = np.random.default_rng(0)
-    rows = check_kernels(dev, rng)
-    rows.insert(1, check_fps_idx(dev, rng))
+    pick_floor_ms = fps_sweep(dev, rng)
+    rows = check_kernels(dev, rng, pick_floor_ms)
+    rows.insert(1, check_fps_idx(dev, rng, pick_floor_ms))
 
-    # 3. the main path at full width
     cfg = dict(DEFAULT_POINTNET_CONFIG)
     cfg["compute_dtype"] = "bfloat16"
     model = PointNet2CloudCondition.from_config(cfg, device="cuda", seed=0)
@@ -1368,6 +1539,9 @@ def main() -> int:
         [rng.uniform(-0.5, 0.5, (B, 3072, 3)),
          rng.integers(0, 2, (B, 3072, 1)) * 2.0 - 1.0], axis=-1).astype(np.float32)).to(dev)
     label = torch.zeros(B, dtype=torch.int64, device=dev)
+    check_denoise_ball_queries(model, cond, label, dev)
+
+    # 3. the main path at full width
     T = STEPS
     schedule = calc_diffusion_hyperparams(T, 1e-4, 0.02)
     sampler = make_coarse_sampler(model, schedule, num_points=2048)
@@ -1423,10 +1597,14 @@ def main() -> int:
     if not rel <= DENOISE_REL_TOL:
         raise AssertionError("denoise step through the kernels disagrees with the plain path")
 
-    profile_window("denoise steps", lambda: model.denoise(x, ts, label, cf, fused=True))
+    kernel_ms = {"per_denoise_step_ms": profile_window(
+        "denoise steps", lambda: model.denoise(x, ts, label, cf, fused=True),
+        kernels="a denoise step")}
 
     preprocess(rng)
-    path_counts = {"pipeline": pipeline(model, rng, dev)}
+    kernel_ms["per_pipeline_ms"] = {}
+    path_counts = {"pipeline": pipeline(model, rng, dev,
+                                        kernel_ms_out=kernel_ms["per_pipeline_ms"])}
     refine_at_batch(rng, dev)
     evaluation_cost(rng, dev)
 
@@ -1465,6 +1643,9 @@ def main() -> int:
             "library_ms": r["library_ms"],
             # the whole fused pool at the row's site beside the unfused pool
             **{k: v for k, v in r.items() if k.startswith("pool_")},
+            **{k: r[k] for k in ("latency_floor_ms", "wrapper_ms") if k in r},
+            **{k: v[LAUNCH_NAMES[r["name"]]] for k, v in kernel_ms.items()
+               if LAUNCH_NAMES[r["name"]] in v},
         })
     print(json.dumps({"kernels": kern}))
     print(json.dumps({"ok": True, "device": {

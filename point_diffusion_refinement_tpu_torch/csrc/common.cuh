@@ -25,28 +25,34 @@ __device__ __forceinline__ float pdr_sqdist3(float ax, float ay, float az,
 
 // Warp scan of a ball query: the first <= K support points with d^2 < r^2
 // around the query (qx, qy, qz), in index order.  The warp tests 32 points
-// at a time: each lane one point, a ballot marks the in-radius lanes and a
-// popcount prefix gives each hit its slot, so hits land in ``slots`` (K ints
-// owned by this warp) in index order and the scan stops once K are found.
-// Returns the count capped at K; ``slots`` is visible to the whole warp on
-// return.  All 32 lanes must call it.
+// at a time: each lane one point (read through the read-only path), a ballot
+// marks the in-radius lanes and a popcount prefix gives each hit its slot, so
+// hits land in ``slots`` (K ints owned by this warp, in shared or global
+// memory) in index order and the scan stops once K are found.  Returns the
+// count capped at K; ``slots`` is visible to the whole warp on return, and
+// ``first``, when given, receives the first hit's index (0 for an empty
+// ball) without a read back of ``slots``.  All 32 lanes must call it.
 __device__ __forceinline__ int pdr_warp_ball_scan(const float* __restrict__ pts, int N,
                                                   float qx, float qy, float qz,
                                                   float r2, int K, int* slots,
-                                                  int lane) {
+                                                  int lane, int* first = nullptr) {
   int cnt = 0;
+  int first_hit = 0;
   for (int base = 0; base < N && cnt < K; base += 32) {
     const int n = base + lane;
     bool hit = false;
     if (n < N) {
-      const float d = pdr_sqdist3(pts[3 * n], pts[3 * n + 1], pts[3 * n + 2], qx, qy, qz);
+      const float d = pdr_sqdist3(__ldg(pts + 3 * n), __ldg(pts + 3 * n + 1),
+                                  __ldg(pts + 3 * n + 2), qx, qy, qz);
       hit = d < r2;
     }
     const unsigned bal = __ballot_sync(PDR_FULL_MASK, hit);
+    if (cnt == 0 && bal != 0u) first_hit = base + __ffs(bal) - 1;
     const int rank = cnt + __popc(bal & ((1u << lane) - 1u));
     if (hit && rank < K) slots[rank] = n;
     cnt += __popc(bal);
   }
   __syncwarp();
+  if (first != nullptr) *first = first_hit;
   return min(cnt, K);
 }

@@ -48,8 +48,8 @@ _F = ctypes.c_float
 
 # kernel name -> (source, C entry, argtypes); the last argument is the stream
 KERNELS = {
-    "fps": ("fps.cu", "pdr_fps_coords", [_P, _I, _I, _I, _P, _P, _P, _P]),
-    "fps_idx": ("fps.cu", "pdr_fps_idx", [_P, _I, _I, _I, _P, _P, _P]),
+    "fps": ("fps.cu", "pdr_fps_coords", [_P, _I, _I, _I, _P, _P, _P, _I, _I, _P]),
+    "fps_idx": ("fps.cu", "pdr_fps_idx", [_P, _I, _I, _I, _P, _P, _I, _I, _P]),
     "ball_query": (
         "ball_query.cu", "pdr_ball_query", [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     ),

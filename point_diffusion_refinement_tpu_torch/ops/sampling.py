@@ -17,17 +17,31 @@ Quirks reproduced exactly:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import kernels
 
 PAD_NORM_SQ = 1e-3
-# the kernel keeps x, y, z and the running min distance of a row in shared
-# memory up to this many points (16 bytes a point within the 227 KB a block
-# may use), and in a global-memory workspace beyond it
+# the kernel keeps a row's points and running minima in registers and an
+# (x, y, z, 0) copy of the row in shared memory up to this many points (16
+# bytes a point within the 227 KB a block may use), and all of them in a
+# global-memory workspace beyond it
 FPS_SMEM_MAX_POINTS = 12288
+# (threads, points a thread) of the register path that csrc/fps.cu builds,
+# in the order of its list: the choices of FPS_BLOCKS, then the runners-up
+# that chip_smoke.py times beside them
+FPS_CONFIGS = (
+    (256, 4), (256, 8), (512, 6), (256, 16), (256, 24), (256, 32), (256, 48),
+    (128, 16), (512, 4), (256, 12), (128, 32), (512, 24),
+)
+# the wrapper's choice by N, (largest N, threads, points a thread): the
+# fastest pair at each N of a sweep on an H100 (chip_smoke.py phase 2, PERF.md)
+FPS_BLOCKS = (
+    (1024, 256, 4), (2048, 256, 8), (3072, 512, 6), (4096, 256, 16),
+    (6144, 256, 24), (8192, 256, 32), (FPS_SMEM_MAX_POINTS, 256, 48),
+)
 # the largest row the JAX package's TPU dispatcher serves
 FPS_MAX_POINTS = 2 ** 18
 
@@ -78,24 +92,42 @@ def furthest_point_sample_and_gather_plain(
     return idx, gather_points(xyz.to(torch.float32), idx)
 
 
-def _fps_launch(xyz: torch.Tensor, npoint: int, coords: bool):
-    """Launch ``fps`` (with coordinates) or ``fps_idx`` on a CUDA tensor."""
+def fps_block_config(n: int) -> Tuple[int, int]:
+    """(threads, points a thread) of the FPS kernel's register path for a
+    row of ``n`` points, 1 <= n <= FPS_SMEM_MAX_POINTS."""
+    for max_n, threads, per in FPS_BLOCKS:
+        if n <= max_n:
+            return threads, per
+    raise ValueError(f"rows of more than {FPS_SMEM_MAX_POINTS} points take the workspace path")
+
+
+def _fps_launch(xyz: torch.Tensor, npoint: int, coords: bool,
+                config: Optional[Tuple[int, int]] = None):
+    """Launch ``fps`` (with coordinates) or ``fps_idx`` on a CUDA tensor;
+    ``config`` overrides ``fps_block_config`` (one of FPS_CONFIGS covering N)
+    for a row in shared memory."""
     xyz = kernels.as_f32(xyz)
     B, N, _ = xyz.shape
     kernels.check(xyz, "fps xyz", torch.float32, (None, None, 3))
     if N > FPS_MAX_POINTS:
         raise ValueError(f"fps kernel takes at most {FPS_MAX_POINTS} points, got {N}")
     work = None
+    threads = per = 0
     if N > FPS_SMEM_MAX_POINTS:
         work = torch.empty((B, 4, N), dtype=torch.float32, device=xyz.device)
+    else:
+        threads, per = config or fps_block_config(N)
+        if (threads, per) not in FPS_CONFIGS or threads * per < N:
+            raise ValueError(f"fps kernel has no block of {threads} x {per} for {N} points")
     work_ptr = 0 if work is None else work.data_ptr()
     idx = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
     if not coords:
-        kernels.launch("fps_idx", xyz.data_ptr(), B, N, npoint, idx.data_ptr(), work_ptr)
+        kernels.launch("fps_idx", xyz.data_ptr(), B, N, npoint, idx.data_ptr(), work_ptr,
+                       threads, per)
         return idx, None
     co = torch.empty((B, npoint, 3), dtype=torch.float32, device=xyz.device)
     kernels.launch("fps", xyz.data_ptr(), B, N, npoint, idx.data_ptr(), co.data_ptr(),
-                   work_ptr)
+                   work_ptr, threads, per)
     return idx, co
 
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from point_diffusion_refinement_tpu_torch import ops
+from point_diffusion_refinement_tpu_torch.ops import sampling
 
 pytestmark = pytest.mark.cuda
 
@@ -74,6 +75,92 @@ def test_fps_with_coordinates(dev, n):
     ri, rco = ops.furthest_point_sample_and_gather_plain(x, 128)
     assert torch.equal(i, ri) and torch.equal(co, rco)
     assert (i[:, 1:] < n - 40).all()
+
+
+def _hard_rows(rng, n):
+    """Four rows of n points: random, half padding, exact duplicates, all
+    padding."""
+    x = rng.uniform(-1.0, 1.0, (4, n, 3)).astype(np.float32)
+    x[1, n // 2:] = 0.0
+    x[2, n // 2: n // 2 + n // 4] = x[2, : n // 4]
+    x[3] = 0.0
+    return torch.from_numpy(x)
+
+
+def _fps_agrees(x, npoint, config=None):
+    ri, rco = ops.furthest_point_sample_and_gather_plain(x, npoint)
+    if config is None:
+        i, co = ops.furthest_point_sample_and_gather(x, npoint)
+        i2 = ops.furthest_point_sample(x, npoint)
+    else:
+        i, co = sampling._fps_launch(x, npoint, True, config=config)
+        i2, _ = sampling._fps_launch(x, npoint, False, config=config)
+    return torch.equal(i, ri) and torch.equal(i2, ri) and torch.equal(co, rco)
+
+
+# N on and around every boundary of the wrapper's (threads, points a thread)
+# choice, the last one past shared memory (the workspace path); most are not
+# multiples of 32
+FPS_BOUNDARY_N = sorted({n for b, _, _ in sampling.FPS_BLOCKS for n in (b - 1, b, b + 1)})
+
+
+@pytest.mark.parametrize("n", FPS_BOUNDARY_N)
+def test_fps_at_block_boundaries(dev, n):
+    x = _hard_rows(np.random.default_rng(n), n).to(dev)
+    assert _fps_agrees(x, 160)
+    i = ops.furthest_point_sample(x, 160)
+    assert (i[3] == 0).all()  # all padding: index 0 throughout
+    assert (i[1, 1:] < n // 2).all()  # padding is never picked
+
+
+@pytest.mark.parametrize("config", sampling.FPS_CONFIGS, ids=lambda c: f"{c[0]}x{c[1]}")
+def test_fps_every_block_the_kernel_builds(dev, config):
+    """Each (threads, points a thread) of the register path, full and with
+    a ragged last warp, against the plain version."""
+    cap = config[0] * config[1]
+    for n in (cap, cap - 37):
+        x = _hard_rows(np.random.default_rng(cap), n).to(dev)
+        assert _fps_agrees(x, 96, config)
+
+
+@pytest.mark.parametrize("n", [1, 31, 97, 1000])
+def test_fps_npoint_one_and_n(dev, n):
+    """npoint = 1 (idx 0 only) and npoint = N (every real point once, then
+    repeats of the first real point for padding rows)."""
+    x = _hard_rows(np.random.default_rng(5), n).to(dev)
+    assert _fps_agrees(x, 1)
+    assert _fps_agrees(x, n)
+    assert sorted(ops.furthest_point_sample(x, n)[0].tolist()) == list(range(n))
+
+
+@pytest.mark.parametrize("side", [8, 14, 16])
+def test_fps_tie_heavy_grid(dev, side):
+    """A regular grid: many points share the running maximum at every pick,
+    so the lowest-index rule of the block argmax decides."""
+    g = torch.stack(torch.meshgrid(*[torch.arange(side, dtype=torch.float32) * 0.1 + 0.05] * 3,
+                                   indexing="ij"), -1).reshape(1, -1, 3)
+    x = torch.cat([g, g.flip(1)], 0).to(dev)
+    assert _fps_agrees(x, min(side ** 3, 700))
+
+
+@pytest.mark.parametrize("N,M,K,r", [
+    (1000, 301, 1, 0.2),  # N not a multiple of 32, M not a multiple of 8, K = 1
+    (77, 13, 100, 0.5),  # K > N
+    (16, 2050, 32, 1.6),  # the decoder's 16-point level, K > N
+    (300, 50, 8, 1e-4),  # all balls empty
+    (300, 50, 8, 9.0),  # the radius covers the whole support
+    (3072, 1024, 32, 0.1),  # condition SA level 0
+])
+def test_ball_query_edge_cases(dev, N, M, K, r):
+    rng = np.random.default_rng(N + M)
+    x, c = _cloud(rng, 3, N, 3).to(dev), _cloud(rng, 3, M, 3).to(dev)
+    i, n = ops.ball_query(x, c, r, K)
+    ri, rn = ops.ball_query_plain(x, c, r, K)
+    assert torch.equal(i, ri) and torch.equal(n, rn)
+    if r < 1e-3:
+        assert (n == 0).all() and (i == 0).all()
+    if r > 5:
+        assert (n == min(N, K)).all()
 
 
 def _mirrored(rng, B, n):

@@ -9,6 +9,8 @@ themselves are held against the plain versions on the card by
 ``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py``.
 """
 
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -25,6 +27,7 @@ from point_diffusion_refinement_tpu.ops.pallas_window import (
 )
 from point_diffusion_refinement_tpu_torch import ops as t_ops
 from point_diffusion_refinement_tpu_torch.ops import kernels
+from point_diffusion_refinement_tpu_torch.ops import sampling as t_smp
 
 T = torch.from_numpy
 
@@ -124,6 +127,30 @@ class TestFps:
         jidx = _np(j_smp.furthest_point_sample(jnp.asarray(x), 6))
         tidx, _ = t_ops.furthest_point_sample_and_gather(T(x), 6)
         np.testing.assert_array_equal(tidx.numpy(), jidx)
+
+    def test_grid_ties_to_npoint_n(self):
+        # a regular grid: many points share the running maximum at every pick
+        g = np.stack(np.meshgrid(*[np.arange(4, dtype=np.float32) * 0.25 + 0.1] * 3,
+                                 indexing="ij"), -1).reshape(1, -1, 3)
+        jidx = _np(j_smp.furthest_point_sample(jnp.asarray(g), 64))
+        tidx, _ = t_ops.furthest_point_sample_and_gather(T(g), 64)
+        np.testing.assert_array_equal(tidx.numpy(), jidx)
+        assert sorted(tidx[0].tolist()) == list(range(64))
+
+    def test_block_config_for_every_row_in_shared_memory(self):
+        # the wrapper's (threads, points a thread) is a pair the kernel
+        # source builds (its PDR_FPS_CONFIGS, in order) and holds the row
+        src = (kernels.CSRC / "fps.cu").read_text()
+        block = src[src.index("#define PDR_FPS_CONFIGS"):src.index("#endif")]
+        built = [(int(t), int(p)) for t, p in re.findall(r"X\((\d+), (\d+)\)", block)]
+        assert built == list(t_smp.FPS_CONFIGS)
+        for n in range(1, t_smp.FPS_SMEM_MAX_POINTS + 1):
+            threads, per = t_smp.fps_block_config(n)
+            assert (threads, per) in t_smp.FPS_CONFIGS and threads * per >= n
+        # 16 bytes of shared memory a point within a block's 227 KB
+        assert max(t * p for t, p in t_smp.FPS_CONFIGS) * 16 <= 232448
+        with pytest.raises(ValueError, match="workspace"):
+            t_smp.fps_block_config(t_smp.FPS_SMEM_MAX_POINTS + 1)
 
 
 class TestInterpolateAndMasks:
