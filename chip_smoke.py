@@ -22,9 +22,14 @@
    µs a pick and the line through the wrapper's times (per-pick latency +
    per-point work).  The ball query is held and timed at every shape one
    denoise step of the model below launches it at, on the tensors the step
-   gives it.  Kernel times of FPS are CUDA-event means over wrapper calls;
-   those of the ball query are the profiler's device time a launch (its
-   wrapper's host time, ``wrapper_ms``, exceeds it).
+   gives it.  The fused ball group is held at every queries-a-warp choice it
+   takes and timed with its scan alone (counts and idx, no grouped output)
+   beside the whole launch: the scan/write split.  kNN is held at every lane
+   count a query at B=4 and B=32, at k = 8, 32 and N, and through ``query_and_group`` with
+   ``neighbor_definition="nn"`` at nsample 32.  Kernel times of FPS are
+   CUDA-event means over wrapper calls; those of the ball query, the fused
+   ball group and kNN are the profiler's device time a launch (the
+   wrapper's host time, ``wrapper_ms``, is beside them).
 3. Builds ``DEFAULT_POINTNET_CONFIG`` in bfloat16 with seeded random weights
    and runs ``make_coarse_sampler`` end to end at B=4, 2048 points, a
    3072 x 4 condition, over a schedule of STEPS steps, with every launch count
@@ -32,6 +37,9 @@
    never launched or the output is not a finite (4, 2048, 3) cloud.
 4. Runs one denoise step through the kernels and through the plain versions
    on the card and checks their relative difference.
+   Then ``EXPERIMENTS["ddpm_avg_max"]`` (global self-attention) in bf16
+   at full width: one B=4 encode + denoise step through the kernels, launch
+   counts reset just before and read just after, against ``plain_ops()``.
 5. Traces three denoise steps with ``torch.profiler`` and prints the
    device-busy share of the window, the ops that take the most device
    time, and the device ms a denoise step of the ``fps``, ``fps_idx``,
@@ -95,8 +103,9 @@
    each variant costs: step ms and device-busy share of the denoise step,
    ms of the B=32 refine forward.
 14. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
-   (``launches``: the sum over the four driven paths, the two pipelines and
-   the two training runs, each counted from zero; ``launches_by_path``
+   (``launches``: the sum over the driven paths, the ``ddpm_avg_max`` step,
+   the two pipelines and the two training runs, each counted from zero;
+   ``launches_by_path``
    splits it; the FPS rows add ``latency_floor_ms``, the sweep's per-pick
    time at its smallest N times the row's npoint - 1, beside the roofline
    ``bound_ms``; the rows of those five kernels add their device ms a
@@ -423,15 +432,19 @@ def check_kernels(dev, rng, pick_floor_ms: float):
                 raise AssertionError(f"ball_group {tag}: grouped values differ by {err}")
             worst = max(worst, err)
     sup, tabs, q, mode = cond, [t_enc, t_dec], x_t, "center_zero"
-    ms = time_ms(lambda: ball_group(sup, tabs, q, 0.1, 32, True, mode), 20)
+    run = lambda: ball_group(sup, tabs, q, 0.1, 32, True, mode)
+    ms = device_ms(run, "ball_group")
+    wrapper_ms = time_ms(run, 20)
     plain_ms = time_ms(lambda: ball_group_plain(sup, tabs, q, 0.1, 32, True, mode), 5)
     ridx, rcnt = neighbors.ball_query_plain(sup, q, 0.1, 32)
     outs, _ = ball_group_plain(sup, tabs, q, 0.1, 32, True, mode)
     pairs = scanned_pairs(ridx, rcnt, sup.shape[1])
     b_ms, b_by = bound(nbytes(sup, q, *tabs, *outs, rcnt), 9.0 * pairs)
+    scan_ms = ball_group_split(sup, tabs, q, mode, outs, rcnt, ridx)
     rows.append(dict(name="ball_group", shape="FT0 sup (4,3072) q (4,2048) K=32 C=4+32",
                      max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=None))
+                     bound_by=b_by, library_ms=None, wrapper_ms=wrapper_ms,
+                     scan_ms=scan_ms, mean_count=float(rcnt.float().mean())))
 
     # -- ball query: condition SA level 0 (3072 support, 1024 centres) and the
     #    K > N case of the 16-point level (decoder FT 4: 16 support points)
@@ -447,15 +460,11 @@ def check_kernels(dev, rng, pick_floor_ms: float):
 
     # -- kNN: the x_t feature propagation at level 0 (2048 queries, 1024 known)
     unknown, known = x_t, sa_centres
-    d, i = neighbors.knn(unknown, known, 8)
+    err = check_knn(unknown, known, t_sa)
+    run = lambda: neighbors.knn(unknown, known, 8)
+    ms = device_ms(run, "knn")
+    wrapper_ms = time_ms(run, 20)
     rd, ri = neighbors.knn_plain(unknown, known, 8)
-    torch.cuda.synchronize()
-    if not torch.equal(i, ri):
-        raise AssertionError("knn: indices differ")
-    err = float((d - rd).abs().max())
-    if err > KNN_DIST_TOL:
-        raise AssertionError(f"knn: distances differ by {err}")
-    ms = time_ms(lambda: neighbors.knn(unknown, known, 8), 20)
     plain_ms = time_ms(lambda: neighbors.knn_plain(unknown, known, 8), 5)
     lib_ms = time_ms(
         lambda: torch.topk(torch.cdist(unknown, known), 8, dim=-1, largest=False), 20)
@@ -463,10 +472,92 @@ def check_kernels(dev, rng, pick_floor_ms: float):
     b_ms, b_by = bound(nbytes(unknown, known, rd, ri), 10.0 * B * M * N)
     rows.append(dict(name="knn", shape="q (4,2048) pts (4,1024) k=8", max_abs_err=err,
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                     library_ms=lib_ms))
+                     library_ms=lib_ms, wrapper_ms=wrapper_ms))
     for r in rows:
         print_row(r)
     return rows
+
+
+def ball_group_split(sup, tabs, q, mode, routs, rcnt, ridx) -> float:
+    """Phase 2, kernel #2 at FT0: every queries-a-warp choice the kernel
+    takes, bit-equal to the plain version, with its device ms (the wrapper's
+    choice marked *), and the scan alone (counts and idx, no grouped
+    output) at the wrapper's choice.  Returns the scan's device ms."""
+    from point_diffusion_refinement_tpu_torch.ops.ball_group import (
+        BALL_GROUP_QUERIES_PER_WARP,
+        _launch,
+    )
+
+    cnt, idx = torch.empty_like(rcnt), torch.empty_like(ridx)
+    outs = [torch.empty_like(o) for o in routs]
+    cells = []
+    for qpw in (1, 2, 4):
+        run = lambda: _launch(sup, tabs, q, 0.1, 32, True, mode, outs, cnt, idx, qpw)
+        run()
+        torch.cuda.synchronize()
+        if not (torch.equal(cnt, rcnt) and torch.equal(idx, ridx)
+                and all(torch.equal(o, r) for o, r in zip(outs, routs))):
+            raise AssertionError(f"ball_group: {qpw} queries a warp differ from plain")
+        star = "*" if qpw == BALL_GROUP_QUERIES_PER_WARP else ""
+        cells.append(f"{qpw}{star} ms={device_ms(run, 'ball_group'):.4f}")
+    scan = lambda: _launch(sup, tabs, q, 0.1, 32, True, mode, None, cnt, idx)
+    scan_ms = device_ms(scan, "ball_group")
+    if not (torch.equal(cnt, rcnt) and torch.equal(idx, ridx)):
+        raise AssertionError("ball_group: the scan alone differs from plain")
+    print(f"ball_group FT0 queries a warp, equal to plain: {'; '.join(cells)}; "
+          f"scan alone (no grouped output) ms={scan_ms:.4f}", flush=True)
+    return scan_ms
+
+
+def check_knn(unknown, known, feats) -> float:
+    """Phase 2, kernel #4 at FP0: every lane count a query the kernel takes,
+    at B=4 and at B=32 (the batch of the refine forward and of training),
+    bit-equal to the plain version, with its device ms (the wrapper's choice
+    marked *); k = 32 and k = N; and ``query_and_group`` with
+    ``neighbor_definition="nn"`` at nsample 32 (SA level 0's shapes) through
+    the kernel against the plain route.  Returns the largest distance
+    difference (0)."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.models.grouping import query_and_group
+    from point_diffusion_refinement_tpu_torch.ops import neighbors
+
+    worst = 0.0
+    gen = torch.Generator(device=unknown.device)
+    gen.manual_seed(31)
+    wide_q = torch.randn(32, *unknown.shape[1:], generator=gen, device=unknown.device)
+    wide_p = torch.randn(32, *known.shape[1:], generator=gen, device=unknown.device)
+    for q, pts in ((unknown, known), (wide_q, wide_p)):
+        B, M, N = q.shape[0], q.shape[1], pts.shape[1]
+        cells = []
+        for k in ((8, 32, N) if B == unknown.shape[0] else (8,)):
+            rd, ri = neighbors.knn_plain(q, pts, k)
+            for lanes in ((1, 2, 4, 8) if k == 8 else (None,)):
+                run = lambda: neighbors._knn_launch(q, pts, k, lanes)
+                d, i = run()
+                torch.cuda.synchronize()
+                err = float((d - rd).abs().max())
+                if not torch.equal(i, ri) or err > KNN_DIST_TOL:
+                    raise AssertionError(f"knn: B={B} k={k}, {lanes} lanes a query differ")
+                worst = max(worst, err)
+                if k == 8:
+                    star = "*" if lanes == neighbors.knn_lanes(B * M) else ""
+                    cells.append(f"{lanes}{star} ms={device_ms(run, 'knn'):.4f}")
+        print(f"knn FP0 q ({B},{M}) pts ({B},{N}) k=8 lanes a query, equal to plain"
+              f"{' (and k=32, k=N)' if B == unknown.shape[0] else ''}: " + "; ".join(cells),
+              flush=True)
+    kw = dict(radius=0.1, nsample=32, neighbor_def="nn", include_abs_coordinate=True,
+              include_center_coordinate=True)
+    ops.reset_launch_counts()
+    got = query_and_group(unknown, known, feats[:, :unknown.shape[1]], **kw)
+    launched = ops.launch_counts()["knn"]
+    with ops.plain_ops():
+        ref = query_and_group(unknown, known, feats[:, :unknown.shape[1]], **kw)
+    torch.cuda.synchronize()
+    if launched != 1 or not torch.equal(got.features, ref.features):
+        raise AssertionError("query_and_group nn 32: differs from plain or took no kernel")
+    print(f"query_and_group(nn, 32) q ({tuple(known.shape[:2])}) support "
+          f"{tuple(unknown.shape[:2])}: knn launches=1, equal to plain", flush=True)
+    return worst
 
 
 def mirrored_partials(rng, B: int, n: int) -> np.ndarray:
@@ -514,7 +605,7 @@ def check_fps_idx(dev, rng, pick_floor_ms: float):
     return row
 
 
-ROW_EXTRAS = ("latency_floor_ms", "wrapper_ms", "mean_count")
+ROW_EXTRAS = ("latency_floor_ms", "wrapper_ms", "scan_ms", "mean_count")
 
 
 def print_row(r) -> None:
@@ -587,6 +678,50 @@ def check_denoise_ball_queries(model, cond, label, dev) -> None:
         raise AssertionError("the denoise step launched no ball query")
     for (N, M, r, K), (sup, q) in seen.items():
         print_row(ball_query_row(sup, q, r, K, f"step sup ({B},{N}) centres ({B},{M}) K={K} r={r}"))
+
+
+def avg_max_step(rng, dev) -> dict:
+    """Phase 4b: ``EXPERIMENTS["ddpm_avg_max"]`` (avg_max pooling, global
+    self-attention after the two coarsest set abstractions and kNN feature
+    propagations) in bf16 at full width with seeded weights: one B=4 encode
+    and denoise step through the kernels, launch counts reset just before
+    and read just after, against the same step under ``plain_ops()``."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
+    from point_diffusion_refinement_tpu_torch.models import PointNet2CloudCondition
+    from point_diffusion_refinement_tpu_torch.ops import kernels
+
+    B = 4
+    cfg = dict(EXPERIMENTS["ddpm_avg_max"]()["pointnet_config"], compute_dtype="bfloat16")
+    model = PointNet2CloudCondition.from_config(cfg, device="cuda", seed=3)
+    cond = conditions(rng, B, dev)
+    label = torch.zeros(B, dtype=torch.int64, device=dev)
+    x = torch.from_numpy(rng.standard_normal((B, 2048, 3)).astype(np.float32)).to(dev)
+    ts = torch.full((B,), 5.0, device=dev)
+    with torch.no_grad():
+        model.denoise(x, ts, label, model.encode_condition(cond), fused=True)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        y_k = model.denoise(x, ts, label, model.encode_condition(cond), fused=True).float()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        with kernels.plain_ops():
+            y_p = model.denoise(x, ts, label, model.encode_condition(cond), fused=True).float()
+    rel = float((y_k - y_p).norm() / y_p.norm())
+    finite = bool(torch.isfinite(y_k).all())
+    print(f"ddpm_avg_max: encode + denoise step B={B} ms={ms:.2f} out={tuple(y_k.shape)} "
+          f"finite={finite} launches={counts} kernels vs plain rel_err={rel:.3g} "
+          f"(tol {DENOISE_REL_TOL})", flush=True)
+    if tuple(y_k.shape) != (B, 2048, 3) or not finite:
+        raise AssertionError("ddpm_avg_max: the denoise step is not a finite (4, 2048, 3) cloud")
+    if not rel <= DENOISE_REL_TOL:
+        raise AssertionError("ddpm_avg_max: the step through the kernels disagrees with plain")
+    for name in COARSE_PATH_KERNELS:
+        if counts[name] <= 0:
+            raise AssertionError(f"ddpm_avg_max: kernel {name} was not launched")
+    return counts
 
 
 def preprocess(rng) -> None:
@@ -1601,10 +1736,11 @@ def main() -> int:
         "denoise steps", lambda: model.denoise(x, ts, label, cf, fused=True),
         kernels="a denoise step")}
 
+    path_counts = {"ddpm_avg_max_step": avg_max_step(rng, dev)}
     preprocess(rng)
     kernel_ms["per_pipeline_ms"] = {}
-    path_counts = {"pipeline": pipeline(model, rng, dev,
-                                        kernel_ms_out=kernel_ms["per_pipeline_ms"])}
+    path_counts["pipeline"] = pipeline(model, rng, dev,
+                                       kernel_ms_out=kernel_ms["per_pipeline_ms"])
     refine_at_batch(rng, dev)
     evaluation_cost(rng, dev)
 
@@ -1643,7 +1779,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             # the whole fused pool at the row's site beside the unfused pool
             **{k: v for k, v in r.items() if k.startswith("pool_")},
-            **{k: r[k] for k in ("latency_floor_ms", "wrapper_ms") if k in r},
+            **{k: r[k] for k in ("latency_floor_ms", "wrapper_ms", "scan_ms") if k in r},
             **{k: v[LAUNCH_NAMES[r["name"]]] for k, v in kernel_ms.items()
                if LAUNCH_NAMES[r["name"]] in v},
         })

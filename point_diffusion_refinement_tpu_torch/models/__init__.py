@@ -1,4 +1,4 @@
-from .attention import AttentionPool
+from .attention import AttentionPool, GlobalSelfAttention
 from .common import ConditionedMLP, Dense, PartialGroupNorm, SharedMLP, pool_features, swish
 from .condition_net import CondFeatures, PointNet2CloudCondition
 from .grouping import group_all, group_knn_features, query_and_group
@@ -13,6 +13,7 @@ __all__ = [
     "Dense",
     "FeaturePropagation",
     "FeatureTransfer",
+    "GlobalSelfAttention",
     "KnnFeaturePropagation",
     "PartialGroupNorm",
     "Pnet2Stage",

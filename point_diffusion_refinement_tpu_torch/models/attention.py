@@ -1,12 +1,14 @@
-"""Attention pooling over neighbour groups.
+"""Attention pooling over neighbour groups, and global self-attention.
 
-Counterpart of the JAX package's ``models/attention.py`` on its default
-split-q/k path: the reference broadcasts conv(query) to every neighbour slot
-and concatenates before its norm + conv stack; since the q half is constant
-over K, the first GroupNorm's statistics factor across the q/k channel
-boundary and the following Dense splits into a per-centre part and a
-grouped part, so the (B, M, K, C1+C2) concatenation is never built.  The
-softmax over K is count-masked.
+Counterpart of the JAX package's ``models/attention.py``.  ``AttentionPool``
+follows its default split-q/k path: the reference broadcasts conv(query) to
+every neighbour slot and concatenates before its norm + conv stack; since
+the q half is constant over K, the first GroupNorm's statistics factor
+across the q/k channel boundary and the following Dense splits into a
+per-centre part and a grouped part, so the (B, M, K, C1+C2) concatenation is
+never built.  The softmax over K is count-masked.  ``GlobalSelfAttention``
+is the module the ``global_attention_setting`` of a config adds after the
+coarsest set-abstraction and kNN feature-propagation levels.
 """
 
 from __future__ import annotations
@@ -218,3 +220,67 @@ class AttentionPool(nn.Module):
             w = weight.to(self.dtype)
             return (v * w).sum(dim=-2, dtype=torch.float32).to(self.dtype)
         return (v * weight).sum(dim=-2)
+
+
+class GlobalSelfAttention(nn.Module):
+    """Full N x N self-attention with pairwise-concat MLP scores (the JAX
+    package's ``GlobalSelfAttention``, the reference's GlobalAttentionModule).
+
+    The reference combines ``(value.unsqueeze(-1) * weight).sum(dim=-1)``:
+    value is indexed by the query axis and broadcast over the key axis, so
+    the softmax-normalised sum is exactly ``value``.  The module's output is
+    therefore the value Dense (+ norm / ReLU); the score parameters exist with
+    the reference's shapes (so checkpoints carry across) and are not
+    computed.  ``true_attention=True`` attends over the keys for real, as the
+    JAX package's option of that name does.
+
+    Input feat (B, N, in_features), the trailing channels raw coordinates;
+    output (B, N, features) float32 (the module computes in float32, as its
+    Flax counterpart, built without a dtype, promotes).  Submodules carry
+    Flax's creation-order names: Dense_0 key, Dense_1 query, Dense_2 value,
+    then the norms and Dense_3 / Dense_4 of the score MLP.
+    """
+
+    def __init__(self, in_features: int, features: int, attention_bn: bool = True,
+                 last_activation: bool = True, true_attention: bool = False):
+        super().__init__()
+        C = int(features)
+        self.attention_bn = attention_bn
+        self.last_activation = last_activation
+        self.true_attention = true_attention
+        self.Dense_0 = Dense(in_features, C)
+        self.Dense_1 = Dense(in_features, C)
+        self.Dense_2 = Dense(in_features, C)
+        norms = iter(f"PartialGroupNorm_{i}" for i in range(3))
+        self.value_norm = self.pair_norm = self.hidden_norm = None
+        if last_activation and attention_bn:
+            self.value_norm = next(norms)
+            setattr(self, self.value_norm, PartialGroupNorm(C, min(32, C)))
+        if attention_bn:
+            self.pair_norm = next(norms)
+            setattr(self, self.pair_norm, PartialGroupNorm(2 * C, min(32, 2 * C)))
+        self.Dense_3 = Dense(2 * C, C)
+        if attention_bn:
+            self.hidden_norm = next(norms)
+            setattr(self, self.hidden_norm, PartialGroupNorm(C, min(32, C)))
+        self.Dense_4 = Dense(C, C)
+
+    def forward(self, feat):
+        value = self.Dense_2(feat)
+        if self.last_activation:
+            if self.value_norm is not None:
+                value = getattr(self, self.value_norm)(value)
+            value = torch.relu(value)
+        if not self.true_attention:
+            return value
+        key, query = self.Dense_0(feat), self.Dense_1(feat)
+        B, N, C = value.shape
+        h = torch.relu(torch.cat([query[:, :, None, :].expand(B, N, N, C),
+                                  key[:, None, :, :].expand(B, N, N, C)], dim=-1))
+        if self.pair_norm is not None:
+            h = getattr(self, self.pair_norm)(h)
+        h = torch.relu(self.Dense_3(h))
+        if self.hidden_norm is not None:
+            h = getattr(self, self.hidden_norm)(h)
+        weight = torch.softmax(self.Dense_4(h), dim=2)  # over the key axis
+        return torch.einsum("bnmc,bmc->bnc", weight, value)

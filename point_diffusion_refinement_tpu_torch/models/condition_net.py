@@ -48,7 +48,12 @@ from ..diffusion.schedule import calc_t_emb
 from ..ops.ball_group import ball_group
 from ..utils.device import DeviceLike, resolve_device
 from .common import ACTIVATIONS, Dense, swish
-from .model_config import as_config, attention_kwargs, compute_dtype
+from .model_config import (
+    as_config,
+    attention_kwargs,
+    compute_dtype,
+    global_attention_kwargs,
+)
 from .modules import (
     FUSED_MIN_SUPPORT,
     FUSED_QUERY_MULTIPLE,
@@ -135,10 +140,7 @@ class PointNet2CloudCondition(nn.Module):
         dtype = self.dtype
 
         att = hp.get("attention_setting", None)
-        if hp.get("global_attention_setting", None) and hp["global_attention_setting"].get(
-            "use_global_attention_module", False
-        ):
-            raise NotImplementedError("GlobalSelfAttention is not ported yet")
+        g_att = hp.get("global_attention_setting", None)  # x_t branch only
 
         pos_w = (6 * self.pos_multires if self.use_position_encoding else 0) + (
             3 if self.attach_position else 0
@@ -209,9 +211,9 @@ class PointNet2CloudCondition(nn.Module):
         else:
             cond = (self.include_class_condition, class_w, False, 0)
         self.sa = self._add_ladder("sa", self._sa_ladder(
-            arch, sa_in, self.include_t, t_w, cond, att))
+            arch, sa_in, self.include_t, t_w, cond, att, g_att))
         self.fp = self._add_ladder("fp", self._fp_ladder(
-            arch, x_feat_w, fp_known, self.include_t, t_w, cond, att))
+            arch, x_feat_w, fp_known, self.include_t, t_w, cond, att, g_att))
 
         out_dim = int(hp["out_dim"])
         puf = int(hp.get("point_upsample_factor", 1))
@@ -251,7 +253,7 @@ class PointNet2CloudCondition(nn.Module):
         return dict(include_condition=inc, condition_features=w,
                     include_second_condition=inc2, second_condition_features=w2)
 
-    def _sa_ladder(self, arch, in_w, include_t, t_w, cond, att):
+    def _sa_ladder(self, arch, in_w, include_t, t_w, cond, att, g_att=None):
         hp = self.hp
         nd = arch["neighbor_definition"]
         nd = tuple(nd) if isinstance(nd, (list, tuple)) else (nd,) * len(arch["radius"])
@@ -267,11 +269,11 @@ class PointNet2CloudCondition(nn.Module):
                 include_center_coordinate=bool(hp.get("include_center_coordinate", False)),
                 first_conv_features=(spec[0] if bool(hp["bn_first"]) and i == 0 else None),
                 neighbor_def=nd[i], **self._cond_kwargs(cond), **self._common(),
-                **attention_kwargs(att),
+                **attention_kwargs(att), **global_attention_kwargs(g_att, i),
             ))
         return mods
 
-    def _fp_ladder(self, arch, unknown_w, known_w, include_t, t_w, cond, att):
+    def _fp_ladder(self, arch, unknown_w, known_w, include_t, t_w, cond, att, g_att=None):
         dfd = arch["decoder_feature_dim"]
         depth = int(arch["decoder_mlp_depth"])
         use_knn = bool(arch.get("use_knn_FP", False))
@@ -286,7 +288,7 @@ class PointNet2CloudCondition(nn.Module):
                 ck = self._cond_kwargs(cond)
                 mods.append(KnnFeaturePropagation(
                     unknown_w[j], known_w[j], (dfd[j],) * depth, (dfd[j],) * depth, K,
-                    **ck, **kw, **attention_kwargs(att)))
+                    **ck, **kw, **attention_kwargs(att), **global_attention_kwargs(g_att, j)))
             else:
                 mods.append(FeaturePropagation(
                     unknown_w[j], known_w[j], (dfd[j],) * depth,

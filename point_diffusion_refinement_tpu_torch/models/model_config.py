@@ -41,3 +41,17 @@ def attention_kwargs(setting, key_use: str = "use_attention_module") -> dict:
         attention_transform_out=bool(setting.get("transform_grouped_feat_out", True)),
         attention_last_activation=bool(setting.get("last_activation", True)),
     )
+
+
+def global_attention_kwargs(setting, level: int) -> dict:
+    """Global self-attention flags of the x_t branch's level ``level`` (a
+    set abstraction or a kNN feature propagation) from a
+    ``global_attention_setting`` section."""
+    if (setting is None or not setting.get("use_global_attention_module", False)
+            or level not in tuple(setting.get("global_attention_layer_index", ()))):
+        return dict(use_global_attention=False)
+    return dict(
+        use_global_attention=True,
+        global_attention_bn=bool(setting.get("attention_bn", True)),
+        global_attention_last_activation=bool(setting.get("last_activation", True)),
+    )

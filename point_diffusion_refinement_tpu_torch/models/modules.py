@@ -34,8 +34,10 @@ Dense, its residual projection and the pool's key Dense) into one
 (``_packed_first_layers``).  Where ``packed`` hands a pool its key, that pool
 stays unfused: packed wins.
 
-The global self-attention option and the grouper inside feature propagation
-are not ported (both off in the shipped configs); asking for them raises.
+``GlobalSelfAttention`` follows a set abstraction or a kNN feature
+propagation at the levels a config's ``global_attention_setting`` names, on
+[features, xyz], as in the JAX package.  The grouper inside feature
+propagation is not ported (off in the shipped configs); asking for it raises.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ import torch.nn.functional as F
 from ..ops.ball_group import ball_group, ball_group_train
 from ..ops.interpolate import inverse_distance_weights, three_interpolate, three_nn
 from ..ops.sampling import furthest_point_sample_and_gather, gather_points
-from .attention import AttentionPool
+from .attention import AttentionPool, GlobalSelfAttention
 from .common import ConditionedMLP, pool_features
 from .grouping import group_knn_features, grouped_width, query_and_group
 
@@ -66,6 +68,12 @@ KNN_FUSED_MAX_TABLE = 256
 def _unsupported(flag: bool, what: str) -> None:
     if flag:
         raise NotImplementedError(f"{what} is not ported yet")
+
+
+def _cat_promoted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``concatenate([a, b], -1)`` in the promoted dtype, as jnp does."""
+    dt = torch.promote_types(a.dtype, b.dtype)
+    return torch.cat([a.to(dt), b.to(dt)], dim=-1)
 
 
 def _packed_first_layers(grouped: torch.Tensor, cm: ConditionedMLP,
@@ -155,9 +163,10 @@ class SetAbstraction(nn.Module):
                  activation: str = "relu", use_attention: bool = False,
                  attention_bn: bool = True, attention_transform_out: bool = True,
                  attention_last_activation: bool = True,
-                 use_global_attention: bool = False, dtype: Optional[torch.dtype] = None):
+                 use_global_attention: bool = False, global_attention_bn: bool = True,
+                 global_attention_last_activation: bool = True,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
-        _unsupported(use_global_attention, "GlobalSelfAttention")
         self.npoint, self.radius, self.nsample = int(npoint), float(radius), int(nsample)
         self.in_features = int(in_features)
         self.use_xyz, self.include_abs = use_xyz, include_abs_coordinate
@@ -183,6 +192,12 @@ class SetAbstraction(nn.Module):
                 self.in_features, gw, mlp[-1], mlp[-1], attention_bn=attention_bn,
                 transform_grouped_feat_out=attention_transform_out,
                 last_activation=attention_last_activation, dtype=dtype,
+            )
+        self.use_global_attention = use_global_attention
+        if use_global_attention:
+            self.GlobalSelfAttention_0 = GlobalSelfAttention(
+                mlp[-1] + 3, mlp[-1], attention_bn=global_attention_bn,
+                last_activation=global_attention_last_activation,
             )
 
     def fused_eligible(self, xyz, features, fused: bool) -> bool:
@@ -253,6 +268,8 @@ class SetAbstraction(nn.Module):
                 second_condition_emb if self.include_second_condition else None
             ),
         )
+        if self.use_global_attention:
+            new_features = self.GlobalSelfAttention_0(_cat_promoted(new_features, new_xyz))
         # new_xyz stays in FPS selection order: the next level's
         # fps_ordered=True relies on it
         return new_xyz, new_features
@@ -325,11 +342,11 @@ class KnnFeaturePropagation(nn.Module):
                  use_attention: bool = False, attention_bn: bool = True,
                  attention_transform_out: bool = True,
                  attention_last_activation: bool = True,
-                 use_global_attention: bool = False,
+                 use_global_attention: bool = False, global_attention_bn: bool = True,
+                 global_attention_last_activation: bool = True,
                  dtype: Optional[torch.dtype] = None):
         super().__init__()
         _unsupported(include_grouper, "the feature-propagation grouper")
-        _unsupported(use_global_attention, "GlobalSelfAttention")
         self.k = int(k)
         self.include_t = include_t
         self.include_condition = include_condition
@@ -354,6 +371,12 @@ class KnnFeaturePropagation(nn.Module):
             include_condition=include_condition, condition_features=condition_features,
             **common,
         )
+        self.use_global_attention = use_global_attention
+        if use_global_attention:
+            self.GlobalSelfAttention_0 = GlobalSelfAttention(
+                mlp2[-1] + 3, mlp2[-1], attention_bn=global_attention_bn,
+                last_activation=global_attention_last_activation,
+            )
 
     def fused_knn_eligible(self, unknown, known, known_feats, fused_knn: bool) -> bool:
         """The sites the fused kNN group serves (the JAX package's rule for
@@ -409,7 +432,10 @@ class KnnFeaturePropagation(nn.Module):
             t_emb=t_emb if self.include_t else None,
             condition_emb=condition_emb if self.include_condition else None,
         )
-        return h[:, :, 0, :]
+        h = h[:, :, 0, :]
+        if self.use_global_attention:
+            h = self.GlobalSelfAttention_0(_cat_promoted(h, unknown))
+        return h
 
 
 class FeatureTransfer(nn.Module):

@@ -34,6 +34,10 @@ from .scatter import group_scatter_add
 
 EMPTY_MODES = {"center_zero": 0, "row0": 1}
 BALL_GROUP_MAX_K = 64
+# queries each warp of the kernel takes in turn (its block stages the support
+# once for 8 warps x this many queries; chip_smoke.py's phase 2 times 1, 2
+# and 4 at the level-0 feature transfer, where 2 is the fastest)
+BALL_GROUP_QUERIES_PER_WARP = 2
 
 
 def ball_group_plain(
@@ -116,6 +120,8 @@ def ball_group(
     tabs = [t.to(torch.bfloat16).contiguous() for t in tables]
     for t in tabs:
         kernels.check(t, "ball_group table", torch.bfloat16, (B, N, None))
+        if t.shape[-1] < 1:
+            raise ValueError("ball_group: a table needs at least one channel")
     pos_cols = 9 if include_center else 6
     outs = [
         torch.empty((B, M, nsample, t.shape[-1] + pos_cols), dtype=torch.bfloat16,
@@ -125,18 +131,29 @@ def ball_group(
     counts = torch.empty((B, M), dtype=torch.int32, device=support.device)
     idx = (torch.empty((B, M, nsample), dtype=torch.int32, device=support.device)
            if return_idx else None)
+    if M > 0:
+        _launch(support, tabs, queries, radius, nsample, include_center, empty_mode, outs,
+                counts, idx)
+    return (outs, counts, idx) if return_idx else (outs, counts)
+
+
+def _launch(support, tabs, queries, radius, nsample, include_center, empty_mode, outs,
+            counts, idx, queries_per_warp: int = BALL_GROUP_QUERIES_PER_WARP) -> None:
+    """One launch of ``csrc/ball_group.cu`` on checked tensors; ``outs=None``
+    writes counts and idx only (the scan without the write)."""
+    B, N, _ = support.shape
     t1 = tabs[1] if len(tabs) == 2 else None
-    o1 = outs[1] if len(outs) == 2 else None
+    o1 = outs[1] if outs is not None and len(outs) == 2 else None
     kernels.launch(
-        "ball_group", support.data_ptr(), queries.data_ptr(), B, N, M, nsample,
-        _radius_sq(radius), int(include_center), EMPTY_MODES[empty_mode],
-        tabs[0].data_ptr(), tabs[0].shape[-1], outs[0].data_ptr(),
+        "ball_group", support.data_ptr(), queries.data_ptr(), B, N, queries.shape[1],
+        nsample, _radius_sq(radius), int(include_center), EMPTY_MODES[empty_mode],
+        queries_per_warp, tabs[0].data_ptr(), tabs[0].shape[-1],
+        outs[0].data_ptr() if outs is not None else None,
         t1.data_ptr() if t1 is not None else None,
         t1.shape[-1] if t1 is not None else 0,
         o1.data_ptr() if o1 is not None else None,
         counts.data_ptr(), idx.data_ptr() if idx is not None else None,
     )
-    return (outs, counts, idx) if return_idx else (outs, counts)
 
 
 class _BallGroupTrain(torch.autograd.Function):

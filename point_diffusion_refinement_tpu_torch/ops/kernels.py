@@ -53,10 +53,10 @@ KERNELS = {
     "ball_query": (
         "ball_query.cu", "pdr_ball_query", [_P, _P, _I, _I, _I, _I, _F, _P, _P, _P],
     ),
-    "knn": ("knn.cu", "pdr_knn", [_P, _P, _I, _I, _I, _I, _P, _P, _P]),
+    "knn": ("knn.cu", "pdr_knn", [_P, _P, _I, _I, _I, _I, _I, _P, _P, _P]),
     "ball_group": (
         "ball_group.cu", "pdr_ball_group",
-        [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P],
+        [_P, _P, _I, _I, _I, _I, _F, _I, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P, _P],
     ),
     "ball_query_group": (
         "ball_query_group.cu", "pdr_ball_query_group",

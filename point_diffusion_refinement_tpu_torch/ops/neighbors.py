@@ -21,7 +21,7 @@ Reference semantics:
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 
@@ -138,7 +138,25 @@ def ball_query_group(
     return gathered, idx, counts
 
 
-KNN_MAX_K = 16
+# lanes a query of the kNN kernel: enough that B * M * lanes reaches this
+# many threads, up to 8.  At the level-0 feature propagation of a B=4
+# denoise step (8192 queries) 8 lanes ran fastest; at B=32 (65536 queries)
+# one lane, since every lane pays its own insertions (chip_smoke.py's phase
+# 2 times each lane count at both).
+KNN_THREADS = 65536
+KNN_MAX_LANES = 8
+
+
+def knn_lanes(queries: int) -> int:
+    """Lanes a query for ``queries`` = B * M queries: 1, 2, 4 or 8."""
+    lanes = 1
+    while lanes < KNN_MAX_LANES and queries * lanes < KNN_THREADS:
+        lanes *= 2
+    return lanes
+
+
+# the kNN + gather kernel keeps its k best in one thread's registers
+KNN_GROUP_MAX_K = 16
 
 
 def knn_plain(
@@ -150,27 +168,38 @@ def knn_plain(
     return dist[..., :k].contiguous(), idx[..., :k].to(torch.int32)
 
 
-def knn(
-    query: torch.Tensor, points: torch.Tensor, k: int
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """k nearest neighbours: dists (B, M, k) squared, ascending, and idx
-    (B, M, k) int32.  Callers pass k <= N."""
-    if kernels.use_plain(query):
-        return knn_plain(query, points, k)
+def _knn_launch(query: torch.Tensor, points: torch.Tensor, k: int,
+                lanes: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch ``csrc/knn.cu`` with ``lanes`` lanes a query (by default
+    ``knn_lanes(B * M)``)."""
     query, points = kernels.as_f32(query), kernels.as_f32(points)
     B, M, _ = query.shape
     N = points.shape[1]
     kernels.check(query, "knn query", torch.float32, (None, None, 3))
     kernels.check(points, "knn points", torch.float32, (B, None, 3))
-    if not 1 <= k <= min(N, KNN_MAX_K):
-        raise ValueError(f"knn kernel needs 1 <= k <= min(N, {KNN_MAX_K}), got k={k}, N={N}")
+    if not 1 <= k <= N:
+        raise ValueError(f"knn needs 1 <= k <= N, got k={k}, N={N}")
+    lanes = knn_lanes(B * M) if lanes is None else lanes
+    if lanes not in (1, 2, 4, 8):
+        raise ValueError(f"knn kernel takes 1, 2, 4 or 8 lanes a query, got {lanes}")
     dist = torch.empty((B, M, k), dtype=torch.float32, device=query.device)
     idx = torch.empty((B, M, k), dtype=torch.int32, device=query.device)
-    kernels.launch(
-        "knn", query.data_ptr(), points.data_ptr(), B, M, N, k,
-        dist.data_ptr(), idx.data_ptr(),
-    )
+    if M > 0:
+        kernels.launch(
+            "knn", query.data_ptr(), points.data_ptr(), B, M, N, k, lanes,
+            dist.data_ptr(), idx.data_ptr(),
+        )
     return dist, idx
+
+
+def knn(
+    query: torch.Tensor, points: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest neighbours: dists (B, M, k) squared, ascending, and idx
+    (B, M, k) int32, ties to the lowest index.  Any 1 <= k <= N."""
+    if kernels.use_plain(query):
+        return knn_plain(query, points, k)
+    return _knn_launch(query, points, k)
 
 
 def _pack_knn_group(query, points, table, dist, idx) -> torch.Tensor:
@@ -219,9 +248,9 @@ def knn_group(query: torch.Tensor, points: torch.Tensor, table: torch.Tensor,
     kernels.check(query, "knn_group query", torch.float32, (None, None, 3))
     kernels.check(points, "knn_group points", torch.float32, (B, None, 3))
     kernels.check(table, "knn_group table", torch.bfloat16, (B, N, None))
-    if not 1 <= k <= min(N, KNN_MAX_K):
+    if not 1 <= k <= min(N, KNN_GROUP_MAX_K):
         raise ValueError(
-            f"knn_group kernel needs 1 <= k <= min(N, {KNN_MAX_K}), got k={k}, N={N}")
+            f"knn_group kernel needs 1 <= k <= min(N, {KNN_GROUP_MAX_K}), got k={k}, N={N}")
     if C < 1:
         raise ValueError("knn_group: the table needs at least one channel")
     out = torch.empty((B, M, k, C + 11), dtype=torch.bfloat16, device=query.device)

@@ -27,6 +27,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..cli.eval_results import gather_eval_results, save_eval_result
 from ..data import iterate_batches, synthetic_dataset
 from ..diffusion import calc_diffusion_hyperparams, make_fast_sampling_plan
 from ..models import PointNet2CloudCondition
@@ -234,13 +235,17 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
                 pickle.dump({"avg_cd": res.avg_cd, "avg_emd": res.avg_emd,
                              **{k: np.asarray(v) for k, v in res.metrics.items()}}, f)
             return (float(np.mean(res.metrics["cd_distance"])),
-                    float(np.mean(res.metrics["emd_distance"])))
+                    float(np.mean(res.metrics["emd_distance"])), res.metrics)
 
-        avg_cd, avg_emd = eval_split("test", "")
+        avg_cd, avg_emd, metrics = eval_split("test", "")
         tb.add_scalar("CD-Loss", avg_cd, n_iter_now)
         tb.add_scalar("EMD-Loss", avg_emd, n_iter_now)
+        # one pickle per iteration, gathered from disk: a resumed run keeps
+        # the evaluations from before the resume
+        save_eval_result(eval_dir, n_iter_now, avg_cd, avg_emd, metrics)
+        gather_eval_results(eval_dir)
         if test_trainset_during_eval:
-            tr_cd, tr_emd = eval_split("test_trainset", "_trainset")
+            tr_cd, tr_emd, _ = eval_split("test_trainset", "_trainset")
             tb.add_scalar("Trainset CD-Loss", tr_cd, n_iter_now)
             tb.add_scalar("Trainset EMD-Loss", tr_emd, n_iter_now)
             print(f"eval @ iter {n_iter_now}: Trainset CD {tr_cd:.8f} EMD {tr_emd:.8f}",
@@ -294,8 +299,6 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
                     eval_records["iter"].append(n_iter)
                     eval_records["avg_cd"].append(avg_cd)
                     eval_records["avg_emd"].append(avg_emd)
-                    with open(os.path.join(eval_dir, "gathered_eval_result.pkl"), "wb") as f:
-                        pickle.dump(eval_records, f)
                     if only_best and (best_cd is None or avg_cd <= best_cd):
                         if last_saved_best is not None:
                             shutil.rmtree(last_saved_best, ignore_errors=True)

@@ -24,6 +24,7 @@ from point_diffusion_refinement_tpu.sample import evaluate as j_evaluate  # the 
 from point_diffusion_refinement_tpu_torch.config import exp_configs
 from point_diffusion_refinement_tpu_torch.ops import chamfer, emd
 from point_diffusion_refinement_tpu_torch.sample import evaluate
+from torch_threads import one_torch_thread  # noqa: F401
 
 CD_TOL = dict(rtol=1e-5, atol=1e-8)
 EMD_TOL = dict(rtol=1e-4, atol=1e-7)

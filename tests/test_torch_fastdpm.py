@@ -29,6 +29,7 @@ from point_diffusion_refinement_tpu_torch.diffusion import (
 from point_diffusion_refinement_tpu_torch.models import PointNet2CloudCondition
 from point_diffusion_refinement_tpu_torch.sample import make_coarse_sampler
 from point_diffusion_refinement_tpu_torch.utils.weights import state_dict_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = dict(rtol=1e-4, atol=2e-5)  # a tiny network, float32, summation order
 LOOP_TOL = dict(rtol=1e-5, atol=1e-6)  # elementwise updates only

@@ -28,6 +28,7 @@ from point_diffusion_refinement_tpu_torch.models.grouping import (
 )
 from point_diffusion_refinement_tpu_torch.models.modules import SetAbstraction
 from point_diffusion_refinement_tpu_torch.ops import chamfer, emd
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _t(a, grad=False):

@@ -56,14 +56,83 @@ def test_ball_query(dev):
     assert torch.equal(i, ri) and torch.equal(n, rn)
 
 
-@pytest.mark.parametrize("k", [1, 3, 8, 16])
-def test_knn(dev, k):
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8])
+@pytest.mark.parametrize("k", [1, 3, 8, 16, 17, 32, 33, 100, "N"])
+def test_knn(dev, k, lanes):
+    """Every register width of the kernel (k <= 32), the passes beyond it
+    (k > 32, up to k = N), every lane count a query."""
+    from point_diffusion_refinement_tpu_torch.ops import neighbors
+
     rng = np.random.default_rng(1)
     x, q = _cloud(rng, 2, 700, 3).to(dev), _cloud(rng, 2, 257, 3).to(dev)
     x[:, 100:110] = x[:, 90:100]  # duplicate points: ties
-    d, i = ops.knn(q, x, k)
+    k = x.shape[1] if k == "N" else k
+    d, i = neighbors._knn_launch(q, x, k, lanes)
     rd, ri = ops.knn_plain(q, x, k)
     assert torch.equal(i, ri) and torch.equal(d, rd)
+    if lanes == neighbors.knn_lanes(q.shape[0] * q.shape[1]):
+        d2, i2 = ops.knn(q, x, k)
+        assert torch.equal(i2, ri) and torch.equal(d2, rd)
+
+
+@pytest.mark.parametrize("N,M,k", [
+    (33, 5, 33),  # k = N, M < one block
+    (1, 3, 1),  # one point
+    (97, 1, 40),  # N not a multiple of 32, one query
+    (5000, 300, 20),  # beyond one staged tile of points
+    (2048, 2048, 8),  # the level-0 feature propagation's shape, one cloud
+])
+def test_knn_shapes(dev, N, M, k):
+    from point_diffusion_refinement_tpu_torch.ops import neighbors
+
+    rng = np.random.default_rng(N + M)
+    x, q = _cloud(rng, 2, N, 3).to(dev), _cloud(rng, 2, M, 3).to(dev)
+    for lanes in (1, 2, 4, 8):
+        d, i = neighbors._knn_launch(q, x, k, lanes)
+        rd, ri = ops.knn_plain(q, x, k)
+        assert torch.equal(i, ri) and torch.equal(d, rd)
+
+
+@pytest.mark.parametrize("k", [1, 8, 17, 32, 64])
+def test_knn_tie_heavy_grid(dev, k):
+    """Queries on a regular grid of points: most distances tie, and the
+    lowest index must win every tie, across lanes and across passes."""
+    from point_diffusion_refinement_tpu_torch.ops import neighbors
+
+    side = 9
+    g = torch.stack(torch.meshgrid(*[torch.arange(side, dtype=torch.float32) * 0.25] * 3,
+                                   indexing="ij"), -1).reshape(1, -1, 3)
+    pts = torch.cat([g, g.flip(1)], 0).to(dev)
+    q = torch.cat([pts[:, ::7], pts[:, 3::11][:, : pts[:, ::7].shape[1]] + 0.125], 1)
+    q = q.contiguous()
+    rd, ri = ops.knn_plain(q, pts, k)
+    for lanes in (1, 2, 4, 8):
+        d, i = neighbors._knn_launch(q, pts, k, lanes)
+        assert torch.equal(i, ri) and torch.equal(d, rd)
+
+
+def test_knn_refuses_k_beyond_n(dev):
+    x = torch.rand(1, 10, 3, device=dev)
+    with pytest.raises(ValueError, match="1 <= k <= N"):
+        ops.knn(x, x, 11)
+
+
+def test_query_and_group_nn_32(dev):
+    """``neighbor_definition="nn"`` with nsample 32 takes the kNN kernel at
+    k = 32 and equals the plain route."""
+    from point_diffusion_refinement_tpu_torch.models.grouping import query_and_group
+
+    rng = np.random.default_rng(9)
+    xyz, centres = _cloud(rng, 2, 600, 3).to(dev), _cloud(rng, 2, 128, 3).to(dev)
+    feats = _cloud(rng, 2, 600, 16).to(dev)
+    kw = dict(radius=0.2, nsample=32, neighbor_def="nn", include_abs_coordinate=True)
+    ops.reset_launch_counts()
+    out = query_and_group(xyz, centres, feats, **kw)
+    assert ops.launch_counts()["knn"] == 1
+    with ops.plain_ops():
+        ref = query_and_group(xyz, centres, feats, **kw)
+    assert out.features.shape == (2, 128, 32, 16 + 6) and out.counts == "all"
+    assert torch.equal(out.features, ref.features)
 
 
 @pytest.mark.parametrize("n", [300, 3072])
@@ -201,6 +270,97 @@ def test_ball_group(dev, mode):
         assert torch.equal(n, rn)
         for o, r in zip(outs, routs):
             assert o.dtype == torch.bfloat16 and torch.equal(o, r)
+
+
+def _ball_group_agrees(x, tabs, q, r, K, center, mode, queries_per_warp=None):
+    """Kernel against plain version: grouped values, counts and idx equal."""
+    from point_diffusion_refinement_tpu_torch.ops.ball_group import _launch
+
+    if queries_per_warp is None:
+        outs, n, i = ops.ball_group(x, tabs, q, r, K, center, mode, return_idx=True)
+    else:
+        tb = [t.to(torch.bfloat16).contiguous() for t in tabs]
+        B, M = q.shape[:2]
+        outs = [torch.empty(B, M, K, t.shape[-1] + (9 if center else 6), dtype=torch.bfloat16,
+                            device=x.device) for t in tb]
+        n = torch.empty(B, M, dtype=torch.int32, device=x.device)
+        i = torch.empty(B, M, K, dtype=torch.int32, device=x.device)
+        _launch(x, tb, q, r, K, center, mode, outs, n, i, queries_per_warp)
+    routs, rn, ri = ops.ball_group_plain(x, tabs, q, r, K, center, mode, return_idx=True)
+    assert torch.equal(n, rn) and torch.equal(i, ri)
+    assert all(o.dtype == torch.bfloat16 and torch.equal(o, ro) for o, ro in zip(outs, routs))
+    return rn
+
+
+# one or two tables; widths that take 16-, 8-, 4- and 2-byte row vectors and
+# the scalar path (C not a multiple of 8, odd C)
+BALL_GROUP_TABLES = [(4,), (32,), (4, 32), (33, 2), (13,), (1, 6), (160,)]
+
+
+@pytest.mark.parametrize("K", [1, 8, 32, 64])
+@pytest.mark.parametrize("mode", ["center_zero", "row0"])
+def test_ball_group_widths(dev, K, mode):
+    rng = np.random.default_rng(K)
+    x, q = _cloud(rng, 2, 1100, 3).to(dev), _cloud(rng, 2, 301, 3).to(dev)
+    q[:, ::7] += 3.0  # empty balls
+    seen_full = False
+    for widths in BALL_GROUP_TABLES:
+        tabs = [torch.randn(2, 1100, c, device=dev) for c in widths]
+        for center in (False, True):
+            n = _ball_group_agrees(x, tabs, q, 0.5, K, center, mode)
+            seen_full |= bool((n == K).any())
+    assert seen_full and bool((n == 0).any())
+
+
+@pytest.mark.parametrize("r,expect", [(1e-4, "empty"), (9.0, "full")])
+@pytest.mark.parametrize("mode", ["center_zero", "row0"])
+def test_ball_group_all_empty_and_all_full(dev, r, expect, mode):
+    rng = np.random.default_rng(11)
+    x, q = _cloud(rng, 2, 700, 3).to(dev), _cloud(rng, 2, 100, 3).to(dev)
+    tabs = [torch.randn(2, 700, 5, device=dev), torch.randn(2, 700, 16, device=dev)]
+    n = _ball_group_agrees(x, tabs, q, r, 32, True, mode)
+    assert (n == (0 if expect == "empty" else 32)).all()
+
+
+@pytest.mark.parametrize("N,M,qpw", [(9000, 70, None), (16, 2050, None), (300, 17, 1),
+                                     (3072, 2048, 4), (1100, 129, 3)])
+def test_ball_group_shapes(dev, N, M, qpw):
+    """A support beyond shared memory (read from global memory), K > N, a
+    few queries a block, and other queries a warp than the wrapper's."""
+    rng = np.random.default_rng(N)
+    x, q = _cloud(rng, 2, N, 3).to(dev), _cloud(rng, 2, M, 3).to(dev)
+    q[:, ::9] += 3.0
+    tabs = [torch.randn(2, N, 4, device=dev), torch.randn(2, N, 35, device=dev)]
+    r = 1.6 if N <= 16 else 0.15
+    _ball_group_agrees(x, tabs, q, r, 32, True, "center_zero", qpw)
+    _ball_group_agrees(x, tabs[1:], q, r, 32, False, "row0", qpw)
+
+
+def test_ball_group_unaligned_table(dev):
+    """A bf16 table whose rows start off a 16-byte boundary (a view at an
+    odd element offset) takes narrower row vectors."""
+    rng = np.random.default_rng(12)
+    x, q = _cloud(rng, 2, 500, 3).to(dev), _cloud(rng, 2, 64, 3).to(dev)
+    for C in (8, 16):
+        flat = torch.randn(2 * 500 * C + 1, device=dev).to(torch.bfloat16)
+        tab = flat[1:].view(2, 500, C)
+        assert tab.is_contiguous() and tab.data_ptr() % 16 != 0
+        _ball_group_agrees(x, [tab], q, 0.3, 32, True, "center_zero")
+
+
+def test_ball_group_scan_only(dev):
+    """The scan without the write (how the scan's share of the time is
+    measured) gives the same counts and idx."""
+    from point_diffusion_refinement_tpu_torch.ops.ball_group import _launch
+
+    rng = np.random.default_rng(13)
+    x, q = _cloud(rng, 2, 3072, 3).to(dev), _cloud(rng, 2, 2048, 3).to(dev)
+    tab = torch.randn(2, 3072, 4, device=dev).to(torch.bfloat16)
+    n = torch.empty(2, 2048, dtype=torch.int32, device=dev)
+    i = torch.empty(2, 2048, 32, dtype=torch.int32, device=dev)
+    _launch(x, [tab], q, 0.1, 32, True, "center_zero", None, n, i)
+    ri, rn = ops.ball_query_plain(x, q, 0.1, 32)
+    assert torch.equal(n, rn) and torch.equal(i, ri)
 
 
 @pytest.mark.parametrize("N,M,K,C,r", [(3072, 2050, 32, 35, 0.3), (64, 16, 32, 259, 1.3),

@@ -24,6 +24,7 @@ from point_diffusion_refinement_tpu_torch import ops
 from point_diffusion_refinement_tpu_torch.models import grouping as t_grouping
 from point_diffusion_refinement_tpu_torch.models import modules as t_mod
 from point_diffusion_refinement_tpu_torch.utils.weights import state_dict_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

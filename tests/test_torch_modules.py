@@ -22,6 +22,7 @@ from point_diffusion_refinement_tpu_torch.models import attention as t_att
 from point_diffusion_refinement_tpu_torch.models import common as t_common
 from point_diffusion_refinement_tpu_torch.models import modules as t_mod
 from point_diffusion_refinement_tpu_torch.utils.weights import state_dict_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 # float32: the two frameworks sum in different orders (GroupNorm statistics,
 # matmul accumulation).  bf16: a rounding of a bf16 intermediate can flip

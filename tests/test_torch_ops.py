@@ -28,6 +28,7 @@ from point_diffusion_refinement_tpu.ops.pallas_window import (
 from point_diffusion_refinement_tpu_torch import ops as t_ops
 from point_diffusion_refinement_tpu_torch.ops import kernels
 from point_diffusion_refinement_tpu_torch.ops import sampling as t_smp
+from torch_threads import one_torch_thread  # noqa: F401
 
 T = torch.from_numpy
 
@@ -99,6 +100,43 @@ class TestKnn:
         td, ti = t_ops.knn(T(q), T(x), 4)
         np.testing.assert_array_equal(ti.numpy(), _np(ji))
         assert ti[0, 0].tolist() == [5, 0, 1, 2]
+
+    @pytest.mark.parametrize("k", [32, "N"])
+    def test_any_k_matches_jax(self, clouds, k):
+        """k beyond the kernel's one-pass register width, up to k = N, with
+        duplicate points: indices equal; distances to the last bit of XLA's
+        FMA contraction, as above."""
+        x, c = clouds
+        x = x.copy()
+        x[:, 150:160] = x[:, 40:50]  # duplicates: ties
+        k = x.shape[1] if k == "N" else k
+        jd, ji = j_nb.knn(jnp.asarray(c), jnp.asarray(x), k)
+        td, ti = t_ops.knn(T(c), T(x), k)
+        assert ti.shape == (2, 70, k)
+        np.testing.assert_array_equal(ti.numpy(), _np(ji))
+        np.testing.assert_allclose(td.numpy(), _np(jd), rtol=2.5e-7, atol=0)
+
+    def test_kernel_lanes_follow_the_query_count(self):
+        """8 lanes a query at a B=4 denoise step's level-0 propagation (8192
+        queries), 1 at B=32 (65536), and a power of two between."""
+        from point_diffusion_refinement_tpu_torch.ops.neighbors import knn_lanes
+
+        assert [knn_lanes(n) for n in (1, 8192, 16384, 32768, 65536, 10 ** 6)] == \
+            [8, 8, 4, 2, 1, 1]
+
+    def test_query_and_group_nn_32(self, clouds, rng_np):
+        """``neighbor_definition="nn"`` at nsample 32 (the kNN at k = 32)."""
+        from point_diffusion_refinement_tpu.models import grouping as j_grouping
+        from point_diffusion_refinement_tpu_torch.models import grouping as t_grouping
+
+        x, c = clouds
+        f = rng_np.normal(size=(2, 300, 6)).astype(np.float32)
+        kw = dict(radius=0.2, nsample=32, neighbor_def="nn", include_abs_coordinate=True,
+                  include_center_coordinate=True)
+        jg, jn = j_grouping.query_and_group(jnp.asarray(x), jnp.asarray(c), jnp.asarray(f), **kw)
+        tg, tn = t_grouping.query_and_group(T(x), T(c), T(f), **kw)
+        assert tn == jn == "all" and tg.shape == (2, 70, 32, 6 + 9)
+        np.testing.assert_array_equal(tg.numpy(), _np(jg))
 
 
 class TestFps:

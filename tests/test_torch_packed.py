@@ -11,7 +11,7 @@ The whole path: ``denoise(fused=True, fused_attention=True, fused_knn=True)``
 at a narrow config whose sizes open the gates (a 1024-point condition, 2048
 noisy points, 1024 points at level 1) against the JAX ``denoise`` with
 ``PDR_FUSED_ATTENTION=1``, ``PDR_WINDOWED_KNNFP=1`` and windowed feature
-transfer (Pallas kernels in interpret mode), with the same weights.
+transfer (Pallas kernels in interpret mode, jitted), with the same weights.
 """
 
 import jax
@@ -30,6 +30,7 @@ from point_diffusion_refinement_tpu_torch.models import grouping as t_grouping
 from point_diffusion_refinement_tpu_torch.models import modules as t_mod
 from point_diffusion_refinement_tpu_torch.sample import make_coarse_sampler, make_refiner
 from point_diffusion_refinement_tpu_torch.utils.weights import state_dict_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 # float32: summation order only (one merged product against three)
 F32_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -277,10 +278,13 @@ def test_denoise_with_variants_matches_jax(network, route_calls, packed_calls, m
     monkeypatch.setenv("PDR_FUSED_ATTENTION", "1")
     monkeypatch.setenv("PDR_WINDOWED_KNNFP", "1")
     jm, params = JaxModel.from_config(cfg), state_dict_to_flax(port.state_dict())
-    jcf = jm.apply(params, jnp.asarray(cond), windowed_ft=True, method=jm.encode_condition)
+    # jitted: the interpret-mode kernels run compiled, not op by op (the
+    # routing reads the environment while tracing)
+    encode = jax.jit(lambda p, c: jm.apply(p, c, windowed_ft=True, method=jm.encode_condition))
+    denoise = jax.jit(lambda p, *a: jm.apply(p, *a, method=jm.denoise))
+    jcf = encode(params, jnp.asarray(cond))
     assert jcf.ft_sups[0] is not None
-    ref = _f(jm.apply(params, jnp.asarray(x), jnp.asarray(ts), jnp.asarray(label), jcf,
-                      method=jm.denoise))
+    ref = _f(denoise(params, jnp.asarray(x), jnp.asarray(ts), jnp.asarray(label), jcf))
     assert np.abs(ref).mean() > 1e-2
     for out in (on, all_on, off):
         diff = np.abs(out.numpy() - ref)

@@ -19,6 +19,7 @@ from point_diffusion_refinement_tpu.ops.sampling import furthest_point_sample_xl
 from point_diffusion_refinement_tpu_torch import ops
 from point_diffusion_refinement_tpu_torch.data import generate_mirrored_partials, mirror_and_concat
 from point_diffusion_refinement_tpu_torch.ops import kernels, sampling
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _partials(seed, B, n):

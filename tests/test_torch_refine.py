@@ -28,6 +28,7 @@ from point_diffusion_refinement_tpu_torch.utils.weights import (
     load_flax_params,
     state_dict_to_flax,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 F32_TOL = dict(rtol=1e-4, atol=2e-5)
 BF16_TOL = dict(rtol=2.0 ** -6, atol=5e-2)

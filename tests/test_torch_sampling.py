@@ -19,6 +19,7 @@ from point_diffusion_refinement_tpu_torch.diffusion import calc_diffusion_hyperp
 from point_diffusion_refinement_tpu_torch.models import PointNet2CloudCondition
 from point_diffusion_refinement_tpu_torch.sample import make_coarse_sampler, unaugment
 from point_diffusion_refinement_tpu_torch.utils.weights import state_dict_to_flax
+from torch_threads import one_torch_thread  # noqa: F401
 
 # float32 throughout: the per-step update rounds alike on both sides, the
 # denoiser differs by summation order only

@@ -17,6 +17,7 @@ the chamfer argmin picks the same neighbours on both sides.
 """
 
 import os
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -41,11 +42,16 @@ from point_diffusion_refinement_tpu_torch.utils.weights import (
     load_adam_state,
     state_dict_to_flax,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 LOSS_RTOL = 2e-5
 GRAD_TOL = 2e-3  # of each gradient tensor's largest entry
 GRAD_FLOOR = 3e-5  # of the largest gradient entry of the whole tree
 T = 50
+# the optimizer the JAX package's create_train_state builds, at lr 2e-4; one
+# jitted update for the module (a compile of the whole tree each)
+ADAM = optax.adam(2e-4)
+ADAM_UPDATE = jax.jit(ADAM.update)
 
 
 def _randomize(model, seed):
@@ -121,11 +127,13 @@ def test_q_sample_matches():
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-7)
 
 
-def test_ddpm_loss_and_gradients():
-    """(a) the DDPM loss at JAX's own t / z draws, value and every
-    parameter's gradient."""
+@pytest.fixture(scope="module")
+def ddpm_jax():
+    """The JAX DDPM train step with a gradient tap, compiled and run once for
+    the module: its loss, its gradients, and its own t / z draws, which the
+    port's loss takes.  Port seed 0, inputs seed 1, key 7."""
     cfg = tiny_pointnet_config()
-    port, jm, params = _pair(cfg, 0)
+    _, jm, params = _pair(cfg, 0)
     x0, cond, label, _ = _inputs(2, 64, 96, 1)
     key = jax.random.key(7)
     tx = _grad_tap()
@@ -137,13 +145,30 @@ def test_ddpm_loss_and_gradients():
     rng_t, rng_z = jax.random.split(rng_step)
     t = np.asarray(jax.random.randint(rng_t, (2,), 0, T))
     z = np.asarray(jax.random.normal(rng_z, x0.shape, dtype=jnp.float32))
+    return dict(cfg=cfg, params=params, inputs=(x0, cond, label), loss=float(loss),
+                grads=state.opt_state, t=t, z=z)
 
+
+def _ddpm_port_loss(ddpm_jax):
+    """A fresh port model at the fixture's parameters and its DDPM loss at
+    the fixture's inputs and draws (backward already taken)."""
+    port = _randomize(PointNet2CloudCondition.from_config(ddpm_jax["cfg"], device="cpu",
+                                                          seed=0), 0)
+    x0, cond, label = ddpm_jax["inputs"]
     loss_fn = ptrain.make_completion_loss(port, calc_diffusion_hyperparams(T, 1e-4, 0.02))
-    out = loss_fn(_t(x0), _t(cond), _t(label, torch.int64), _t(t), _t(z))
+    out = loss_fn(_t(x0), _t(cond), _t(label, torch.int64), _t(ddpm_jax["t"]),
+                  _t(ddpm_jax["z"]))
     out.backward()
-    np.testing.assert_allclose(float(out.detach()), float(loss), rtol=LOSS_RTOL)
+    return port, out
+
+
+def test_ddpm_loss_and_gradients(ddpm_jax):
+    """(a) the DDPM loss at JAX's own t / z draws, value and every
+    parameter's gradient."""
+    port, out = _ddpm_port_loss(ddpm_jax)
+    np.testing.assert_allclose(float(out.detach()), ddpm_jax["loss"], rtol=LOSS_RTOL)
     assert float(out.detach()) > 0.1
-    _check_grads(port, state.opt_state)
+    _check_grads(port, ddpm_jax["grads"])
 
 
 REFINE_CASES = {
@@ -202,19 +227,17 @@ def test_adam_steps_match_optax(steps):
     params = jax.tree_util.tree_map(jnp.asarray, state_dict_to_flax(port.state_dict()))
     rng = np.random.default_rng(4)
     mu, nu, count = _tree_like(params, rng), _tree_like(params, rng, True), 5
-    tx = optax.adam(2e-4)
-    opt_state = tx.init(params)
+    opt_state = ADAM.init(params)
     opt_state = (opt_state[0]._replace(
         count=jnp.asarray(count, jnp.int32),
         mu=jax.tree_util.tree_map(jnp.asarray, mu),
         nu=jax.tree_util.tree_map(jnp.asarray, nu)),) + tuple(opt_state[1:])
     state = ptrain.create_train_state(port, seed=0, learning_rate=2e-4)
     load_adam_state(port, state.optimizer, mu, nu, count)
-    update = jax.jit(tx.update)
     for _ in range(steps):
         grads = _tree_like(params, rng)
-        updates, opt_state = update(jax.tree_util.tree_map(jnp.asarray, grads), opt_state,
-                                    params)
+        updates, opt_state = ADAM_UPDATE(jax.tree_util.tree_map(jnp.asarray, grads),
+                                         opt_state, params)
         params = optax.apply_updates(params, updates)
         for name, g in flax_to_state_dict(grads).items():
             port.get_parameter(name).grad = g
@@ -231,32 +254,24 @@ def test_adam_steps_match_optax(steps):
             np.testing.assert_allclose(a[name].numpy(), b[name].numpy(), rtol=1e-5, atol=1e-9)
 
 
-def test_train_step_matches_jax_adam_step():
+def test_train_step_matches_jax_adam_step(ddpm_jax):
     """(c) one whole DDPM train step (loss, backward, Adam) from the same
-    parameters.  Adam's first update is lr * sign(g) wherever |g| >> eps, so a
-    parameter moves by at most lr = 2e-4 and two implementations agree to a
-    fraction of that except where a gradient is within float32 noise of
-    zero: 95% of all entries within 2e-6, every entry within 2 * lr."""
-    cfg = tiny_pointnet_config()
-    port, jm, params = _pair(cfg, 5)
-    x0, cond, label, _ = _inputs(2, 64, 96, 6)
-    key = jax.random.key(3)
-    jstate, tx = jstep.create_train_state(params, key, 2e-4)
-    jstate, jloss = jax.jit(jstep.make_completion_train_step(
-        jm, jax_schedule(T, 1e-4, 0.02), tx))(
-            jstate, jnp.asarray(x0), jnp.asarray(cond), jnp.asarray(label))
-    _, rng_step = jax.random.split(key)
-    rng_t, rng_z = jax.random.split(rng_step)
-    t = np.asarray(jax.random.randint(rng_t, (2,), 0, T))
-    z = np.asarray(jax.random.normal(rng_z, x0.shape, dtype=jnp.float32))
+    parameters.  The JAX side is its train step's own update, ``tx.update``
+    with ``optax.adam`` and ``apply_updates``, on that step's gradients.
+    Adam's first update is lr * sign(g) wherever |g| >> eps, so a parameter
+    moves by at most lr = 2e-4 and two implementations agree to a fraction
+    of that except where a gradient is within float32 noise of zero: 95% of
+    all entries within 2e-6, every entry within 2 * lr."""
+    params = jax.tree_util.tree_map(jnp.asarray, ddpm_jax["params"])
+    grads = jax.tree_util.tree_map(jnp.asarray, ddpm_jax["grads"])
+    updates, _ = ADAM_UPDATE(grads, ADAM.init(params), params)
+    jparams = optax.apply_updates(params, updates)
 
+    port, loss = _ddpm_port_loss(ddpm_jax)
     state = ptrain.create_train_state(port, seed=0, learning_rate=2e-4)
-    loss = ptrain.make_completion_loss(port, calc_diffusion_hyperparams(T, 1e-4, 0.02))(
-        _t(x0), _t(cond), _t(label, torch.int64), _t(t), _t(z))
-    loss.backward()
     state.optimizer.step()
-    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=LOSS_RTOL)
-    ref = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, jstate.params))
+    np.testing.assert_allclose(float(loss.detach()), ddpm_jax["loss"], rtol=LOSS_RTOL)
+    ref = flax_to_state_dict(jax.tree_util.tree_map(np.asarray, jparams))
     diffs = torch.cat([(p.detach() - ref[n]).abs().reshape(-1)
                        for n, p in port.named_parameters()])
     assert float(diffs.max()) <= 4e-4
@@ -407,7 +422,8 @@ def _config(task, root):
 def test_train_loop_and_resume(tmp_path, task, routes):
     """(h) ``train()`` on a tiny synthetic dataset: finite losses,
     checkpoints, eval records; a run stopped after two of three epochs and
-    resumed gives the third epoch's losses exactly."""
+    resumed gives the third epoch's losses exactly, and its gathered eval
+    results hold the evaluations from before the resume too."""
     kw = dict(device="cpu", fused_gather=routes, fused_sa=routes)
     spec = dict(num_samples=8, npoints=48, partial_points=32, seed=0, mirror_to=48)
     if routes:  # datasets handed in
@@ -434,6 +450,14 @@ def test_train_loop_and_resume(tmp_path, task, routes):
     rest = train(cfg, **kw)
     assert rest["losses"] == full["losses"][4:]
     assert rest["n_iter"] == 6
+    assert rest["eval_records"]["iter"] == [5]  # this call's own evaluations
+    eval_dir = os.path.join(rest["output_directory"], "..", "..", "eval_result")
+    with open(os.path.join(eval_dir, "gathered_eval_result.pkl"), "rb") as f:
+        gathered = pickle.load(f)
+    assert gathered["iter"] == [1, 3, 5]
+    np.testing.assert_array_equal(gathered["avg_cd"][:2], part["eval_records"]["avg_cd"])
+    assert gathered["avg_cd"][2] == rest["eval_records"]["avg_cd"][0]
+    assert ptrain.find_max_epoch(rest["output_directory"], "best") in (1, 3, 5)
 
 
 def test_unported_options_raise(tmp_path):

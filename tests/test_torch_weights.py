@@ -26,6 +26,7 @@ from point_diffusion_refinement_tpu_torch.utils.weights import (
     load_flax_params,
     state_dict_to_flax,
 )
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "point_diffusion_refinement_tpu_torch"
