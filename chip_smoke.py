@@ -90,10 +90,15 @@
    Cv, c_out) and holds the fused attention pool against its plain version
    and against the unfused pool at each of them, on the tensors the step
    gives it and with the other kind of counts (none, or counts that include
-   0 and K); the three sweeps one by one at the level-0 feature transfer,
-   the level-0 set abstraction, the level-0 kNN feature propagation and the
-   deepest site (weights beyond shared memory); ``knn_group`` at the level-0
-   feature propagation and at a small support with duplicates and k = N.
+   0 and K); at each site the profiler's device ms and grid of each sweep
+   and of the two finishing kernels, their bounds, and the CUDA launches of
+   one fused pool call (at most POOL_MAX_LAUNCHES), summed over the step;
+   the sweeps and finishing kernels one by one (device ms, ``wrapper_ms``)
+   at the level-0 feature transfer, the level-0 set abstraction, the
+   level-0 kNN feature propagation and the deepest site (weights beyond
+   shared memory); a pool with K = 96 slots, launched and held against
+   plain; ``knn_group`` at the level-0 feature propagation (k = 8 and 32),
+   at a small support with duplicates and k = N, and at B = 32.
    Then the pipeline of phase 7 once more with ``fused_attention`` and
    ``fused_knn`` on, launch counts reset just before and read just after:
    fails unless the three sweeps and ``knn_group`` were launched on every
@@ -202,6 +207,9 @@ TPU_KERNELS = {
     "attention_stats": "point_diffusion_refinement_tpu/ops/pallas_attention.py:79",
     "attention_hstats": "point_diffusion_refinement_tpu/ops/pallas_attention.py:110",
     "attention_out": "point_diffusion_refinement_tpu/ops/pallas_attention.py:138",
+    # the XLA glue between the TPU sweeps: _group_mul_add, _pgn_mu_s_b
+    "attention_finish_stats": "point_diffusion_refinement_tpu/ops/pallas_attention.py:187",
+    "attention_finish_h": "point_diffusion_refinement_tpu/ops/pallas_attention.py:204",
     # and its layout twin _knn_window_kernel_t at pallas_window.py:1385
     "knn_group": "point_diffusion_refinement_tpu/ops/pallas_window.py:1156",
 }
@@ -210,7 +218,9 @@ LAUNCH_NAMES = {"fps_coords": "fps", "fps_idx": "fps_idx", "ball_group": "ball_g
                 "ball_query_group": "ball_query_group",
                 "group_scatter_add": "group_scatter_add",
                 "attention_stats": "attention_stats", "attention_hstats": "attention_hstats",
-                "attention_out": "attention_out", "knn_group": "knn_group"}
+                "attention_out": "attention_out",
+                "attention_finish_stats": "attention_finish_stats",
+                "attention_finish_h": "attention_finish_h", "knn_group": "knn_group"}
 # the kernels of a training step with both fused routes on (the fused
 # gather supersedes the ball-query kernel there)
 TRAIN_PATH_KERNELS = ("ball_query_group", "group_scatter_add", "ball_group", "fps", "knn")
@@ -224,6 +234,7 @@ PROFILED_KERNELS = {
     "ball_query": ("ball_query_kernel",),
     "ball_group": ("ball_group_kernel",),
     "knn": ("knn_kernel",),
+    "knn_group": ("knn_group_kernel",),
 }
 FPS_SWEEP_N = (1024, 2048, 3072, 4096, 12288)  # npoint 1024, B = 4
 # the kernels of ancestral coarse generation (phase 3); fps_idx serves
@@ -233,7 +244,9 @@ COARSE_PATH_KERNELS = ("fps", "ball_group", "ball_query", "knn")
 PIPELINE_PATH_KERNELS = ("fps", "fps_idx", "ball_group", "ball_query", "knn")
 # ... and what the accelerated inference configuration adds, on every denoise
 # step and in the refine forward
-VARIANT_PATH_KERNELS = ("attention_stats", "attention_hstats", "attention_out", "knn_group")
+VARIANT_PATH_KERNELS = ("attention_stats", "attention_hstats", "attention_out",
+                        "attention_finish_stats", "attention_finish_h", "knn_group")
+ATTENTION_KERNELS = VARIANT_PATH_KERNELS[:5]  # launched once each a fused pool call
 SOURCES = {
     "fps_coords": "point_diffusion_refinement_tpu_torch/csrc/fps.cu",
     "fps_idx": "point_diffusion_refinement_tpu_torch/csrc/fps.cu",
@@ -245,6 +258,8 @@ SOURCES = {
     "attention_stats": "point_diffusion_refinement_tpu_torch/csrc/attention_pool.cu",
     "attention_hstats": "point_diffusion_refinement_tpu_torch/csrc/attention_pool.cu",
     "attention_out": "point_diffusion_refinement_tpu_torch/csrc/attention_pool.cu",
+    "attention_finish_stats": "point_diffusion_refinement_tpu_torch/csrc/attention_pool.cu",
+    "attention_finish_h": "point_diffusion_refinement_tpu_torch/csrc/attention_pool.cu",
     "knn_group": "point_diffusion_refinement_tpu_torch/csrc/knn_group.cu",
 }
 
@@ -313,8 +328,12 @@ def device_ms(fn, name: str, iters: int = 30) -> float:
             fn()
         torch.cuda.synchronize()
     ms, n = kernel_sums(prof.key_averages())[name]
-    if n != iters:
+    # the trace on the card can miss device records of a window (3 of 30
+    # and 5 of 10 seen), so the mean is over the launches it saw
+    if not 1 <= n <= iters:
         raise AssertionError(f"profiler saw {n} launches of {name}, not {iters}")
+    if n < iters:
+        print(f"profiler: {n} of {iters} device records of {name} in its window", flush=True)
     return ms / n
 
 
@@ -942,6 +961,71 @@ def rel_to_max(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.float() - b.float()).abs().max()) / max(float(b.float().abs().max()), 1e-30)
 
 
+# the profiler's names of the three sweeps' kernels and of the two
+# finishing kernels, for the per-site table of phase 13
+# (attention_kernel<MODE> is the single templated kernel of the earlier
+# three-sweep design, so the table can be taken on such a tree too)
+SWEEP_KERNELS = {
+    "attention_stats": ("attention_kernel<1>", "attn_stats"),
+    "attention_hstats": ("attention_kernel<2>", "attn_hstats"),
+    "attention_out": ("attention_kernel<3>", "attn_out"),
+    "attention_finish_stats": ("attn_finish_stats",),
+    "attention_finish_h": ("attn_finish_h",),
+}
+# a fused pool call: the three sweeps, the two finishing kernels, the q
+# path's two products and the casts of its inputs
+POOL_MAX_LAUNCHES = 10
+# the finishing kernels against their plain versions: float32 vectors as
+# the statistics; bf16 outputs (qn, the GroupNorm vectors) may flip one
+# rounding, 2^-8 of a value, relative to the largest
+ATTENTION_FINISH_BF16_TOL = 2.0 ** -7
+
+
+def trace_device_events(fn, calls: int):
+    """Device activities (kernels, memsets, memcpys) of ``calls`` calls of
+    ``fn`` from a profiler trace, as {name: (launches seen, mean
+    microseconds, blocks of its grid)}, and the launches a call: each
+    name's records a call, rounded up (the trace on the card can miss a few
+    records; the host-side runtime trace does not see launches from the
+    kernels' own statically linked CUDA runtime)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.NamedTemporaryFile(suffix=".json") as f:
+        prof.export_chrome_trace(f.name)
+        with open(f.name) as fh:
+            trace = json.load(fh)
+    seen = {}
+    for e in trace.get("traceEvents", []):
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy"):
+            n, us, _ = seen.get(e["name"], (0, 0.0, 0))
+            grid = int(np.prod(e.get("args", {}).get("grid", [0])))
+            seen[e["name"]] = (n + 1, us + float(e.get("dur", 0.0)), grid)
+    launches = sum(-(-n // calls) for n, _, _ in seen.values())
+    return {k: (n, us / n, grid) for k, (n, us, grid) in seen.items()}, launches
+
+
+def sweep_split(events, calls: int) -> dict:
+    """{sweep: (device ms a call, launches a call)} of SWEEP_KERNELS in
+    ``events``: each kernel's mean time over the launches seen, times its
+    launches a call (rounded up: a missed record loses less than a call)."""
+    split = {}
+    for sweep, keys in SWEEP_KERNELS.items():
+        ms = n_call = 0.0
+        for name, (n, us, _) in events.items():
+            if any(k in name for k in keys):
+                per_call = -(-n // calls)
+                ms += us / 1e3 * per_call
+                n_call += per_call
+        split[sweep] = (ms, n_call)
+    return split
+
+
 def check_attention(sites, dev):
     """Phase 13, kernel #7: the fused attention pool at every attention site
     of one denoise step, on the tensors the step gives it."""
@@ -951,6 +1035,8 @@ def check_attention(sites, dev):
     gen = torch.Generator(device=dev)
     gen.manual_seed(21)
     pool_rows = {}
+    sweep_totals = {sweep: [0.0, 0.0, 0.0] for sweep in SWEEP_KERNELS}
+    launch_worst = 0.0
     print("attention sites of one denoise step: name (M, K, Cq, Ck, Cv, c_out) counts",
           flush=True)
     for name, pool, (feat, grouped, gfo, counts), kw in sites:
@@ -995,6 +1081,53 @@ def check_attention(sites, dev):
               f"vs_unfused={worst_unfused:.3g} (tol {ATTENTION_UNFUSED_REL_TOL}) "
               f"fused_ms={fused_ms:.4f} unfused_ms={unfused_ms:.4f} plain_ms={plain_ms:.4f} "
               f"bound_ms={b_ms:.5f} ({b_by})", flush=True)
+        # where the sweeps' device time goes at this site, and what one fused
+        # pool call launches on the card
+        calls = 5
+        with torch.no_grad():
+            events, launches = trace_device_events(
+                lambda: pool(feat, grouped, gfo, counts, fused=True), calls)
+        split = sweep_split(events, calls)
+        c2, I, Co = w["c2"], w["inter_c"], w["c_out"]
+        rows_bf16 = B * M * K * 2
+        row_blocks = ap.sweep_row_blocks(B, M, K, Ck, Cv, c2, I, Co)
+        finish_bytes = (B * M * w["c1"] * 4 + B * row_blocks["attention_stats"] * 2 * (c2 + Co) * 4
+                        + B * (c2 * 8 + Co * 6))
+        sweep_bounds = {
+            "attention_stats": bound(rows_bf16 * (Ck + Cv) + B * 2 * (c2 + Co) * 4,
+                                     rows_total * 2.0 * (Ck * c2 + Cv * Co), BF16_OPS_PER_S),
+            "attention_hstats": bound(rows_bf16 * Ck + B * M * I * 2 + B * 2 * I * 4,
+                                      rows_total * 2.0 * (Ck * c2 + c2 * I), BF16_OPS_PER_S),
+            "attention_out": bound(rows_bf16 * (Ck + Cv) + B * M * (I * 2 + Co * 4),
+                                   ops_once, BF16_OPS_PER_S),
+            "attention_finish_stats": bound(finish_bytes, 0.0),
+            "attention_finish_h": bound(B * row_blocks["attention_hstats"] * 2 * I * 4
+                                        + B * I * 6, 0.0),
+        }
+        blocks = {sw: max((g for nm, (_, _, g) in events.items()
+                           if any(k in nm for k in keys)), default=0)
+                  for sw, keys in SWEEP_KERNELS.items()}
+        for sweep, (ms, n) in split.items():
+            sweep_totals[sweep][0] += ms
+            sweep_totals[sweep][1] += n
+            sweep_totals[sweep][2] += sweep_bounds[sweep][0]
+        launch_worst = max(launch_worst, launches)
+        print(f"attention sweeps {name:<10} "
+              + " ".join(f"{sw.split('_', 1)[1]}: ms={ms:.4f} launches={n:g} "
+                         f"blocks={blocks.get(sw, '-')} "
+                         f"bound_ms={sweep_bounds[sw][0]:.5f} ({sweep_bounds[sw][1]});"
+                         for sw, (ms, n) in split.items())
+              + f" launches a pool call={launches:g} ({len(events)} kernel names)",
+              flush=True)
+
+    print("attention sweeps of one denoise step (sum over its sites): "
+          + " ".join(f"{sw.split('_', 1)[1]}: ms={v[0]:.4f} launches={v[1]:g} "
+                     f"bound_ms={v[2]:.5f};" for sw, v in sweep_totals.items())
+          + f" total_ms={sum(v[0] for v in sweep_totals.values()):.4f}"
+          f" most launches of one pool call={launch_worst:g} (at most {POOL_MAX_LAUNCHES})",
+          flush=True)
+    if launch_worst > POOL_MAX_LAUNCHES:
+        raise AssertionError(f"a fused pool call launched {launch_worst} times")
 
     # -- the sweeps one by one, at four sites; rows at the level-0 decoder
     #    feature transfer (the most rows, 2048 x 32 a cloud)
@@ -1018,6 +1151,17 @@ def check_attention(sites, dev):
         qp = torch.randn(B, M, I, generator=gen, device=dev).to(torch.bfloat16)
         gn1 = (vec(I, 0.1, 0.1), vec(I, 1.0, 0.2), vec(I, 0.0, 0.1))
         gn2 = (vec(Co, 0.1, 0.1), vec(Co, 1.0, 0.2), vec(Co, 0.0, 0.1))
+        c1 = w["c1"]
+        mm = torch.matmul(feat.to(torch.bfloat16), p.w0)
+        part1 = ap._stats_launch(g2, gfo2, p.key, p.value, K)
+        part2 = ap._hstats_launch(g2, qp, p.key, p.hidden, mul_k, add_k, K)
+
+        def flat(parts):
+            out = []
+            for t in parts:
+                out += flat(t) if isinstance(t, tuple) else [t]
+            return out
+
         sweeps = {
             "attention_stats": (
                 lambda: torch.cat(ap.attention_stats(g2, gfo2, p.key, p.value, K), -1),
@@ -1035,26 +1179,73 @@ def check_attention(sites, dev):
                                                p.value, mul_k, add_k, gn1, gn2, K),
                 nbytes(g2, gfo2, qp) + B * M * (Co + 1) * 4,
                 Ck * c2 + c2 * I + I * Co + Cv * Co, ATTENTION_OUT_REL_TOL),
+            "attention_finish_stats": (
+                lambda: flat(ap.attention_finish_stats(mm, part1, p, c1, c2, Co, K)),
+                lambda: flat(ap.attention_finish_stats_plain(mm, part1, p, c1, c2, Co, K)),
+                nbytes(mm, part1) + B * M * c1 * 2 + B * (c2 * 8 + Co * 6), 0.0, None),
+            "attention_finish_h": (
+                lambda: flat(ap.attention_finish_h(part2, p, I, M, K)),
+                lambda: flat(ap.attention_finish_h_plain(part2, p, I, M, K)),
+                nbytes(part2) + B * I * 6, 0.0, None),
         }
         for sweep, (run, run_plain, moved, macs, tol) in sweeps.items():
             got, ref = run(), run_plain()
             torch.cuda.synchronize()
-            rel = rel_to_max(got, ref)
-            if not rel <= tol:
+            if tol is None:  # the finishing kernels: each output on its own
+                rel = max(rel_to_max(a, b) for a, b in zip(got, ref))
+                ok = all(rel_to_max(a, b) <= (ATTENTION_FINISH_BF16_TOL if b.dtype == torch.bfloat16
+                                              else ATTENTION_STATS_REL_TOL)
+                         for a, b in zip(got, ref))
+                tol = f"{ATTENTION_STATS_REL_TOL} float32, {ATTENTION_FINISH_BF16_TOL} bf16"
+                got = torch.cat([t.float().flatten() for t in got])
+                ref = torch.cat([t.float().flatten() for t in ref])
+            else:
+                rel = rel_to_max(got, ref)
+                ok = rel <= tol
+            if not ok:
                 raise AssertionError(f"{sweep} at {tag}: differs from plain by {rel} of max")
-            ms = time_ms(run, 10)
+            # the profiler's device time a launch; the wrapper's host time beside it
+            events, _ = trace_device_events(run, 10)
+            ms = sweep_split(events, 10)[sweep][0]
+            wrapper_ms = time_ms(run, 10)
             plain_ms = time_ms(run_plain, 3, 1)
             b_ms, b_by = bound(moved, 2.0 * B * M * K * macs, BF16_OPS_PER_S)
             row = dict(name=sweep,
                        shape=f"{tag} {name} ({B},{M},{K}) Ck={Ck} Cv={Cv} c_out={Co}",
                        max_abs_err=float((got - ref).abs().max()), ms=ms, plain_ms=plain_ms,
-                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None, wrapper_ms=wrapper_ms)
             print_row(row)
             print(f"       {sweep} at {tag}: rel_to_max={rel:.3g} (tol {tol})", flush=True)
             if tag == "FT0":
                 if sweep == "attention_out":
                     row.update(pool_rows[name])
                 rows.append(row)
+
+    # -- fault shape: more slots than a 64-row tile (K = 96), with counts that
+    #    include 0 and K and with "all", at the level-0 decoder widths
+    pool, (feat, grouped, _, _) = by_name["dec_map_0"]
+    B, Mk, Kk = 4, 256, 96
+    Cv = by_name["dec_map_0"][1][2].shape[-1]
+    feat96 = torch.randn(B, Mk, feat.shape[-1], generator=gen, device=dev)
+    g96 = torch.randn(B, Mk, Kk, grouped.shape[-1], generator=gen, device=dev).to(torch.bfloat16)
+    v96 = torch.randn(B, Mk, Kk, Cv, generator=gen, device=dev).to(torch.bfloat16)
+    c96 = torch.randint(0, Kk + 1, (B, Mk), generator=gen, device=dev, dtype=torch.int32)
+    c96[:, 0], c96[:, 1] = 0, Kk
+    with torch.no_grad():
+        for cnt in (c96, "all"):
+            kernels.reset_launch_counts()
+            out = pool(feat96, g96, v96, cnt, fused=True)
+            launched = {n: kernels.launch_counts()[n] for n in ATTENTION_KERNELS}
+            with kernels.plain_ops():
+                ref = pool(feat96, g96, v96, cnt, fused=True)
+            torch.cuda.synchronize()
+            rel = rel_to_max(out, ref)
+            print(f"attention pool at K={Kk} (B={B}, M={Mk}, Ck={g96.shape[-1]}, Cv={Cv}) "
+                  f"counts={'all' if isinstance(cnt, str) else 'with 0 and K'}: launches="
+                  f"{launched} vs_plain={rel:.3g} (tol {ATTENTION_OUT_REL_TOL} of max)",
+                  flush=True)
+            if any(v != 1 for v in launched.values()) or not rel <= ATTENTION_OUT_REL_TOL:
+                raise AssertionError(f"attention pool at K={Kk}: not launched or differs")
     return rows
 
 
@@ -1070,10 +1261,16 @@ def check_knn_group(fp_call, dev, rng):
     small_q = torch.from_numpy(rng.uniform(-1, 1, (2, 130, 3)).astype(np.float32)).to(dev)
     small_tab = torch.randn(2, 8, 5, device=dev)
     cases = [("FP0", unknown.float().contiguous(), known.float().contiguous(), known_feats, fp.k),
-             ("small", small_q, small_pts, small_tab, 8)]
+             ("small", small_q, small_pts, small_tab, 8),
+             # fault shape: more neighbours than one thread's list held
+             ("FP0 k=32", unknown.float().contiguous(), known.float().contiguous(),
+              known_feats, 32)]
     for tag, q, pts, table, k in cases:
         C = table.shape[-1]
+        before = ops.launch_counts()["knn_group"]
         out = ops.knn_group(q, pts, table, k)
+        if ops.launch_counts()["knn_group"] != before + 1:
+            raise AssertionError(f"knn_group {tag}: the kernel was not launched")
         ref = ops.knn_group_plain(q, pts, table, k)
         d, i = ops.knn(q, pts, k)
         torch.cuda.synchronize()
@@ -1086,6 +1283,8 @@ def check_knn_group(fp_call, dev, rng):
         if not torch.equal(out, ref):
             err = float((out.float() - ref.float()).abs().max())
             raise AssertionError(f"knn_group {tag}: differs from plain by {err}")
+        print(f"knn_group {tag} q {tuple(q.shape[:2])} pts {tuple(pts.shape[:2])} k={k} C={C}: "
+              f"launched, equal to plain", flush=True)
     tag, q, pts, table, k = cases[0]
     B, M, N, C = *q.shape[:2], pts.shape[1], table.shape[-1]
 
@@ -1094,14 +1293,30 @@ def check_knn_group(fp_call, dev, rng):
         return torch.gather(table[:, None].expand(B, M, N, C), 2,
                             i[..., None].expand(B, M, k, C))
 
-    ms = time_ms(lambda: ops.knn_group(q, pts, table, k), 20)
+    run = lambda: ops.knn_group(q, pts, table, k)
+    ms = device_ms(run, "knn_group")
+    wrapper_ms = time_ms(run, 20)
     plain_ms = time_ms(lambda: ops.knn_group_plain(q, pts, table, k), 5)
     lib_ms = time_ms(library, 20)
     b_ms, b_by = bound(nbytes(q, pts, table) + B * M * k * (C + 11) * 2, 10.0 * B * M * N)
     row = dict(name="knn_group", shape=f"FP0 q ({B},{M}) pts ({B},{N}) k={k} C={C}",
                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               library_ms=lib_ms)
+               library_ms=lib_ms, wrapper_ms=wrapper_ms)
     print_row(row)
+    # the same shapes at B=32, the refine forward's batch, on seeded data
+    B32 = 32
+    q32 = torch.from_numpy(rng.uniform(-1, 1, (B32, M, 3)).astype(np.float32)).to(dev)
+    p32 = torch.from_numpy(rng.uniform(-1, 1, (B32, N, 3)).astype(np.float32)).to(dev)
+    t32 = torch.randn(B32, N, C, device=dev).to(torch.bfloat16)
+    run32 = lambda: ops.knn_group(q32, p32, t32, k)
+    if not torch.equal(run32(), ops.knn_group_plain(q32, p32, t32, k)):
+        raise AssertionError("knn_group at B=32: differs from plain")
+    b32_ms, b32_by = bound(nbytes(q32, p32, t32) + B32 * M * k * (C + 11) * 2,
+                           10.0 * B32 * M * N)
+    print(f"knn_group FP0 at B=32 q ({B32},{M}) pts ({B32},{N}) k={k} C={C}, equal to plain: "
+          f"ms={device_ms(run32, 'knn_group', 10):.4f} (device) "
+          f"wrapper_ms={time_ms(run32, 10):.4f} bound_ms={b32_ms:.5f} ({b32_by})", flush=True)
+    del q32, p32, t32
     return row
 
 
@@ -1173,7 +1388,7 @@ def accelerated_inference(model, cf, x, ts, label, rng, dev):
     fps = [c for c in calls if isinstance(c[1], KnnFeaturePropagation)]
     print(f"one denoise step with the variants on: {len(sites)} attention pools, "
           f"launches={step_counts}", flush=True)
-    if any(step_counts[n] != len(sites) for n in VARIANT_PATH_KERNELS[:3]):
+    if any(step_counts[n] != len(sites) for n in ATTENTION_KERNELS):
         raise AssertionError("an attention site of the denoise step was not fused")
     eligible = [c[0] for c in fps if c[1].fused_knn_eligible(c[2][0], c[2][1], c[2][3], True)]
     print(f"kNN feature propagations eligible for knn_group: {eligible} of "

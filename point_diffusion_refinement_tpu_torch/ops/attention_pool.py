@@ -14,10 +14,13 @@ Counterpart of the JAX package's ``ops/pallas_attention.py``:
                     mask, float32 softmax over K, values relu(GN(gfo W4 + b4)),
                     weighted sum over K -> (B, M, c_out) float32
 
-Between the sweeps the wrapper computes what is per centre or per batch row
-in plain tensor code, as the JAX package leaves it to XLA: the query path
-``relu(feat W0 + b0)``, its part of the first GroupNorm's statistics,
-``qn W2q``, and the (B, C) GroupNorm vectors.
+Between the sweeps, on GPU tensors, two finishing kernels turn the sweeps'
+partial sums into the GroupNorm vectors (``attention_finish_stats``: the
+first GroupNorm over [q, k], with the query rows ``qn``, and the values';
+``attention_finish_h``: h's), whose plain counterparts are the JAX
+package's ``_group_mul_add`` / ``_pgn_mu_s_b`` glue.  The query path's two
+products (``feat W0`` and ``qn W2q``) stay ``torch.matmul``, as the JAX
+package leaves them to XLA.
 
 Rounding points are part of the function and both versions keep them: bf16
 operands, float32 accumulation rounded to bf16, bf16 bias add; the first
@@ -29,7 +32,7 @@ gradient is defined.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +40,6 @@ import torch.nn.functional as F
 from . import kernels
 
 BF16 = torch.bfloat16
-ATTENTION_MAX_K = 64  # a tile of 64 rows holds whole centres
-_SMEM_BYTES = 232448  # shared memory one block may use on sm_90
 
 
 def _round_up(x: int, m: int) -> int:
@@ -83,11 +84,6 @@ def _pgn_mu_s_b(sum_c, ssq_c, scale, bias, cnt: float, num_groups: int, c: int):
         s = torch.cat([s, s.new_ones(B, pad)], 1)
         b = torch.cat([b, b.new_zeros(B, pad)], 1)
     return mu, s, b
-
-
-def _identity_vectors(B: int, c: int, device):
-    return (torch.zeros(B, c, device=device), torch.ones(B, c, device=device),
-            torch.zeros(B, c, device=device))
 
 
 class _Layer(NamedTuple):
@@ -194,144 +190,25 @@ def attention_out_plain(g2, gfo2, qp, counts, key, hidden, score, value, mul_k, 
     return (v3 * weight).sum(dim=2)
 
 
-# ---- the sweeps: kernels --------------------------------------------------
-def _tiles(M: int, K: int) -> int:
-    mt = 64 // K
-    return (M + mt - 1) // mt
+# ---- the glue between the sweeps: plain versions ---------------------------
+def _norm_widths(c: int) -> Tuple[int, int]:
+    """(groups, normed channels) of a GroupNorm over c channels, as the JAX
+    package sizes them: min(32, c) groups over the largest multiple."""
+    ng = min(32, c)
+    return ng, c - c % ng
 
 
-def _check_site(name: str, K: int, ld0: int, ld1: int, aux: int) -> None:
-    """Raise on a site the kernel does not take: more slots than a tile has
-    rows, or activation tiles beyond a block's shared memory."""
-    if not 1 <= K <= ATTENTION_MAX_K:
-        raise ValueError(f"{name}: the kernel needs 1 <= K <= {ATTENTION_MAX_K}, got {K}")
-    smem = (64 * (ld0 + ld1 + 16) + 64 * 72) * 2 + aux
-    if smem > _SMEM_BYTES:
-        raise ValueError(
-            f"{name}: a tile of this site needs {smem} bytes of shared memory, "
-            f"a block has {_SMEM_BYTES}")
-
-
-def _check_rows(name: str, g2: torch.Tensor, K: int) -> Tuple[int, int, int]:
-    kernels.check(g2, f"{name} rows", BF16, (None, None, None))
-    B, R, C = g2.shape
-    if R % K:
-        raise ValueError(f"{name}: {R} rows are not whole centres of {K} slots")
-    return B, R // K, C
-
-
-def _need(layer: _Layer, name: str) -> _Layer:
-    if layer.wt is None:
-        raise ValueError(f"{name}: the weights were prepared on the CPU, the rows lie on a GPU")
-    return layer
-
-
-def attention_stats(g2, gfo2, key: _Layer, value: _Layer, K: int):
-    """Sweep 1.  g2 (B, M*K, Ck), gfo2 (B, M*K, Cv) bf16 -> kst (B, 2, c2),
-    vst (B, 2, c_out) float32."""
-    if kernels.use_plain(g2):
-        return attention_stats_plain(g2, gfo2, key, value)
-    B, M, Ck = _check_rows("attention_stats", g2, K)
-    kernels.check(gfo2, "attention_stats values", BF16, (B, M * K, None))
-    Cv = gfo2.shape[-1]
-    c2, c_out = key.w.shape[1], value.w.shape[1]
-    _need(key, "attention_stats"), _need(value, "attention_stats")
-    _check_site("attention_stats", K, _round_up(Ck, 16), _round_up(Cv, 16), 2048)
-    T = _tiles(M, K)
-    kst = torch.empty((B, T, 2, c2), dtype=torch.float32, device=g2.device)
-    vst = torch.empty((B, T, 2, c_out), dtype=torch.float32, device=g2.device)
-    kernels.launch(
-        "attention_stats", g2.data_ptr(), gfo2.data_ptr(), key.wt.data_ptr(),
-        key.bp.data_ptr(), value.wt.data_ptr(), value.bp.data_ptr(), kst.data_ptr(),
-        vst.data_ptr(), B, M, K, Ck, Cv, c2, c_out,
-    )
-    # the tiles' partial sums, added in a fixed order
-    return kst.sum(1), vst.sum(1)
-
-
-def attention_hstats(g2, qp, key: _Layer, hidden: _Layer, mul_k, add_k, K: int):
-    """Sweep 2.  qp (B, M, inter_c) bf16, mul_k / add_k (B, c2) float32 ->
-    hst (B, 2, inter_c) float32."""
-    if kernels.use_plain(g2):
-        return attention_hstats_plain(g2, qp, key, hidden, mul_k, add_k, K)
-    B, M, Ck = _check_rows("attention_hstats", g2, K)
-    c2, inter_c = hidden.w.shape
-    kernels.check(qp, "attention_hstats qp", BF16, (B, M, inter_c))
-    kernels.check(mul_k, "attention_hstats mul_k", torch.float32, (B, c2))
-    kernels.check(add_k, "attention_hstats add_k", torch.float32, (B, c2))
-    _need(key, "attention_hstats"), _need(hidden, "attention_hstats")
-    _check_site("attention_hstats", K, _round_up(Ck, 16), _round_up(c2, 16), 2048)
-    hst = torch.empty((B, _tiles(M, K), 2, inter_c), dtype=torch.float32, device=g2.device)
-    kernels.launch(
-        "attention_hstats", g2.data_ptr(), key.wt.data_ptr(), key.bp.data_ptr(),
-        mul_k.data_ptr(), add_k.data_ptr(), hidden.wt.data_ptr(), hidden.bp.data_ptr(),
-        qp.data_ptr(), hst.data_ptr(), B, M, K, Ck, c2, inter_c,
-    )
-    return hst.sum(1)
-
-
-def attention_out(g2, gfo2, qp, counts, key, hidden, score, value, mul_k, add_k,
-                  gn1, gn2, K: int):
-    """Sweep 3.  gn1 / gn2: float32 (mu, s, b) of h (B, inter_c) and of v
-    (B, c_out); counts (B, M) int32 or None -> (B, M, c_out) float32."""
-    if kernels.use_plain(g2):
-        return attention_out_plain(g2, gfo2, qp, counts, key, hidden, score, value,
-                                   mul_k, add_k, gn1, gn2, K)
-    B, M, Ck = _check_rows("attention_out", g2, K)
-    kernels.check(gfo2, "attention_out values", BF16, (B, M * K, None))
-    Cv = gfo2.shape[-1]
-    c2, inter_c = hidden.w.shape
-    c_out = score.w.shape[1]
-    kernels.check(qp, "attention_out qp", BF16, (B, M, inter_c))
-    kernels.check(mul_k, "attention_out mul_k", torch.float32, (B, c2))
-    kernels.check(add_k, "attention_out add_k", torch.float32, (B, c2))
-    if counts is not None:
-        kernels.check(counts, "attention_out counts", torch.int32, (B, M))
-    for layer in (key, hidden, score, value):
-        _need(layer, "attention_out")
-    _check_site("attention_out", K, _round_up(max(Ck, inter_c), 16),
-                _round_up(max(c2, Cv), 16), 2 * 64 * 66 * 2)
-    vec1 = [t.to(BF16).contiguous() for t in gn1]
-    vec2 = [t.to(BF16).contiguous() for t in gn2]
-    for t in vec1:
-        kernels.check(t, "attention_out gn1", BF16, (B, inter_c))
-    for t in vec2:
-        kernels.check(t, "attention_out gn2", BF16, (B, c_out))
-    out = torch.empty((B, M, c_out), dtype=torch.float32, device=g2.device)
-    kernels.launch(
-        "attention_out", g2.data_ptr(), gfo2.data_ptr(), key.wt.data_ptr(),
-        key.bp.data_ptr(), mul_k.data_ptr(), add_k.data_ptr(), hidden.wt.data_ptr(),
-        hidden.bp.data_ptr(), qp.data_ptr(), *(t.data_ptr() for t in vec1),
-        score.wt.data_ptr(), score.bp.data_ptr(), value.wt.data_ptr(), value.bp.data_ptr(),
-        *(t.data_ptr() for t in vec2),
-        counts.data_ptr() if counts is not None else None, out.data_ptr(),
-        B, M, K, Ck, Cv, c2, inter_c, c_out,
-    )
-    return out
-
-
-# ---- the function ---------------------------------------------------------
-def _pool(feat, grouped, gfo, counts, p: PreparedWeights, c1, c2, inter_c, c_out, K,
-          sweeps) -> torch.Tensor:
-    stats, hstats, out = sweeps
-    B, M, _, Ck = grouped.shape
-    Cv = gfo.shape[-1]
-    g2 = grouped.to(BF16).reshape(B, M * K, Ck).contiguous()
-    gfo2 = gfo.to(BF16).reshape(B, M * K, Cv).contiguous()
-    ng0 = min(32, c1 + c2)
-    normed0 = (c1 + c2) - (c1 + c2) % ng0
-    ng1 = min(32, inter_c)
-    normed1 = inter_c - inter_c % ng1
-    ng2 = min(32, c_out)
-    normed2 = c_out - c_out % ng2
+def _finish_stats_plain(mm, kst, vst, p: PreparedWeights, c1: int, c2: int, c_out: int,
+                        K: int):
+    """After sweep 1: qd = relu(mm + b0) (mm = feat W0 in bf16), the first
+    GroupNorm's (mul, add) over [q, k] -> qn (B, M, c1) bf16 and mul_k /
+    add_k (B, c2) float32; the values' GroupNorm (mu, s, b) (B, c_out)
+    float32."""
+    B, M, _ = mm.shape
     rows = float(M) * float(K)
-    dev = grouped.device
-
-    kst, vst = stats(g2, gfo2, p.key, p.value, K)
-
-    # the per-centre q path and the GroupNorm vectors
-    qd = torch.relu(_dense(feat.to(BF16), p.w0, p.b0))  # (B, M, c1)
-    qf = qd.to(torch.float32)
+    ng0, normed0 = _norm_widths(c1 + c2)
+    ng2, normed2 = _norm_widths(c_out)
+    qf = torch.relu(mm + p.b0).to(torch.float32)
     q_sum = qf.sum(1) * float(K)
     q_ssq = (qf * qf).sum(1) * float(K)
     sum_c = torch.cat([q_sum, kst[:, 0]], dim=-1)[:, :normed0]
@@ -344,31 +221,254 @@ def _pool(feat, grouped, gfo, counts, p: PreparedWeights, c1, c2, inter_c, c_out
     mul_k = torch.cat([mul0[:, nq:], mul0.new_ones(B, c2 - nk)], -1).contiguous()
     add_k = torch.cat([add0[:, nq:], add0.new_zeros(B, c2 - nk)], -1).contiguous()
     qn = (qf * mul_q[:, None, :] + add_q[:, None, :]).to(BF16)
-    qp = torch.matmul(qn, p.w2q).contiguous()  # (B, M, inter_c), no bias
+    gn2 = _pgn_mu_s_b(vst[:, 0, :normed2], vst[:, 1, :normed2], *p.gn2,
+                      rows * (normed2 // ng2), ng2, c_out)
+    return qn, mul_k, add_k, gn2
 
-    if normed2:
-        gn2 = _pgn_mu_s_b(vst[:, 0, :normed2], vst[:, 1, :normed2], *p.gn2,
-                          rows * (normed2 // ng2), ng2, c_out)
-    else:
-        gn2 = _identity_vectors(B, c_out, dev)
 
-    hst = hstats(g2, qp, p.key, p.hidden, mul_k, add_k, K)
-    if normed1:
-        gn1 = _pgn_mu_s_b(hst[:, 0, :normed1], hst[:, 1, :normed1], *p.gn1,
-                          rows * (normed1 // ng1), ng1, inter_c)
-    else:
-        gn1 = _identity_vectors(B, inter_c, dev)
+def _finish_h_plain(hst, p: PreparedWeights, inter_c: int, M: int, K: int):
+    """After sweep 2: h's GroupNorm (mu, s, b) (B, inter_c) float32."""
+    ng1, normed1 = _norm_widths(inter_c)
+    return _pgn_mu_s_b(hst[:, 0, :normed1], hst[:, 1, :normed1], *p.gn1,
+                       float(M) * float(K) * (normed1 // ng1), ng1, inter_c)
 
+
+def _bf16_vectors(vectors):
+    return tuple(t.to(BF16).contiguous() for t in vectors)
+
+
+def attention_finish_stats_plain(mm, part, p: PreparedWeights, c1: int, c2: int,
+                                 c_out: int, K: int):
+    """Plain version of ``attention_finish_stats``: the partial rows added up,
+    then ``_group_mul_add`` / ``_pgn_mu_s_b`` as the plain pool runs them."""
+    kst, vst = part[:, :, :, :c2].sum(1), part[:, :, :, c2:].sum(1)
+    qn, mul_k, add_k, gn2 = _finish_stats_plain(mm, kst, vst, p, c1, c2, c_out, K)
+    return qn, mul_k, add_k, _bf16_vectors(gn2)
+
+
+def attention_finish_h_plain(part, p: PreparedWeights, inter_c: int, M: int, K: int):
+    """Plain version of ``attention_finish_h``."""
+    return _bf16_vectors(_finish_h_plain(part.sum(1), p, inter_c, M, K))
+
+
+# ---- the sweeps and the glue: kernels ---------------------------------------
+_CHUNK = 64  # output columns of a column chunk
+_SWEEPS = ("attention_stats", "attention_hstats", "attention_out")
+_ROW_BLOCKS: Dict[Tuple[int, ...], int] = {}
+
+
+def _row_blocks(sweep: int, B: int, M: int, K: int, Ck: int, Cv: int, c2: int, inter_c: int,
+                c_out: int) -> int:
+    """Row blocks of sweep 1, 2 or 3 a batch row (row tiles, or units of
+    whole centres for the out sweep): the rows of its partial sums, from the
+    kernel's own plan, asked once per size."""
+    key = (sweep, B, M, K, Ck, Cv, c2, inter_c, c_out)
+    if key not in _ROW_BLOCKS:
+        _ROW_BLOCKS[key] = kernels.query("attention_row_blocks", *key)
+    if _ROW_BLOCKS[key] < 1:
+        raise ValueError(f"{_SWEEPS[sweep - 1]}: a 16-row tile of widths Ck={Ck}, Cv={Cv}, "
+                         f"c2={c2}, inter_c={inter_c}, c_out={c_out} does not fit a block's "
+                         "shared memory")
+    return _ROW_BLOCKS[key]
+
+
+def sweep_row_blocks(B: int, M: int, K: int, Ck: int, Cv: int, c2: int, inter_c: int,
+                     c_out: int) -> Dict[str, int]:
+    """{sweep: row blocks a batch row} on the card (the grid's first axis;
+    column groups and batch rows multiply it)."""
+    return {sweep: _row_blocks(s, B, M, K, Ck, Cv, c2, inter_c, c_out)
+            for s, sweep in enumerate(_SWEEPS, start=1)}
+
+
+def _check_rows(name: str, g2: torch.Tensor, K: int) -> Tuple[int, int, int]:
+    kernels.check(g2, f"{name} rows", BF16, (None, None, None))
+    B, R, C = g2.shape
+    if K < 1 or R % K:
+        raise ValueError(f"{name}: {R} rows are not whole centres of {K} slots")
+    return B, R // K, C
+
+
+def _need(layer: _Layer, name: str) -> _Layer:
+    if layer.wt is None:
+        raise ValueError(f"{name}: the weights were prepared on the CPU, the rows lie on a GPU")
+    return layer
+
+
+def _stats_launch(g2, gfo2, key: _Layer, value: _Layer, K: int) -> torch.Tensor:
+    B, M, Ck = _check_rows("attention_stats", g2, K)
+    kernels.check(gfo2, "attention_stats values", BF16, (B, M * K, None))
+    Cv = gfo2.shape[-1]
+    c2, c_out = key.w.shape[1], value.w.shape[1]
+    _need(key, "attention_stats"), _need(value, "attention_stats")
+    P = _row_blocks(1, B, M, K, Ck, Cv, c2, 16, c_out)
+    part = torch.empty((B, P, 2, c2 + c_out), dtype=torch.float32, device=g2.device)
+    kernels.launch(
+        "attention_stats", g2.data_ptr(), gfo2.data_ptr(), key.wt.data_ptr(),
+        key.bp.data_ptr(), value.wt.data_ptr(), value.bp.data_ptr(), part.data_ptr(),
+        B, M, K, Ck, Cv, c2, c_out, P,
+    )
+    return part
+
+
+def _hstats_launch(g2, qp, key: _Layer, hidden: _Layer, mul_k, add_k, K: int) -> torch.Tensor:
+    B, M, Ck = _check_rows("attention_hstats", g2, K)
+    c2, inter_c = hidden.w.shape
+    kernels.check(qp, "attention_hstats qp", BF16, (B, M, inter_c))
+    kernels.check(mul_k, "attention_hstats mul_k", torch.float32, (B, c2))
+    kernels.check(add_k, "attention_hstats add_k", torch.float32, (B, c2))
+    _need(key, "attention_hstats"), _need(hidden, "attention_hstats")
+    P = _row_blocks(2, B, M, K, Ck, 16, c2, inter_c, 16)
+    part = torch.empty((B, P, 2, inter_c), dtype=torch.float32, device=g2.device)
+    kernels.launch(
+        "attention_hstats", g2.data_ptr(), key.wt.data_ptr(), key.bp.data_ptr(),
+        mul_k.data_ptr(), add_k.data_ptr(), hidden.wt.data_ptr(), hidden.bp.data_ptr(),
+        qp.data_ptr(), part.data_ptr(), B, M, K, Ck, c2, inter_c, P,
+    )
+    return part
+
+
+def _out_launch(g2, gfo2, qp, counts, key, hidden, score, value, mul_k, add_k, gn1, gn2,
+                K: int) -> torch.Tensor:
+    """gn1 / gn2: the bf16 (mu, s, b) of h (B, inter_c) and of v (B, c_out)."""
+    B, M, Ck = _check_rows("attention_out", g2, K)
+    kernels.check(gfo2, "attention_out values", BF16, (B, M * K, None))
+    Cv = gfo2.shape[-1]
+    c2, inter_c = hidden.w.shape
+    c_out = score.w.shape[1]
+    kernels.check(qp, "attention_out qp", BF16, (B, M, inter_c))
+    kernels.check(mul_k, "attention_out mul_k", torch.float32, (B, c2))
+    kernels.check(add_k, "attention_out add_k", torch.float32, (B, c2))
+    if counts is not None:
+        kernels.check(counts, "attention_out counts", torch.int32, (B, M))
+    for layer in (key, hidden, score, value):
+        _need(layer, "attention_out")
+    for t in gn1:
+        kernels.check(t, "attention_out gn1", BF16, (B, inter_c))
+    for t in gn2:
+        kernels.check(t, "attention_out gn2", BF16, (B, c_out))
+    P = _row_blocks(3, B, M, K, Ck, Cv, c2, inter_c, c_out)
+    out = torch.empty((B, M, c_out), dtype=torch.float32, device=g2.device)
+    kernels.launch(
+        "attention_out", g2.data_ptr(), gfo2.data_ptr(), key.wt.data_ptr(),
+        key.bp.data_ptr(), mul_k.data_ptr(), add_k.data_ptr(), hidden.wt.data_ptr(),
+        hidden.bp.data_ptr(), qp.data_ptr(), *(t.data_ptr() for t in gn1),
+        score.wt.data_ptr(), score.bp.data_ptr(), value.wt.data_ptr(), value.bp.data_ptr(),
+        *(t.data_ptr() for t in gn2),
+        counts.data_ptr() if counts is not None else None, out.data_ptr(),
+        B, M, K, Ck, Cv, c2, inter_c, c_out, P,
+    )
+    return out
+
+
+def attention_stats(g2, gfo2, key: _Layer, value: _Layer, K: int):
+    """Sweep 1.  g2 (B, M*K, Ck), gfo2 (B, M*K, Cv) bf16 -> kst (B, 2, c2),
+    vst (B, 2, c_out) float32 (the kernel's partial rows added up here)."""
+    if kernels.use_plain(g2):
+        return attention_stats_plain(g2, gfo2, key, value)
+    part = _stats_launch(g2, gfo2, key, value, K)
+    c2 = key.w.shape[1]
+    return part[:, :, :, :c2].sum(1), part[:, :, :, c2:].sum(1)
+
+
+def attention_hstats(g2, qp, key: _Layer, hidden: _Layer, mul_k, add_k, K: int):
+    """Sweep 2.  qp (B, M, inter_c) bf16, mul_k / add_k (B, c2) float32 ->
+    hst (B, 2, inter_c) float32."""
+    if kernels.use_plain(g2):
+        return attention_hstats_plain(g2, qp, key, hidden, mul_k, add_k, K)
+    return _hstats_launch(g2, qp, key, hidden, mul_k, add_k, K).sum(1)
+
+
+def attention_out(g2, gfo2, qp, counts, key, hidden, score, value, mul_k, add_k,
+                  gn1, gn2, K: int):
+    """Sweep 3.  gn1 / gn2: float32 (mu, s, b) of h (B, inter_c) and of v
+    (B, c_out); counts (B, M) int32 or None -> (B, M, c_out) float32."""
+    if kernels.use_plain(g2):
+        return attention_out_plain(g2, gfo2, qp, counts, key, hidden, score, value,
+                                   mul_k, add_k, gn1, gn2, K)
+    return _out_launch(g2, gfo2, qp, counts, key, hidden, score, value, mul_k, add_k,
+                       _bf16_vectors(gn1), _bf16_vectors(gn2), K)
+
+
+def attention_finish_stats(mm, part, p: PreparedWeights, c1: int, c2: int, c_out: int,
+                           K: int):
+    """After sweep 1, on the card: mm (B, M, c1) bf16 = feat W0 (before its
+    bias), part (B, P, 2, c2 + c_out) the sweep's partial rows -> qn
+    (B, M, c1) bf16, mul_k / add_k (B, c2) float32 and the values'
+    GroupNorm (mu, s, b) (B, c_out) bf16."""
+    if kernels.use_plain(part):
+        return attention_finish_stats_plain(mm, part, p, c1, c2, c_out, K)
+    B, M, _ = mm.shape
+    kernels.check(mm, "attention_finish_stats mm", BF16, (B, None, c1))
+    kernels.check(part, "attention_finish_stats part", torch.float32, (B, None, 2, c2 + c_out))
+    dev = mm.device
+    qn = torch.empty((B, M, c1), dtype=BF16, device=dev)
+    mul_k = torch.empty((B, c2), dtype=torch.float32, device=dev)
+    add_k = torch.empty((B, c2), dtype=torch.float32, device=dev)
+    gn2 = tuple(torch.empty((B, c_out), dtype=BF16, device=dev) for _ in range(3))
+    kernels.launch(
+        "attention_finish_stats", mm.data_ptr(), p.b0.data_ptr(), part.data_ptr(),
+        p.gn0[0].data_ptr(), p.gn0[1].data_ptr(), p.gn2[0].data_ptr(), p.gn2[1].data_ptr(),
+        qn.data_ptr(), mul_k.data_ptr(), add_k.data_ptr(), *(t.data_ptr() for t in gn2),
+        B, M, K, part.shape[1], c1, c2, c_out,
+    )
+    return qn, mul_k, add_k, gn2
+
+
+def attention_finish_h(part, p: PreparedWeights, inter_c: int, M: int, K: int):
+    """After sweep 2, on the card: part (B, P, 2, inter_c) -> h's GroupNorm
+    (mu, s, b) (B, inter_c) bf16."""
+    if kernels.use_plain(part):
+        return attention_finish_h_plain(part, p, inter_c, M, K)
+    B = part.shape[0]
+    kernels.check(part, "attention_finish_h part", torch.float32, (B, None, 2, inter_c))
+    gn1 = tuple(torch.empty((B, inter_c), dtype=BF16, device=part.device) for _ in range(3))
+    kernels.launch(
+        "attention_finish_h", part.data_ptr(), p.gn1[0].data_ptr(), p.gn1[1].data_ptr(),
+        *(t.data_ptr() for t in gn1), B, M, K, part.shape[1], inter_c,
+    )
+    return gn1
+
+
+# ---- the function ---------------------------------------------------------
+def _rows(grouped, gfo):
+    B, M, K, Ck = grouped.shape
+    g2 = grouped.to(BF16).reshape(B, M * K, Ck).contiguous()
+    gfo2 = gfo.to(BF16).reshape(B, M * K, gfo.shape[-1]).contiguous()
+    return g2, gfo2
+
+
+def _pool_plain(feat, grouped, gfo, counts, p: PreparedWeights, c1, c2, inter_c, c_out,
+                K) -> torch.Tensor:
+    """The plain sweeps and glue, the rounding points of the kernels."""
+    M = grouped.shape[1]
+    g2, gfo2 = _rows(grouped, gfo)
+    kst, vst = attention_stats_plain(g2, gfo2, p.key, p.value)
+    mm = torch.matmul(feat.to(BF16), p.w0)  # (B, M, c1), bias in the glue
+    qn, mul_k, add_k, gn2 = _finish_stats_plain(mm, kst, vst, p, c1, c2, c_out, K)
+    qp = torch.matmul(qn, p.w2q)  # (B, M, inter_c), no bias
+    hst = attention_hstats_plain(g2, qp, p.key, p.hidden, mul_k, add_k, K)
+    gn1 = _finish_h_plain(hst, p, inter_c, M, K)
+    cnt = None if counts is None else counts.to(torch.int32)
+    return attention_out_plain(g2, gfo2, qp, cnt, p.key, p.hidden, p.score, p.value,
+                               mul_k, add_k, gn1, gn2, K)
+
+
+def _pool_kernels(feat, grouped, gfo, counts, p: PreparedWeights, c1, c2, inter_c, c_out,
+                  K) -> torch.Tensor:
+    """Three sweeps and two finishing kernels; the q path's two products in
+    ``torch.matmul`` (the JAX package leaves them to XLA): seven launches
+    when the inputs are bf16 and the counts int32 or absent."""
+    M = grouped.shape[1]
+    g2, gfo2 = _rows(grouped, gfo)
+    part1 = _stats_launch(g2, gfo2, p.key, p.value, K)
+    mm = torch.matmul(feat.to(BF16), p.w0)
+    qn, mul_k, add_k, gn2 = attention_finish_stats(mm, part1, p, c1, c2, c_out, K)
+    qp = torch.matmul(qn, p.w2q)
+    part2 = _hstats_launch(g2, qp, p.key, p.hidden, mul_k, add_k, K)
+    gn1 = attention_finish_h(part2, p, inter_c, M, K)
     cnt = None if counts is None else counts.to(torch.int32).contiguous()
-    return out(g2, gfo2, qp, cnt, p.key, p.hidden, p.score, p.value, mul_k, add_k,
-               gn1, gn2, K)
-
-
-_KERNEL_SWEEPS = (attention_stats, attention_hstats, attention_out)
-_PLAIN_SWEEPS = (
-    lambda g2, gfo2, key, value, K: attention_stats_plain(g2, gfo2, key, value),
-    attention_hstats_plain, attention_out_plain,
-)
+    return _out_launch(g2, gfo2, qp, cnt, p.key, p.hidden, p.score, p.value, mul_k, add_k,
+                       gn1, gn2, K)
 
 
 def fused_attention_pool(
@@ -391,15 +491,17 @@ def fused_attention_pool(
     ``transform_grouped_feat_out`` and ``last_activation`` all true, under
     bf16 compute: (B, M, c_out) float32.  Dense kernels are (in, out).
     ``prepared`` (from ``prepare_attention_weights``) takes the place of the
-    sixteen parameter tensors.  On GPU tensors the three sweeps are the CUDA
-    kernels; on CPU tensors, or under ``kernels.plain_ops()``, their plain
-    versions."""
+    sixteen parameter tensors.  On GPU tensors the three sweeps and the two
+    finishing kernels run on the card (any K, any width whose 16-row tiles
+    fit a block's shared memory, a few thousand channels; wider raises); on
+    CPU tensors, or under
+    ``kernels.plain_ops()``, their plain versions."""
     if prepared is None:
         prepared = prepare_attention_weights(
             w0, b0, w1, b1, gn0_scale, gn0_bias, w2, b2, gn1_scale, gn1_bias, w3, b3,
             w4, b4, gn2_scale, gn2_bias, c1=c1)
-    return _pool(feat, grouped, gfo, counts, prepared, c1, c2, inter_c, c_out, K,
-                 _KERNEL_SWEEPS)
+    pool = _pool_plain if kernels.use_plain(grouped) else _pool_kernels
+    return pool(feat, grouped, gfo, counts, prepared, c1, c2, inter_c, c_out, K)
 
 
 def fused_attention_pool_plain(feat, grouped, gfo, counts, *weights, c1: int, c2: int,
@@ -409,5 +511,4 @@ def fused_attention_pool_plain(feat, grouped, gfo, counts, *weights, c1: int, c2
     PyTorch tensor code on any device, with the same rounding points."""
     if prepared is None:
         prepared = prepare_attention_weights(*weights, c1=c1)
-    return _pool(feat, grouped, gfo, counts, prepared, c1, c2, inter_c, c_out, K,
-                 _PLAIN_SWEEPS)
+    return _pool_plain(feat, grouped, gfo, counts, prepared, c1, c2, inter_c, c_out, K)

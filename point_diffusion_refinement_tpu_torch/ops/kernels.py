@@ -6,7 +6,7 @@ own shared library with a plain C interface, at first use, into
 hash of the sources and flags, so a clean checkout builds them and a changed
 source rebuilds.  A source may hold several kernels (``fps.cu`` has the
 idx-only and the coordinates entry, ``attention_pool.cu`` the three sweeps of
-the fused attention pool); each kernel has its own launch count.
+the fused attention pool and its two finishing kernels); each kernel has its own launch count.
 The libraries are bound with ``ctypes``: every pointer and the stream are
 ``c_void_p``, the stream is PyTorch's current one, and each C entry returns
 ``cudaGetLastError()``, which the launch checks.
@@ -68,15 +68,31 @@ KERNELS = {
     ),
     # the three sweeps of the fused attention pool
     "attention_stats": (
-        "attention_pool.cu", "pdr_attention_stats", [_P] * 8 + [_I] * 7 + [_P],
+        "attention_pool.cu", "pdr_attention_stats", [_P] * 7 + [_I] * 8 + [_P],
     ),
     "attention_hstats": (
-        "attention_pool.cu", "pdr_attention_hstats", [_P] * 9 + [_I] * 6 + [_P],
+        "attention_pool.cu", "pdr_attention_hstats", [_P] * 9 + [_I] * 7 + [_P],
     ),
     "attention_out": (
-        "attention_pool.cu", "pdr_attention_out", [_P] * 21 + [_I] * 8 + [_P],
+        "attention_pool.cu", "pdr_attention_out", [_P] * 21 + [_I] * 9 + [_P],
     ),
-    "knn_group": ("knn_group.cu", "pdr_knn_group", [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P]),
+    # ... and the two kernels that finish the GroupNorm vectors between them
+    "attention_finish_stats": (
+        "attention_pool.cu", "pdr_attention_finish_stats", [_P] * 13 + [_I] * 7 + [_P],
+    ),
+    "attention_finish_h": (
+        "attention_pool.cu", "pdr_attention_finish_h", [_P] * 6 + [_I] * 5 + [_P],
+    ),
+    "knn_group": (
+        "knn_group.cu", "pdr_knn_group", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    ),
+}
+
+# host-side questions to a source's library (no launch, no stream, not counted)
+QUERIES = {
+    # the row blocks (rows of its partial sums) a sweep of the fused
+    # attention pool takes at given sizes
+    "attention_row_blocks": ("attention_pool.cu", "pdr_attention_row_blocks", [_I] * 9),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -155,8 +171,11 @@ def _nvcc() -> str:
 
 
 def _library_path(source: str) -> Path:
+    """The library of ``source``, named by a hash of the source, every header
+    of ``csrc/`` (any of them may be included) and the flags."""
     h = hashlib.sha256()
-    for part in (CSRC / source, CSRC / "common.cuh"):
+    for part in (CSRC / source, *sorted(CSRC.glob("*.cuh"))):
+        h.update(part.name.encode())
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
@@ -198,22 +217,27 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, float]:
 
 
 def _entry(name: str):
-    """Kernel ``name``'s C entry, building and loading its source's library
-    at first use."""
-    source, symbol, _ = KERNELS[name]
+    """Kernel or query ``name``'s C entry, building and loading its source's
+    library at first use."""
+    source, symbol, _ = KERNELS[name] if name in KERNELS else QUERIES[name]
     lib = _LIBS.get(source)
     if lib is None:
         path = _library_path(source)
         if not path.exists():
-            build([name])
+            build([next(n for n, v in KERNELS.items() if v[0] == source)])
         lib = ctypes.CDLL(str(path))
-        for src, sym, argtypes in KERNELS.values():
+        for src, sym, argtypes in (*KERNELS.values(), *QUERIES.values()):
             if src == source:
                 entry = getattr(lib, sym)
                 entry.argtypes = argtypes
                 entry.restype = ctypes.c_int
         _LIBS[source] = lib
     return getattr(lib, symbol)
+
+
+def query(name: str, *args) -> int:
+    """Call the host-side C entry ``name`` of QUERIES (on a GPU machine)."""
+    return int(_entry(name)(*args))
 
 
 def launch(name: str, *args) -> None:

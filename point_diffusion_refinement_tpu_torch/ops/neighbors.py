@@ -155,10 +155,6 @@ def knn_lanes(queries: int) -> int:
     return lanes
 
 
-# the kNN + gather kernel keeps its k best in one thread's registers
-KNN_GROUP_MAX_K = 16
-
-
 def knn_plain(
     query: torch.Tensor, points: torch.Tensor, k: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -237,8 +233,10 @@ def knn_group(query: torch.Tensor, points: torch.Tensor, table: torch.Tensor,
     bf16: [table rows (rounded to bf16), squared distance, w_j =
     (1 / (d_j + 1e-8)) / sum_i 1 / (d_i + 1e-8), neighbour xyz, neighbour -
     query, query xyz].  Neighbours as ``knn`` gives them (ascending, ties to
-    the lowest index); positions come from the float32 support, so they may
-    differ from the TPU kernel's hi/lo bf16 reconstruction by one bf16 ulp."""
+    the lowest index), any 1 <= k <= N; positions come from the float32
+    support, so they may differ from the TPU kernel's hi/lo bf16
+    reconstruction by one bf16 ulp.  The kernel shares ``knn``'s selection
+    and its lanes-a-query rule (``knn_lanes``)."""
     if kernels.use_plain(query):
         return knn_group_plain(query, points, table, k)
     query, points = kernels.as_f32(query), kernels.as_f32(points)
@@ -248,16 +246,19 @@ def knn_group(query: torch.Tensor, points: torch.Tensor, table: torch.Tensor,
     kernels.check(query, "knn_group query", torch.float32, (None, None, 3))
     kernels.check(points, "knn_group points", torch.float32, (B, None, 3))
     kernels.check(table, "knn_group table", torch.bfloat16, (B, N, None))
-    if not 1 <= k <= min(N, KNN_GROUP_MAX_K):
-        raise ValueError(
-            f"knn_group kernel needs 1 <= k <= min(N, {KNN_GROUP_MAX_K}), got k={k}, N={N}")
+    if not 1 <= k <= N:
+        raise ValueError(f"knn_group needs 1 <= k <= N, got k={k}, N={N}")
     if C < 1:
         raise ValueError("knn_group: the table needs at least one channel")
     out = torch.empty((B, M, k, C + 11), dtype=torch.bfloat16, device=query.device)
-    kernels.launch(
-        "knn_group", query.data_ptr(), points.data_ptr(), table.data_ptr(), B, M, N, C, k,
-        out.data_ptr(),
-    )
+    if M > 0:
+        # the selection's (distance, index) pairs, scratch of the kernel
+        dist = torch.empty((B, M, k), dtype=torch.float32, device=query.device)
+        idx = torch.empty((B, M, k), dtype=torch.int32, device=query.device)
+        kernels.launch(
+            "knn_group", query.data_ptr(), points.data_ptr(), table.data_ptr(), B, M, N, C,
+            k, knn_lanes(B * M), dist.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        )
     return out
 
 

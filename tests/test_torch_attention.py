@@ -37,6 +37,9 @@ CASES = [
     ("knnfp", 128, 8, 128, 166, 128, 128, False),
     ("tiny_m", 16, 32, 35, 38, 32, 32, True),
     ("wide_q", 64, 16, 70, 35, 64, 128, True),
+    # more slots than a 64-row tile holds: a centre spans two tiles on the card
+    ("k96", 12, 96, 35, 41, 32, 32, True),
+    ("k96_all", 8, 96, 16, 44, 64, 64, False),
 ]
 IDS = [c[0] for c in CASES]
 
@@ -175,6 +178,74 @@ def test_groupnorm_glue_matches_jax(num_groups, normed, c):
                         j_pa._pgn_mu_s_b(*ja, cnt, num_groups, c)):
         assert tuple(got.shape) == (3, c)
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("c1,c2,c_out", [(32, 41, 32), (128, 41, 32), (35, 44, 64), (3, 171, 20)])
+def test_finishing_glue_matches_jax(c1, c2, c_out):
+    """The plain counterparts of the two finishing kernels (the first
+    GroupNorm over [q, k] with the query rows, the values' and h's GroupNorm
+    vectors) against the JAX package's glue between its sweeps, on the same
+    statistics."""
+    B, M, K, Cq, inter_c = 2, 24, 8, 5, 48
+    rng = np.random.default_rng(c1 + c2)
+    feat = rng.standard_normal((B, M, Cq)).astype(np.float32)
+    w0 = (rng.standard_normal((Cq, c1)) / Cq ** 0.5).astype(np.float32)
+    b0 = (0.1 * rng.standard_normal(c1)).astype(np.float32)
+    rows = M * K
+
+    def stats(c, centre):
+        x = rng.standard_normal((B, rows, c)).astype(np.float32) + centre
+        return np.stack([x.sum(1), (x * x).sum(1)], 1).astype(np.float32)
+
+    kst, vst, hst = stats(c2, 0.3), stats(c_out, -0.2), stats(inter_c, 0.1)
+    ng0 = min(32, c1 + c2)
+    normed0 = (c1 + c2) - (c1 + c2) % ng0
+
+    def gn(n):
+        return ((1.0 + 0.2 * rng.standard_normal(n)).astype(np.float32),
+                (0.1 * rng.standard_normal(n)).astype(np.float32))
+
+    gn0, gn1, gn2 = gn(normed0), gn(inter_c - inter_c % min(32, inter_c)), gn(
+        c_out - c_out % min(32, c_out))
+    p = t_pa.prepare_attention_weights(
+        torch.from_numpy(w0), torch.from_numpy(b0), torch.zeros(4, c2), torch.zeros(c2),
+        *map(torch.from_numpy, gn0), torch.zeros(c1 + c2, inter_c), torch.zeros(inter_c),
+        *map(torch.from_numpy, gn1), torch.zeros(inter_c, c_out), torch.zeros(c_out),
+        torch.zeros(4, c_out), torch.zeros(c_out), *map(torch.from_numpy, gn2), c1=c1)
+    mm = torch.matmul(torch.from_numpy(feat).to(torch.bfloat16), p.w0)
+    qn, mul_k, add_k, (mu2, s2, bb2) = t_pa._finish_stats_plain(
+        mm, torch.from_numpy(kst), torch.from_numpy(vst), p, c1, c2, c_out, K)
+    mu1, s1, bb1 = t_pa._finish_h_plain(torch.from_numpy(hst), p, inter_c, M, K)
+
+    # the JAX package's glue (ops/pallas_attention.py::fused_attention_pool)
+    bf = jnp.bfloat16
+    qd = jnp.maximum(j_pa._dense(jnp.asarray(feat).astype(bf), jnp.asarray(w0).astype(bf),
+                                 jnp.asarray(b0).astype(bf)), 0)
+    qf = qd.astype(jnp.float32)
+    sum_c = jnp.concatenate([jnp.sum(qf, 1) * float(K), kst[:, 0]], -1)[:, :normed0]
+    ssq_c = jnp.concatenate([jnp.sum(qf * qf, 1) * float(K), kst[:, 1]], -1)[:, :normed0]
+    mul0, add0 = j_pa._group_mul_add(sum_c, ssq_c, *gn0, float(rows) * (normed0 // ng0), ng0)
+    nq = min(c1, normed0)
+    mul_q = jnp.concatenate([mul0[:, :nq], jnp.ones((B, c1 - nq))], -1)
+    add_q = jnp.concatenate([add0[:, :nq], jnp.zeros((B, c1 - nq))], -1)
+    nk = normed0 - nq
+    ref_mul_k = jnp.concatenate([mul0[:, nq:], jnp.ones((B, c2 - nk))], -1)
+    ref_add_k = jnp.concatenate([add0[:, nq:], jnp.zeros((B, c2 - nk))], -1)
+    ref_qn = (qf * mul_q[:, None, :] + add_q[:, None, :]).astype(bf)
+    ng2, normed2 = min(32, c_out), len(gn2[0])
+    ref2 = j_pa._pgn_mu_s_b(vst[:, 0, :normed2], vst[:, 1, :normed2], *gn2,
+                            float(rows) * (normed2 // ng2), ng2, c_out)
+    ng1, normed1 = min(32, inter_c), len(gn1[0])
+    ref1 = j_pa._pgn_mu_s_b(hst[:, 0, :normed1], hst[:, 1, :normed1], *gn1,
+                            float(rows) * (normed1 // ng1), ng1, inter_c)
+    close = dict(rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(mul_k.numpy(), np.asarray(ref_mul_k), **close)
+    np.testing.assert_allclose(add_k.numpy(), np.asarray(ref_add_k), **close)
+    np.testing.assert_allclose(qn.float().numpy(), np.asarray(ref_qn.astype(jnp.float32)),
+                               rtol=1e-2, atol=1e-2)
+    assert np.mean(qn.float().numpy() == np.asarray(ref_qn.astype(jnp.float32))) > 0.99
+    for got, ref in zip((mu2, s2, bb2, mu1, s1, bb1), (*ref2, *ref1)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **close)
 
 
 class TestRouting:

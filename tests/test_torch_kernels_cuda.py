@@ -35,7 +35,14 @@ ATTENTION_TOL = 2e-2
 def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
-    return torch.device("cuda")
+    # bf16 products of the plain versions accumulate in float32, as the
+    # kernels' do: cuBLAS's reduced-precision reduction of bf16 products
+    # flips bf16 roundings of products over a thousand deep
+    mm = torch.backends.cuda.matmul
+    saved = mm.allow_bf16_reduced_precision_reduction
+    mm.allow_bf16_reduced_precision_reduction = False
+    yield torch.device("cuda")
+    mm.allow_bf16_reduced_precision_reduction = saved
 
 
 def _cloud(rng, *shape, lo=-1.0, hi=1.0):
@@ -421,20 +428,28 @@ def test_ball_group_idx_and_grads(dev, mode):
         assert float((a - b).abs().max()) <= SCATTER_TOL * float(b.abs().max())
 
 
-@pytest.mark.parametrize("k,N,M,C", [(8, 1024, 2048, 160), (3, 700, 257, 5), (16, 16, 100, 33),
-                                     (1, 50, 130, 1)])
-def test_knn_group(dev, k, N, M, C):
+@pytest.mark.parametrize("k,N,M,C,B", [
+    (8, 1024, 2048, 160, 2), (3, 700, 257, 5, 2), (16, 16, 100, 33, 2), (1, 50, 130, 1, 2),
+    (8, 1024, 2048, 160, 4), (1, 64, 300, 3, 32), (17, 300, 257, 6, 4),
+    (32, 1024, 512, 160, 32), (33, 200, 100, 2, 4), (40, 40, 100, 7, 4), (40, 40, 64, 7, 32),
+    (8, 64, 50, 12, 4), (3, 100, 70, 1030, 2),
+])
+def test_knn_group(dev, k, N, M, C, B):
     """Fused kNN + gather + packing: every channel equals the plain version's
     (same float32 distances, same ties, each channel rounded to bf16 once),
-    at the level-0 shape, at an M that is no multiple of the block, at
-    k = N with duplicates, and at a one-channel table."""
+    at the level-0 shape at B = 2 and 4, at an M that is no multiple of the
+    block, at k = 1, 17, 32, 33 (a second selection pass) and N with
+    duplicates, with k * (C + 11) no multiple of 8 (a run with an unaligned
+    head and tail), at a one-channel table, with rows read 16, 8 or 2 bytes
+    at a time, a row too wide for the assembly buffer (C = 1030, by values),
+    and at B = 32 (one lane a query)."""
     rng = np.random.default_rng(8)
-    x, q = _cloud(rng, 2, N, 3).to(dev), _cloud(rng, 2, M, 3).to(dev)
+    x, q = _cloud(rng, B, N, 3).to(dev), _cloud(rng, B, M, 3).to(dev)
     x[:, N // 2: N // 2 + 4] = x[:, :4]  # duplicate points: ties
-    table = _cloud(rng, 2, N, C, lo=-9, hi=9).to(dev)
+    table = _cloud(rng, B, N, C, lo=-9, hi=9).to(dev)
     out = ops.knn_group(q, x, table, k)
     ref = ops.knn_group_plain(q, x, table, k)
-    assert out.dtype == torch.bfloat16 and out.shape == (2, M, k, C + 11)
+    assert out.dtype == torch.bfloat16 and out.shape == (B, M, k, C + 11)
     assert torch.equal(out, ref)
     d, i = ops.knn(q, x, k)
     assert torch.equal(out[..., :C], ops.group_points(table.to(torch.bfloat16), i))
@@ -475,6 +490,12 @@ ATTENTION_SITES = [
     ("odd_m_k", 2, 37, 24, 35, 38, 32, 32, True),  # a last tile with one centre
     ("narrow", 1, 16, 4, 8, 12, 20, 20, True),  # GroupNorms of 20 channels
     ("deep", 2, 16, 8, 512, 651, 512, 512, False),  # weights beyond shared memory
+    ("enc0", 2, 64, 32, 3, 13, 32, 32, True),  # the narrowest key
+    ("k96", 2, 20, 96, 35, 41, 32, 32, True),  # a centre across two row tiles
+    ("k96_all", 2, 9, 96, 16, 44, 64, 64, False),
+    ("k8_m_odd", 2, 13, 8, 64, 41, 32, 32, True),  # M no multiple of a tile's centres
+    ("wide", 2, 8, 8, 16, 1030, 64, 96, True),  # a key above 1000 channels: 32-row tiles
+    ("wide_k96", 1, 3, 96, 16, 1030, 96, 64, False),
 ]
 
 
@@ -518,12 +539,41 @@ def test_attention_sweeps(dev, site):
     close(out, unfused, 4e-2)
 
 
+def test_attention_finishing_kernels(dev):
+    """The two finishing kernels against their plain versions (the JAX
+    package's glue) on the partial rows a sweep writes."""
+    from point_diffusion_refinement_tpu_torch.ops import attention_pool as ap
+
+    B, M, K = 2, 50, 24
+    pool, feat, grouped, gfo, _ = _attention_site(dev, 15, B, M, K, 35, 44, 64, 64, False)
+    p, w = pool._fused_weights(), pool.widths
+    g2, gfo2 = grouped.reshape(B, M * K, 44), gfo.reshape(B, M * K, 64)
+    part1 = ap._stats_launch(g2, gfo2, p.key, p.value, K)
+    mm = torch.matmul(feat.to(torch.bfloat16), p.w0)
+    got = ap.attention_finish_stats(mm, part1, p, w["c1"], w["c2"], w["c_out"], K)
+    ref = ap.attention_finish_stats_plain(mm, part1, p, w["c1"], w["c2"], w["c_out"], K)
+    qn, mul_k, add_k, gn2 = got
+    for a, b in zip((qn, mul_k, add_k, *gn2), (ref[0], ref[1], ref[2], *ref[3])):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert float((a.float() - b.float()).abs().max()) <= STATS_TOL * max(
+            float(b.float().abs().max()), 1.0)
+    qp = torch.matmul(qn, p.w2q)
+    part2 = ap._hstats_launch(g2, qp, p.key, p.hidden, mul_k, add_k, K)
+    for a, b in zip(ap.attention_finish_h(part2, p, w["inter_c"], M, K),
+                    ap.attention_finish_h_plain(part2, p, w["inter_c"], M, K)):
+        assert a.dtype == torch.bfloat16
+        assert float((a.float() - b.float()).abs().max()) <= STATS_TOL * max(
+            float(b.float().abs().max()), 1.0)
+
+
 def test_attention_raises_on_what_it_cannot_take(dev):
     from point_diffusion_refinement_tpu_torch.ops import attention_pool as ap
 
-    pool, feat, grouped, gfo, _ = _attention_site(dev, 13, 1, 2, 65, 8, 12, 32, 32, False)
-    with pytest.raises(ValueError, match="K <= 64"):
+    # a key so wide that a 16-row tile does not fit a block's shared memory
+    pool, feat, grouped, gfo, _ = _attention_site(dev, 13, 1, 2, 8, 8, 8000, 32, 32, False)
+    with pytest.raises(ValueError, match="does not fit"):
         pool(feat, grouped, gfo, "all", fused=True)
+    _, _, grouped, gfo, _ = _attention_site(dev, 13, 1, 2, 8, 8, 12, 32, 32, False)
     cpu = ap._layer(torch.randn(12, 32), torch.randn(32))
     with pytest.raises(ValueError, match="prepared on the CPU"):
         ap.attention_stats(grouped[:, :, :8].reshape(1, 16, 12).contiguous(),
@@ -555,4 +605,5 @@ def test_launch_counts(dev):
                                    "ball_group": 1, "ball_query_group": 1,
                                    "group_scatter_add": 1, "knn_group": 1,
                                    "attention_stats": 1, "attention_hstats": 1,
-                                   "attention_out": 1}
+                                   "attention_out": 1, "attention_finish_stats": 1,
+                                   "attention_finish_h": 1}

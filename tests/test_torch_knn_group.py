@@ -58,8 +58,10 @@ def _cloud(seed, B, N, M, C):
 
 
 @pytest.mark.parametrize("N,M,C,k,ties", [(300, 130, 36, 8, False), (64, 50, 5, 4, True),
-                                          (8, 40, 3, 8, True), (1, 5, 2, 1, False)],
-                         ids=["plain", "ties", "k_eq_N_ties", "one_point"])
+                                          (8, 40, 3, 8, True), (1, 5, 2, 1, False),
+                                          (300, 130, 12, 24, False), (256, 60, 6, 256, True)],
+                         ids=["plain", "ties", "k_eq_N_ties", "one_point", "k24",
+                              "k_eq_N_256"])
 def test_matches_jax_group_knn_features(N, M, C, k, ties):
     xyz, q, feats = _cloud(N + M, 2, N, M, C)
     if ties:
@@ -109,6 +111,24 @@ def test_matches_jax_windowed_kernel(window):
     ref_sorted = _f(j_pw.windowed_knn_group(sup, qc, k, window=window, interpret=True))
     order = np.asarray(qc.order)
     got = ops.knn_group(_t(q), _t(xyz), _t(feats), k).float().numpy()
+    got_sorted = np.take_along_axis(got, order[:, :, None, None], axis=1)
+    _check_channels(got_sorted, ref_sorted, C)
+    np.testing.assert_array_equal(got_sorted[..., :C], ref_sorted[..., :C])
+
+
+@pytest.mark.parametrize("k", [24])
+def test_matches_jax_windowed_kernel_any_k(k):
+    """k beyond 16, against the Pallas kernel (interpret mode), unsorted
+    through ``qctx.order``.  Its window must outsize k by 128, so k = N is
+    held against ``group_knn_features`` above."""
+    B, N, M, C = 2, 256, 128, 12
+    xyz, q, feats = _cloud(12, B, N, M, C)
+    sup = j_pw.build_support_ctx(jnp.asarray(xyz), [jnp.asarray(feats)])
+    qc = j_pw.build_query_ctx(jnp.asarray(q), sup.axis_onehot)
+    ref_sorted = _f(j_pw.windowed_knn_group(sup, qc, k, window=256, interpret=True))
+    order = np.asarray(qc.order)
+    got = ops.knn_group_plain(_t(q), _t(xyz), _t(feats), k).float().numpy()
+    assert got.shape == (B, M, k, C + 11)
     got_sorted = np.take_along_axis(got, order[:, :, None, None], axis=1)
     _check_channels(got_sorted, ref_sorted, C)
     np.testing.assert_array_equal(got_sorted[..., :C], ref_sorted[..., :C])
