@@ -40,6 +40,10 @@
    Then ``EXPERIMENTS["ddpm_avg_max"]`` (global self-attention) in bf16
    at full width: one B=4 encode + denoise step through the kernels, launch
    counts reset just before and read just after, against ``plain_ops()``.
+   Then ``DEFAULT_POINTNET_CONFIG`` with nsample 96 (radius 0.5) at level 0
+   of the x_t set abstraction and the feature-transfer pair: one B=4 denoise
+   step with ``fused=True``, whose fused ball groups run past their 64-slot
+   pass, against ``plain_ops()``.
 5. Traces three denoise steps with ``torch.profiler`` and prints the
    device-busy share of the window, the ops that take the most device
    time, and the device ms a denoise step of the ``fps``, ``fps_idx``,
@@ -61,14 +65,20 @@
    one forward, with the device ms of those five kernels in it.
 9. Evaluation cost: ``calc_cd`` at (32, 16384) against (32, 16384) and
    ``earth_mover_distance`` at (32, 2048) against (32, 2048).
-10. Training kernels against their plain versions: the fused ball query +
-   gather (``ball_query_group``) at the level-0 feature-transfer shape and
-   at a deep level with a wide table (idx and counts equal, gathered rows
-   equal), the idx output of the fused ball group against the ball-query
-   kernel, the scatter-add (``group_scatter_add``) against ``index_add_`` at
-   the level-0 cotangent shape in float32 and bfloat16, and the three
-   gradients of ``ball_group_train`` against autograd through the plain
-   version in both empty-ball modes.
+10. Training kernels against their plain versions: the fused ball group at
+   K = 96 and 160 and the fused ball query + gather at K = 160 and K > N
+   (any nsample); the fused ball query + gather (``ball_query_group``) at
+   the level-0 feature-transfer shape and at a deep level with a wide table
+   (idx and counts equal, gathered rows equal), at B=4 and at the training
+   batch B=32, each queries-a-warp choice at both; the idx output of the
+   fused ball group against the ball-query kernel; the scatter-add
+   (``group_scatter_add``) against ``index_add_`` at the level-0 cotangent
+   shape in float32 and bfloat16, and at B=4 and B=32 in float32 and on a
+   bfloat16 channel slice of a wider row (as ``ball_group_train``'s
+   backward passes it), at each balls-a-thread choice; the three gradients
+   of ``ball_group_train`` against autograd through the plain version in
+   both empty-ball modes.  Both kernels' times are the profiler's device
+   time a launch, with ``wrapper_ms`` beside them.
 11. DDPM training at full width through ``train/loop.py::train``:
    ``DEFAULT_POINTNET_CONFIG`` in bfloat16, seeded weights, synthetic
    2048-point clouds with mirrored 3072 x 4 conditions, the largest power of
@@ -79,7 +89,11 @@
    same steps with both routes off, step ms and samples/s of both routes,
    the relative difference of the first-step loss and of the gradients
    between the routes, one step through the kernels against one under
-   ``plain_ops()``, and a profile of one training step.
+   ``plain_ops()``, and a profile of one training step with the device ms
+   and launches of the hand-written kernels in it.  Before those, every
+   shape the fused ball query + gather and the scatter-add are launched at
+   in one training step, with the launches and the device ms a launch of
+   each (spies on their wrappers, replayed under the profiler).
 12. Refine training: the ``upsample_16384`` net, task ``refine_completion``,
    x8 upsampling, cd_t with the intermediate loss on and the output-scale
    schedule ticking, in-loop eval, the same checks; a run stopped at a
@@ -114,7 +128,8 @@
    splits it; the FPS rows add ``latency_floor_ms``, the sweep's per-pick
    time at its smallest N times the row's npoint - 1, beside the roofline
    ``bound_ms``; the rows of those five kernels add their device ms a
-   denoise step and a pipeline), and last
+   denoise step, a pipeline and a training step; the #8 and B rows their
+   B=32 times and bounds), and last
    ``{"ok": true, "device": {...}}``.
 
 TF32 is off for matmuls and convolutions throughout, so the float32 parts
@@ -146,9 +161,15 @@ REFINE_REL_TOL = 1e-2  # kernels vs plain versions, one bf16 refine forward
 FAST_STEPS = 50  # FastDPM length of the refine_fast50 experiment
 # float32 sums of the same terms in another order (atomics; index_add_)
 SCATTER_REL_TOL = 1e-5
+# ... relative to each element's own sum of its terms' magnitudes, the scale
+# of a reordered float32 sum's rounding error: a (b, row) that the empty balls
+# of a batch row all land in takes tens of thousands of terms of either sign,
+# whose signed sum is far below that scale
+SCATTER_ABS_REL_TOL = 1e-5
+SCATTER_ABS_FLOOR = 1e-12
 TRAIN_BATCH = 32  # the JAX package's training benchmark batch
 TRAIN_STEPS = 4  # steps of each training run
-TIMED_STEPS = 3  # steps of each timed block (routes on, off, off, on)
+TIMED_STEPS = 2  # steps of each timed block (routes on, off, off, on)
 # One bf16 training step, fused routes against unfused.  The forward values
 # are the same (the first Dense rounds the unfused float32 group to bf16 as
 # the fused group already is); the backward differs: the fused routes sum
@@ -224,10 +245,10 @@ LAUNCH_NAMES = {"fps_coords": "fps", "fps_idx": "fps_idx", "ball_group": "ball_g
 # the kernels of a training step with both fused routes on (the fused
 # gather supersedes the ball-query kernel there)
 TRAIN_PATH_KERNELS = ("ball_query_group", "group_scatter_add", "ball_group", "fps", "knn")
-# the profiler's names of the kernels whose device time a denoise step and a
-# pipeline is reported (fps_reg_kernel<kCoords, threads, per> and the
-# workspace path's fps_global_kernel<kCoords>): the redesigned three, and #2
-# and #4, the next candidates
+# the profiler's names of the kernels whose device time a denoise step, a
+# pipeline and a training step is reported (fps_reg_kernel<kCoords, threads,
+# per> and the workspace path's fps_global_kernel<kCoords>;
+# group_scatter_add_kernel<float> and <__nv_bfloat16>)
 PROFILED_KERNELS = {
     "fps": ("fps_reg_kernel<true", "fps_global_kernel<true"),
     "fps_idx": ("fps_reg_kernel<false", "fps_global_kernel<false"),
@@ -235,6 +256,8 @@ PROFILED_KERNELS = {
     "ball_group": ("ball_group_kernel",),
     "knn": ("knn_kernel",),
     "knn_group": ("knn_group_kernel",),
+    "ball_query_group": ("ball_query_group_kernel",),
+    "group_scatter_add": ("group_scatter_add_kernel",),
 }
 FPS_SWEEP_N = (1024, 2048, 3072, 4096, 12288)  # npoint 1024, B = 4
 # the kernels of ancestral coarse generation (phase 3); fps_idx serves
@@ -316,25 +339,36 @@ def format_sums(sums: dict, per: int = 1) -> str:
 
 
 def device_ms(fn, name: str, iters: int = 30) -> float:
-    """Mean device time a launch of kernel ``name`` (PROFILED_KERNELS) over
-    ``iters`` calls of ``fn``, from the profiler: a CUDA-event time of a
+    """Median device time a launch of kernel ``name`` (PROFILED_KERNELS)
+    over ``iters`` calls of ``fn``, from the profiler: a CUDA-event time of a
     small kernel would measure its wrapper's host time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    ms, n = kernel_sums(prof.key_averages())[name]
     # the trace on the card can miss device records of a window (3 of 30
-    # and 5 of 10 seen), so the mean is over the launches it saw
+    # and 5 of 10 seen, and once all 10) and keep some too short (a mean of
+    # 21 seen read half the kernel's time), so the median is over the
+    # launches it saw, and a window that saw none is taken again
+    keys = PROFILED_KERNELS[name]
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sorted(e.time_range.elapsed_us() for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and any(k in e.name for k in keys))
+        if us:
+            break
+        print(f"profiler: no device record of {name} in a window of {iters}", flush=True)
+    n = len(us)
     if not 1 <= n <= iters:
         raise AssertionError(f"profiler saw {n} launches of {name}, not {iters}")
     if n < iters:
         print(f"profiler: {n} of {iters} device records of {name} in its window", flush=True)
-    return ms / n
+    mid = n // 2
+    return (us[mid] if n % 2 else 0.5 * (us[mid - 1] + us[mid])) / 1e3
 
 
 def ball_query_row(sup, q, r: float, K: int, name: str) -> dict:
@@ -624,7 +658,9 @@ def check_fps_idx(dev, rng, pick_floor_ms: float):
     return row
 
 
-ROW_EXTRAS = ("latency_floor_ms", "wrapper_ms", "scan_ms", "mean_count")
+ROW_EXTRAS = ("latency_floor_ms", "wrapper_ms", "scan_ms", "mean_count", "ms_bf16_slice",
+              "bound_ms_bf16_slice", "ms_b32", "wrapper_ms_b32", "bound_ms_b32",
+              "ms_bf16_slice_b32")
 
 
 def print_row(r) -> None:
@@ -741,6 +777,102 @@ def avg_max_step(rng, dev) -> dict:
         if counts[name] <= 0:
             raise AssertionError(f"ddpm_avg_max: kernel {name} was not launched")
     return counts
+
+
+def wide_ball_step(cond, label, dev) -> None:
+    """Phase 4c: ``DEFAULT_POINTNET_CONFIG`` with nsample 96 (radius 0.5) at
+    level 0 of the x_t set abstraction and of the feature-transfer pair, in
+    bf16 at full width: one denoise step with ``fused=True`` (both take the
+    fused ball group at K = 96, past its 64-slot pass) through the kernels
+    against ``plain_ops()``."""
+    import copy
+
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.config import DEFAULT_POINTNET_CONFIG
+    from point_diffusion_refinement_tpu_torch.models import PointNet2CloudCondition
+    from point_diffusion_refinement_tpu_torch.ops import kernels
+
+    cfg = copy.deepcopy(dict(DEFAULT_POINTNET_CONFIG))
+    cfg["compute_dtype"] = "bfloat16"
+    cfg["architecture"]["nsample"][0] = 96
+    cfg["architecture"]["radius"][0] = 0.5
+    fm = cfg["feature_mapper_architecture"]
+    fm["encoder_nsample"][0] = fm["decoder_nsample"][0] = 96
+    fm["encoder_radius"][0] = fm["decoder_radius"][0] = 0.5
+    model = PointNet2CloudCondition.from_config(cfg, device="cuda", seed=4)
+    B = cond.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    x = torch.randn(B, 2048, 3, generator=gen, device=dev)
+    ts = torch.full((B,), 5.0, device=dev)
+    _, centres = ops.furthest_point_sample_and_gather(x, 1024)
+    _, n = ops.ball_query(x, centres, 0.5, 96)
+    with torch.no_grad():
+        cf = model.encode_condition(cond)
+        ops.reset_launch_counts()
+        y_k = model.denoise(x, ts, label, cf, fused=True).float()
+        torch.cuda.synchronize()
+        launched = ops.launch_counts()["ball_group"]
+        with kernels.plain_ops():
+            y_p = model.denoise(x, ts, label, model.encode_condition(cond), fused=True).float()
+    rel = float((y_k - y_p).norm() / y_p.norm())
+    print(f"nsample 96 at level 0: denoise step B={B} ball_group launches={launched}, "
+          f"x_t SA0 balls above 64 points={float((n > 64).float().mean()):.3f} "
+          f"full={float((n == 96).float().mean()):.3f}; kernels vs plain rel_err={rel:.3g} "
+          f"(tol {DENOISE_REL_TOL}) finite={bool(torch.isfinite(y_k).all())}", flush=True)
+    if launched < 2 or not bool((n > 64).any()):
+        raise AssertionError("nsample 96: the fused ball group ran no ball past 64 points")
+    if not (rel <= DENOISE_REL_TOL and bool(torch.isfinite(y_k).all())):
+        raise AssertionError("nsample 96: the denoise step through the kernels disagrees")
+
+
+def check_any_nsample(dev) -> None:
+    """Phase 10: kernels #2 and #8 past their 64-slot pass, bit-equal to
+    their plain versions: #2 at K = 96 and 160 (both empty modes, two tables
+    and one, with and without the centre channels), #8 at K = 160 and at
+    K > N; idx and counts equal the ball-query kernel's."""
+    from point_diffusion_refinement_tpu_torch import ops
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    sup = torch.rand(4, 3072, 3, generator=gen, device=dev) * 2 - 1
+    q = torch.rand(4, 1000, 3, generator=gen, device=dev) * 2 - 1
+    q[:, ::7] += 5.0  # empty balls
+    tabs = [torch.randn(4, 3072, 4, generator=gen, device=dev),
+            torch.randn(4, 3072, 32, generator=gen, device=dev)]
+    table = torch.randn(4, 3072, 35, generator=gen, device=dev)
+    seen = []
+    for K in (96, 160):
+        qi, qn = ops.ball_query(sup, q, 0.5, K)
+        for mode in ("center_zero", "row0"):
+            for t in (tabs, tabs[1:]):
+                for center in (False, True):
+                    outs, n, i = ops.ball_group(sup, t, q, 0.5, K, center, mode, return_idx=True)
+                    routs, rn, ri = ops.ball_group_plain(sup, t, q, 0.5, K, center, mode,
+                                                         return_idx=True)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(n, rn) and torch.equal(i, ri) and torch.equal(n, qn)
+                            and torch.equal(i, qi)
+                            and all(torch.equal(o, r) for o, r in zip(outs, routs))):
+                        raise AssertionError(f"ball_group K={K} {mode}: differs from plain")
+        seen.append(qn)
+    small = sup[:, :40].contiguous()
+    for s_, K, r in ((sup, 160, 0.5), (small, 64, 1.0), (small, 160, 9.0)):
+        g, i, n = ops.ball_query_group(s_, q, table[:, :s_.shape[1]].contiguous(), r, K)
+        rg, ri, rn = ops.ball_query_group_plain(s_, q, table[:, :s_.shape[1]], r, K)
+        qi, qn = ops.ball_query(s_, q, r, K)
+        torch.cuda.synchronize()
+        if not (torch.equal(g, rg) and torch.equal(i, ri) and torch.equal(n, rn)
+                and torch.equal(i, qi) and torch.equal(n, qn)):
+            raise AssertionError(f"ball_query_group N={s_.shape[1]} K={K}: differs from plain")
+        seen.append(n)
+    n = torch.cat([c.flatten() for c in seen])
+    if not (bool((n == 0).any()) and bool(((n > 64) & (n < 160)).any())
+            and bool((n == 160).any())):
+        raise AssertionError("any nsample: the cases hold no empty, no 65..159 or no full ball")
+    print("kernels ball_group (K=96, 160; both modes, 1 and 2 tables, centre on and off) and "
+          "ball_query_group (K=160; K=64 and 160 > N=40) equal to plain and to ball_query",
+          flush=True)
 
 
 def preprocess(rng) -> None:
@@ -1401,7 +1533,7 @@ def accelerated_inference(model, cf, x, ts, label, rng, dev):
 
     counts = pipeline(model, rng, dev, tag="pipeline with variants", **on)
     compare_variants("denoise step B=4", denoise)
-    variant_costs("denoise step B=4", denoise, 10, 3)
+    variant_costs("denoise step B=4", denoise, 5, 3)
     return rows, counts
 
 
@@ -1421,7 +1553,7 @@ def refine_variants(rng, dev) -> None:
 
     compare_variants("refine forward B=32", forward)
 
-    variant_costs("refine forward B=32", forward, 5, 1)
+    variant_costs("refine forward B=32", forward, 3, 1)
     with torch.no_grad():
         encode_ms = time_ms(lambda: model.encode_condition(cond), 3, 1)
         shipped_ms = time_ms(lambda: model(coarse, cond, None, label), 3, 1)
@@ -1434,7 +1566,7 @@ def check_training_kernels(dev, rng):
     """Phase 10: the kernels of the training routes against their plain
     versions, at the shapes of a training step (B = 4)."""
     from point_diffusion_refinement_tpu_torch import ops
-    from point_diffusion_refinement_tpu_torch.ops import kernels
+    from point_diffusion_refinement_tpu_torch.ops import kernels, neighbors, scatter
 
     B, K = 4, 32
     x_t = torch.from_numpy(rng.standard_normal((B, 2048, 3)).astype(np.float32)).to(dev)
@@ -1466,14 +1598,46 @@ def check_training_kernels(dev, rng):
     if not (seen_empty and seen_full):
         raise AssertionError("ball_query_group: the cases hold no empty or no overfull ball")
     tag, sup, q, table, r = cases[0]
-    ms = time_ms(lambda: ops.ball_query_group(sup, q, table, r, K), 20)
-    plain_ms = time_ms(lambda: ops.ball_query_group_plain(sup, q, table, r, K), 5)
+    # the same level at the training batch, B = 32
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    sup32 = torch.rand(TRAIN_BATCH, 3072, 3, generator=gen, device=dev) - 0.5
+    q32 = torch.randn(TRAIN_BATCH, 2048, 3, generator=gen, device=dev)
+    table32 = torch.randn(TRAIN_BATCH, 3072, table.shape[-1], generator=gen, device=dev)
+    timed = {}
+    for b, (s_, q_, t_) in ((B, (sup, q, table)), (TRAIN_BATCH, (sup32, q32, table32))):
+        # every queries-a-warp choice, bit-equal to plain, the wrapper's marked *
+        rg, ri, rn = ops.ball_query_group_plain(s_, q_, t_, r, K)
+        cells = []
+        g = torch.empty(b, q_.shape[1], K, t_.shape[-1], device=dev)
+        idx = torch.empty(b, q_.shape[1], K, dtype=torch.int32, device=dev)
+        cnt = torch.empty(b, q_.shape[1], dtype=torch.int32, device=dev)
+        for qpw in (1, 2, 4, 8):
+            run = lambda: neighbors._gather_launch(s_, q_, t_, r, g, idx, cnt, qpw)
+            run()
+            torch.cuda.synchronize()
+            if not (torch.equal(idx, ri) and torch.equal(cnt, rn) and torch.equal(g, rg)):
+                raise AssertionError(f"ball_query_group: {qpw} queries a warp differ from plain "
+                                     f"at B={b}")
+            star = ("*" if qpw == neighbors.gather_queries_per_warp(b, q_.shape[1], s_.shape[1])
+                    else "")
+            cells.append(f"{qpw}{star} ms={device_ms(run, 'ball_query_group'):.4f}")
+        print(f"ball_query_group FT0 B={b} queries a warp, equal to plain: {'; '.join(cells)}",
+              flush=True)
+        del rg, ri, rn
+        run = lambda: ops.ball_query_group(s_, q_, t_, r, K)
+        timed[b] = (device_ms(run, "ball_query_group"), time_ms(run, 20),
+                 bound(nbytes(s_, q_, t_, g, idx, cnt),
+                       9.0 * scanned_pairs(idx, cnt, s_.shape[1])))
+        del g
     g, idx, cnt = ops.ball_query_group(sup, q, table, r, K)
-    b_ms, b_by = bound(nbytes(sup, q, table, g, idx, cnt),
-                       9.0 * scanned_pairs(idx, cnt, sup.shape[1]))
+    plain_ms = time_ms(lambda: ops.ball_query_group_plain(sup, q, table, r, K), 5)
+    (ms, wrapper_ms, (b_ms, b_by)), (ms32, wrapper_ms32, (b_ms32, _)) = (
+        timed[B], timed[TRAIN_BATCH])
     rows.append(dict(name="ball_query_group", shape="FT0 sup (4,3072) q (4,2048) K=32 C=3+32",
                      max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=None))
+                     bound_by=b_by, library_ms=None, wrapper_ms=wrapper_ms, ms_b32=ms32,
+                     wrapper_ms_b32=wrapper_ms32, bound_ms_b32=b_ms32))
 
     # -- the fused group's idx output against the ball-query kernel
     for mode in ("center_zero", "row0"):
@@ -1496,20 +1660,59 @@ def check_training_kernels(dev, rng):
             if not err <= SCATTER_REL_TOL * float(ref.abs().max()):
                 raise AssertionError(f"group_scatter_add {dtype}: differs by {err}")
             worst = max(worst, err)
-    dg = torch.randn(B, M, K, C, device=dev)
-    ms = time_ms(lambda: ops.group_scatter_add(dg, idx, N), 20)
-    ms_bf16 = time_ms(lambda: ops.group_scatter_add(dg.to(torch.bfloat16), idx, N), 20)
-    plain_ms = time_ms(lambda: ops.group_scatter_add_plain(dg, idx, N), 5)
-    flat = (idx.long() + torch.arange(B, device=dev)[:, None, None] * N).reshape(-1)
-    vals = dg.reshape(-1, C)
-    acc = torch.zeros(B * N, C, device=dev)
-    lib_ms = time_ms(lambda: acc.zero_().index_add_(0, flat, vals), 20)
-    b_ms, b_by = bound(nbytes(dg, idx) + B * N * C * 4, float(dg.numel()))
+    # times: float32 cotangents of the gather, and a bf16 channel slice of a
+    # wider grouped row (ld = C + 9, as ball_group_train's backward passes
+    # it), at B = 4 and at the training batch; the cast is not timed
+    _, idx32, _ = ops.ball_query_group(sup32, q32, table32, r, K)
+    timed = {}
+    for b, ix in ((B, idx), (TRAIN_BATCH, idx32)):
+        dg = torch.randn(b, M, K, C, generator=gen, device=dev)
+        wide = torch.randn(b, M, K, C + 9, generator=gen, device=dev).to(torch.bfloat16)
+        sl = wide[..., :C]
+        for d in (dg, sl):
+            out = ops.group_scatter_add(d, ix, N)
+            ref = ops.group_scatter_add_plain(d, ix, N)
+            scale = ops.group_scatter_add_plain(d.abs(), ix, N)
+            torch.cuda.synchronize()
+            excess = (out - ref).abs() - (SCATTER_ABS_REL_TOL * scale + SCATTER_ABS_FLOOR)
+            if not float(excess.max()) <= 0.0:
+                at = tuple(int(v) for v in torch.nonzero(excess == excess.max())[0])
+                raise AssertionError(
+                    f"group_scatter_add B={b} {d.dtype}: differs by {float((out - ref)[at])} "
+                    f"at {at}, its sum of magnitudes {float(scale[at])}")
+            del out, ref, scale, excess
+        # every balls-a-thread choice, the wrapper's marked *
+        for d in (dg, sl):
+            bpt = scatter.scatter_balls_per_thread(b * M, C, N)
+            cells = []
+            for n_b in (1, 2, 4, 8):
+                ms_c = device_ms(lambda: scatter._scatter_launch(d, d.stride(2), ix, N, None, n_b),
+                                 "group_scatter_add")
+                cells.append(f"{n_b}{'*' if n_b == bpt else ''} ms={ms_c:.4f}")
+            print(f"group_scatter_add FT0 B={b} {str(d.dtype).split('.')[-1]} ld={d.stride(2)} "
+                  f"balls a thread: {'; '.join(cells)}", flush=True)
+        run = lambda: ops.group_scatter_add(dg, ix, N)
+        timed[b] = (device_ms(run, "group_scatter_add"), time_ms(run, 20),
+                 device_ms(lambda: ops.group_scatter_add(sl, ix, N), "group_scatter_add"),
+                 bound(nbytes(dg, ix) + b * N * C * 4, float(dg.numel())),
+                 bound(nbytes(dg, ix) // 2 + b * N * C * 4 + ix.numel() * 2,
+                       float(dg.numel()))[0])
+        if b == B:
+            plain_ms = time_ms(lambda: ops.group_scatter_add_plain(dg, ix, N), 5)
+            flat = (ix.long() + torch.arange(B, device=dev)[:, None, None] * N).reshape(-1)
+            vals = dg.reshape(-1, C)
+            acc = torch.zeros(B * N, C, device=dev)
+            lib_ms = time_ms(lambda: acc.zero_().index_add_(0, flat, vals), 20)
+        del dg, wide, sl
+    (ms, wrapper_ms, ms_sl, (b_ms, b_by), b_sl), (ms32, wrapper_ms32, ms_sl32, (b_ms32, _),
+                                                  _) = timed[B], timed[TRAIN_BATCH]
     rows.append(dict(name="group_scatter_add", shape="dg (4,2048,32,35) f32 -> (4,3072,35)",
                      max_abs_err=worst, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=b_by, library_ms=lib_ms))
-    print(f"kernel group_scatter_add with a bfloat16 cotangent (cast included): "
-          f"ms={ms_bf16:.4f}", flush=True)
+                     bound_by=b_by, library_ms=lib_ms, wrapper_ms=wrapper_ms,
+                     ms_bf16_slice=ms_sl, bound_ms_bf16_slice=b_sl, ms_b32=ms32,
+                     wrapper_ms_b32=wrapper_ms32,
+                     bound_ms_b32=b_ms32, ms_bf16_slice_b32=ms_sl32))
+    del sup32, q32, table32, idx32
 
     # -- ball_group_train: gradients to features, support and queries against
     #    autograd through the plain version (x_t SA level 0: 1024 centres)
@@ -1630,12 +1833,12 @@ def check_trained(tag: str, result, fresh_model, counts) -> None:
             raise AssertionError(f"{tag}: parameter {name} did not move")
 
 
-def compare_routes(tag: str, model, loss_for, step_for, state, batch_size: int) -> None:
+def compare_routes(tag: str, model, loss_for, step_for, state, batch_size: int) -> dict:
     """Step time of both routes (on, off, off, on), the gradients of the
     fused routes against the unfused ones at one state and one draw, one
     step through the kernels against one under ``plain_ops()``, and a
-    profile of one step of each route (device time; the op table for the
-    fused routes)."""
+    profile of one step of each route (device time; the op table and the
+    device ms of PROFILED_KERNELS for the fused routes, which it returns)."""
     from point_diffusion_refinement_tpu_torch.ops import kernels
 
     times = {True: [], False: []}
@@ -1679,7 +1882,89 @@ def compare_routes(tag: str, model, loss_for, step_for, state, batch_size: int) 
     del g_on, g_off, g_p
     profile_window(f"{tag} steps at B={batch_size} (unfused)", step_for(False), 1, grad=True,
                    table=False)
-    profile_window(f"{tag} steps at B={batch_size} (fused routes)", step_for(True), 1, grad=True)
+    return profile_window(f"{tag} steps at B={batch_size} (fused routes)", step_for(True), 1,
+                          grad=True, kernels=f"a {tag} step (fused routes)")
+
+
+def launch_shapes(step, batch: int) -> None:
+    """Phase 11: every shape kernels #8 and B are launched at in one training
+    step, by spies on their wrappers (as check_denoise_ball_queries does):
+    (B, N, M, K, C) of #8 and (B, N, M, K, C, dtype, ld, masked) of B, the
+    launches of each, and the profiler's device ms a launch, replayed on
+    copies of the tensors the step gave it (a channel slice keeps its row
+    stride).  The spies must see every launch of the step."""
+    import importlib
+
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.models import grouping
+    from point_diffusion_refinement_tpu_torch.ops import neighbors, scatter
+
+    # the module, not the function that ops re-exports under its name
+    ball_group_mod = importlib.import_module("point_diffusion_refinement_tpu_torch.ops.ball_group")
+
+    seen = {}  # (kernel, shape) -> [launches, replay]
+    gather, scatter_add = neighbors.ball_query_group, scatter.group_scatter_add
+
+    def gather_spy(xyz, new_xyz, table, radius, nsample):
+        key = ("ball_query_group",
+               (xyz.shape[0], xyz.shape[1], new_xyz.shape[1], int(nsample), table.shape[-1]))
+        if key not in seen:
+            a, b, t = xyz.clone(), new_xyz.clone(), table.clone()
+            seen[key] = [0, lambda: gather(a, b, t, radius, nsample)]
+        seen[key][0] += 1
+        return gather(xyz, new_xyz, table, radius, nsample)
+
+    def scatter_spy(dg, idx, n_rows, counts=None):
+        B, M, K, C = dg.shape
+        ld = dg.stride(2)
+        key = ("group_scatter_add", (B, n_rows, M, K, C, str(dg.dtype).split(".")[-1], ld,
+                                     counts is not None))
+        if key not in seen:
+            off = dg.storage_offset() % ld
+            wide = torch.empty(B, M, K, ld, dtype=dg.dtype, device=dg.device)
+            d = wide[..., off:off + C]
+            d.copy_(dg)
+            i, n = idx.clone(), counts.clone() if counts is not None else None
+            seen[key] = [0, lambda: scatter_add(d, i, n_rows, n)]
+        seen[key][0] += 1
+        return scatter_add(dg, idx, n_rows, counts)
+
+    spots = ((grouping, "ball_query_group", gather_spy),
+             (grouping, "group_scatter_add", scatter_spy),
+             (ball_group_mod, "group_scatter_add", scatter_spy))
+    saved = [getattr(mod, name) for mod, name, _ in spots]
+    ops.reset_launch_counts()
+    try:
+        for mod, name, spy in spots:
+            setattr(mod, name, spy)
+        step()
+        torch.cuda.synchronize()
+    finally:
+        for (mod, name, _), orig in zip(spots, saved):
+            setattr(mod, name, orig)
+    counts = ops.launch_counts()
+    total, bounds = {}, {}
+    for (kernel, shape), (n, replay) in sorted(seen.items()):
+        ms = device_ms(replay, kernel, iters=10)
+        if kernel == "ball_query_group":  # inputs, gathered rows, idx, counts
+            B, N, M, K, C = shape
+            moved = B * N * (3 + C) * 4 + B * M * 3 * 4 + B * M * K * (C + 1) * 4 + B * M * 4
+        else:  # the slice's values, idx, the result
+            B, N, M, K, C, dtype, _, _ = shape
+            moved = B * M * K * (C * (2 if dtype == "bfloat16" else 4) + 4) + B * N * C * 4
+        b_ms, _ = bound(moved, 0.0)
+        total[kernel] = total.get(kernel, 0.0) + n * ms
+        bounds[kernel] = bounds.get(kernel, 0.0) + n * b_ms
+        print(f"train step launch shape: {kernel} {shape} launches={n} device_ms={ms:.4f} "
+              f"bound_ms={b_ms:.5f} (bytes)", flush=True)
+    for kernel in ("ball_query_group", "group_scatter_add"):
+        spied = sum(n for (k, _), (n, _) in seen.items() if k == kernel)
+        if spied != counts[kernel]:
+            raise AssertionError(f"launch shapes: the spies saw {spied} launches of {kernel}, "
+                                 f"the step made {counts[kernel]}")
+    print(f"train step launch shapes at B={batch}: device ms a step (launches x replayed "
+          f"device ms) " + " ".join(f"{k}={v:.4f} (bound {bounds[k]:.4f})"
+                                    for k, v in total.items()), flush=True)
 
 
 def ddpm_training(dev, workdir: str):
@@ -1754,8 +2039,8 @@ def ddpm_training(dev, workdir: str):
         step = tr.make_completion_train_step(model, schedule, fused_gather=fused, fused_sa=fused)
         return lambda: step(state, x0, cond, label)
 
-    compare_routes("ddpm train", model, loss_for, step_for, state, B)
-    return counts
+    launch_shapes(step_for(True), B)
+    return counts, compare_routes("ddpm train", model, loss_for, step_for, state, B)
 
 
 def refine_training(dev, workdir: str):
@@ -1847,8 +2132,7 @@ def refine_training(dev, workdir: str):
         step = tr.make_refine_train_step(model, fused_gather=fused, fused_sa=fused, **opts)
         return lambda: step(state, *batch, osf)
 
-    compare_routes("refine train", model, loss_for, step_for, state, B)
-    return counts
+    return counts, compare_routes("refine train", model, loss_for, step_for, state, B)
 
 
 def main() -> int:
@@ -1866,6 +2150,11 @@ def main() -> int:
     from point_diffusion_refinement_tpu_torch.sample import make_coarse_sampler
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    def at(phase: str) -> None:
+        print(f"at {time.perf_counter() - t_start:.1f} s: {phase}", flush=True)
+
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
@@ -1875,6 +2164,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
           + ", ".join(f"{k}={v:.1f}s" for k, v in took.items()), flush=True)
 
+    at("2 kernels vs plain")
     # 2. kernels vs plain versions
     rng = np.random.default_rng(0)
     pick_floor_ms = fps_sweep(dev, rng)
@@ -1891,6 +2181,7 @@ def main() -> int:
     label = torch.zeros(B, dtype=torch.int64, device=dev)
     check_denoise_ball_queries(model, cond, label, dev)
 
+    at("3 main path")
     # 3. the main path at full width
     T = STEPS
     schedule = calc_diffusion_hyperparams(T, 1e-4, 0.02)
@@ -1934,6 +2225,7 @@ def main() -> int:
         if counts[name] <= 0 or per_step[name] <= 0:
             raise AssertionError(f"kernel {name} was not launched on every denoise step")
 
+    at("4 denoise vs plain")
     # 4. one denoise step, kernels vs plain versions on the card
     x = torch.randn(B, 2048, 3, generator=gen, device=dev)
     ts = torch.full((B,), float(T // 2), device=dev)
@@ -1947,10 +2239,13 @@ def main() -> int:
     if not rel <= DENOISE_REL_TOL:
         raise AssertionError("denoise step through the kernels disagrees with the plain path")
 
+    wide_ball_step(cond, label, dev)
+
     kernel_ms = {"per_denoise_step_ms": profile_window(
         "denoise steps", lambda: model.denoise(x, ts, label, cf, fused=True),
         kernels="a denoise step")}
 
+    at("4b-9")
     path_counts = {"ddpm_avg_max_step": avg_max_step(rng, dev)}
     preprocess(rng)
     kernel_ms["per_pipeline_ms"] = {}
@@ -1959,6 +2254,7 @@ def main() -> int:
     refine_at_batch(rng, dev)
     evaluation_cost(rng, dev)
 
+    at("13 inference variants")
     # 13. the accelerated inference configuration
     variant_rows, path_counts["pipeline_variants"] = accelerated_inference(
         model, cf, x, ts, label, rng, dev)
@@ -1966,15 +2262,22 @@ def main() -> int:
     refine_variants(rng, dev)
     del model, cf, cf_p, sampler, short
 
+    at("10 training kernels")
     # 10-12. training
+    check_any_nsample(dev)
     rows += check_training_kernels(dev, rng)
     workdir = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        path_counts["ddpm_train"] = ddpm_training(dev, workdir)
-        path_counts["refine_train"] = refine_training(dev, workdir)
+        at("11 ddpm training")
+        path_counts["ddpm_train"], kernel_ms["per_ddpm_train_step_ms"] = ddpm_training(
+            dev, workdir)
+        at("12 refine training")
+        path_counts["refine_train"], kernel_ms["per_refine_train_step_ms"] = refine_training(
+            dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    at("14 report")
     # 14. report
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
@@ -1994,7 +2297,7 @@ def main() -> int:
             "library_ms": r["library_ms"],
             # the whole fused pool at the row's site beside the unfused pool
             **{k: v for k, v in r.items() if k.startswith("pool_")},
-            **{k: r[k] for k in ("latency_floor_ms", "wrapper_ms", "scan_ms") if k in r},
+            **{k: r[k] for k in ROW_EXTRAS if k in r},
             **{k: v[LAUNCH_NAMES[r["name"]]] for k, v in kernel_ms.items()
                if LAUNCH_NAMES[r["name"]] in v},
         })

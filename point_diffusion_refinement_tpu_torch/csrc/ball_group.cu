@@ -28,16 +28,12 @@
 //
 // Design: one warp a query, kWarps warps a block, each warp taking
 // `qpw` queries of one batch row in turn.
-// - Scan: the block stages its batch row of the support in shared memory as
-//   x / y / z arrays padded with +inf to a multiple of 32 * kPer (up to
-//   kMaxStaged points; a larger support is read from global memory).  A
-//   lane tests kPer points a step (lane, lane + 32, ...), so a step covers
-//   32 * kPer points in index order; one __any_sync skips the hit
-//   bookkeeping (a ballot, a popcount prefix and a slot store for each of
-//   the kPer sub-steps) on the common step without a hit.  The scan stops
-//   at the end of the step in which the count reaches K.  This scan is the
-//   fused group's own: the ball query (#3) and the fused ball query +
-//   gather (#8) keep common.cuh's, and all three give the same idx.
+// - Scan: ball_scan.cuh's staged scan (support in shared memory as x / y / z
+//   arrays, kScanPer points a lane a step, the hit bookkeeping behind one
+//   __any_sync), shared with the fused ball query + gather (#8).  Any
+//   nsample: the scan runs in passes of kPass slots, each pass resuming at
+//   the step where the last one stopped, and each pass's slots are written
+//   before the next pass scans.
 // - Write: the warp resolves each slot's source row once and writes its
 //   position channels, rounded to bf16, to a per-warp table in shared
 //   memory.  Then, for each table and each group of 8 slots, it assembles
@@ -54,72 +50,24 @@
 
 #include <cstdint>
 
-#include "common.cuh"
+#include "ball_scan.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
-constexpr int kMaxK = 64;
-constexpr int kPer = 4;  // points a lane tests a scan step
-constexpr int kStep = 32 * kPer;
-constexpr int kMaxStaged = 8192;  // support points staged in shared memory
+constexpr int kPass = 64;  // slots a warp holds: the scan's pass
 constexpr int kGroupSlots = 8;  // slots assembled in the buffer at a time
 constexpr int kPosCols = 9;
 
 typedef unsigned short bf16_bits;
 
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
-
 // per-warp shared memory: slots, source rows, position channels, buffer
 __host__ __device__ inline int warp_bytes(int buf_elems) {
-  return 2 * kMaxK * 4 + kMaxK * kPosCols * 2 + buf_elems * 2;
+  return 2 * kPass * 4 + kPass * kPosCols * 2 + buf_elems * 2;
 }
 
 __host__ __device__ inline int buf_elems(int cout_max) {
-  return round_up(kGroupSlots * cout_max + 8, 8);
-}
-
-// the first <= K support points in the ball, in index order, into slots;
-// returns the count capped at K (slots visible to the whole warp)
-template <bool kStaged>
-__device__ __forceinline__ int ball_scan(const float* sx, const float* sy, const float* sz,
-                                         const float* __restrict__ pts, int N, int end,
-                                         float qx, float qy, float qz, float r2, int K,
-                                         int* slots, int lane) {
-  const unsigned below = (1u << lane) - 1u;
-  int cnt = 0;
-  for (int base = 0; base < end && cnt < K; base += kStep) {
-    unsigned hits = 0u;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int n = base + 32 * j + lane;
-      float x, y, z;
-      if (kStaged) {  // padded with +inf: never in the ball
-        x = sx[n];
-        y = sy[n];
-        z = sz[n];
-      } else if (n < N) {
-        x = __ldg(pts + 3 * n);
-        y = __ldg(pts + 3 * n + 1);
-        z = __ldg(pts + 3 * n + 2);
-      } else {
-        x = y = z = INFINITY;
-      }
-      hits |= static_cast<unsigned>(pdr_sqdist3(x, y, z, qx, qy, qz) < r2) << j;
-    }
-    if (__any_sync(PDR_FULL_MASK, hits != 0u)) {
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const bool hit = (hits >> j) & 1u;
-        const unsigned bal = __ballot_sync(PDR_FULL_MASK, hit);
-        const int rank = cnt + __popc(bal & below);
-        if (hit && rank < K) slots[rank] = base + 32 * j + lane;
-        cnt += __popc(bal);
-      }
-    }
-  }
-  __syncwarp();
-  return min(cnt, K);
+  return pdr_round_up(kGroupSlots * cout_max + 8, 8);
 }
 
 // w consecutive bf16 of a table row into buf (w = 8, 4, 2 or 1; src < 0
@@ -150,17 +98,18 @@ __device__ __forceinline__ void copy_vec(const bf16_bits* __restrict__ row, int 
   }
 }
 
-// one table's K * cout output row of one query
+// slots [k_lo, k_hi) of one table's K * cout output row of one query
+// (srcs and pos hold those slots, from index 0)
 __device__ __forceinline__ void write_table(const bf16_bits* __restrict__ tab, int C, int w,
                                             bf16_bits* __restrict__ out, size_t row_start,
                                             const int* srcs, const bf16_bits* pos, int pc,
-                                            bf16_bits* buf, int K, int lane) {
+                                            bf16_bits* buf, int k_lo, int k_hi, int lane) {
   const int cout = C + pc;
   const int nvec = C / w;
   const int vq = 32 / nvec, vr = 32 % nvec;  // a 32-vector step in (slot, vector)
   const int pq = 32 / pc, pr = 32 % pc;  // a 32-element step in (slot, channel)
-  for (int k0 = 0; k0 < K; k0 += kGroupSlots) {
-    const int ns = min(kGroupSlots, K - k0);
+  for (int k0 = k_lo; k0 < k_hi; k0 += kGroupSlots) {
+    const int ns = min(kGroupSlots, k_hi - k0);
     const size_t g0 = row_start + static_cast<size_t>(k0) * cout;  // first element
     const size_t gbase = g0 & ~static_cast<size_t>(7);  // buf[0] <-> out[gbase]
     const int off = static_cast<int>(g0 - gbase);
@@ -169,7 +118,7 @@ __device__ __forceinline__ void write_table(const bf16_bits* __restrict__ tab, i
     {
       int s = lane / nvec, v = lane - (lane / nvec) * nvec;
       while (s < ns) {
-        const int src = srcs[k0 + s];
+        const int src = srcs[k0 - k_lo + s];
         const bf16_bits* row =
             src >= 0 ? tab + static_cast<size_t>(src) * C + v * w : nullptr;
         copy_vec(row, w, buf + off + s * cout + v * w);
@@ -185,7 +134,7 @@ __device__ __forceinline__ void write_table(const bf16_bits* __restrict__ tab, i
     {
       int s = lane / pc, p = lane - (lane / pc) * pc;
       while (s < ns) {
-        buf[off + s * cout + C + p] = pos[(k0 + s) * kPosCols + p];
+        buf[off + s * cout + C + p] = pos[(k0 - k_lo + s) * kPosCols + p];
         s += pq;
         p += pr;
         if (p >= pc) {
@@ -223,24 +172,17 @@ ball_group_kernel(const float* __restrict__ support, const float* __restrict__ q
   const int lane = threadIdx.x & 31;
   const int b = blockIdx.y;
   const float* pts = support + static_cast<size_t>(b) * N * 3;
-  const int npad = round_up(N, kStep);
+  const int npad = pdr_round_up(N, kScanStep);
   float* sx = reinterpret_cast<float*>(smem);
   float* sy = sx + npad;
   float* sz = sy + npad;
   unsigned char* mine = smem + (kStaged ? 3 * npad * 4 : 0) + warp * warp_bytes(buf_len);
   int* slots = reinterpret_cast<int*>(mine);
-  int* srcs = slots + kMaxK;
-  bf16_bits* pos = reinterpret_cast<bf16_bits*>(srcs + kMaxK);
-  bf16_bits* buf = pos + kMaxK * kPosCols;
+  int* srcs = slots + kPass;
+  bf16_bits* pos = reinterpret_cast<bf16_bits*>(srcs + kPass);
+  bf16_bits* buf = pos + kPass * kPosCols;
 
-  if (kStaged) {
-    for (int f = threadIdx.x; f < 3 * npad; f += blockDim.x) {
-      const int i = f / 3;
-      const int c = f - 3 * i;
-      (c == 0 ? sx : c == 1 ? sy : sz)[i] = f < 3 * N ? pts[f] : INFINITY;
-    }
-    __syncthreads();
-  }
+  if (kStaged) pdr_stage_support(pts, N, sx, sy, sz);
 
   const bool center_zero = empty_mode == 0;
   const int pc = include_center ? 9 : 6;
@@ -252,46 +194,55 @@ ball_group_kernel(const float* __restrict__ support, const float* __restrict__ q
     const float qx = queries[qrow * 3];
     const float qy = queries[qrow * 3 + 1];
     const float qz = queries[qrow * 3 + 2];
-    const int cnt = ball_scan<kStaged>(sx, sy, sz, pts, N, kStaged ? npad : N, qx, qy, qz,
-                                       r2, K, slots, lane);
-    if (lane == 0) counts[qrow] = cnt;
-    const int first = cnt > 0 ? slots[0] : 0;
-    // each slot's source row (-1: an empty ball under center_zero) and its
-    // position channels
-    for (int k = lane; k < K; k += 32) {
-      const int nbr = k < cnt ? slots[k] : first;
-      if (idx != nullptr) idx[qrow * K + k] = nbr;
-      const int src = (cnt == 0 && center_zero) ? -1 : nbr;
-      srcs[k] = src;
-      float ax = qx, ay = qy, az = qz;
-      if (src >= 0) {
-        if (kStaged) {
-          ax = sx[src];
-          ay = sy[src];
-          az = sz[src];
-        } else {
-          ax = pts[3 * src];
-          ay = pts[3 * src + 1];
-          az = pts[3 * src + 2];
+    PdrScanState st;
+    int cnt = 0, first = 0;
+    bool done = false;
+    for (int lo = 0; lo < K; lo += kPass) {
+      const int hi = min(K, lo + kPass);
+      if (!done) {
+        cnt = pdr_ball_scan_pass<kStaged>(sx, sy, sz, pts, N, qx, qy, qz, r2, lo, hi, slots,
+                                          lane, st);
+        if (lo == 0 && cnt > 0) first = slots[0];
+        done = cnt < hi;  // else the next pass resumes the scan
+      }
+      // each slot's source row (-1: an empty ball under center_zero) and its
+      // position channels
+      for (int k = lo + lane; k < hi; k += 32) {
+        const int nbr = k < cnt ? slots[k - lo] : first;
+        if (idx != nullptr) idx[qrow * K + k] = nbr;
+        const int src = (cnt == 0 && center_zero) ? -1 : nbr;
+        srcs[k - lo] = src;
+        float ax = qx, ay = qy, az = qz;
+        if (src >= 0) {
+          if (kStaged) {
+            ax = sx[src];
+            ay = sy[src];
+            az = sz[src];
+          } else {
+            ax = pts[3 * src];
+            ay = pts[3 * src + 1];
+            az = pts[3 * src + 2];
+          }
+        }
+        const float v[kPosCols] = {__fsub_rn(ax, qx), __fsub_rn(ay, qy), __fsub_rn(az, qz),
+                                   ax, ay, az, qx, qy, qz};
+#pragma unroll
+        for (int p = 0; p < kPosCols; ++p) {
+          pos[(k - lo) * kPosCols + p] = __bfloat16_as_ushort(__float2bfloat16_rn(v[p]));
         }
       }
-      const float v[kPosCols] = {__fsub_rn(ax, qx), __fsub_rn(ay, qy), __fsub_rn(az, qz),
-                                 ax, ay, az, qx, qy, qz};
-#pragma unroll
-      for (int p = 0; p < kPosCols; ++p) {
-        pos[k * kPosCols + p] = __bfloat16_as_ushort(__float2bfloat16_rn(v[p]));
+      __syncwarp();
+      if (out0 != nullptr) {
+        write_table(tab0 + nb * C0, C0, w0, out0, qrow * K * (C0 + pc), srcs, pos, pc, buf,
+                    lo, hi, lane);
+        if (tab1 != nullptr) {
+          write_table(tab1 + nb * C1, C1, w1, out1, qrow * K * (C1 + pc), srcs, pos, pc,
+                      buf, lo, hi, lane);
+        }
       }
+      __syncwarp();  // slots, srcs and pos are rewritten by the next pass
     }
-    __syncwarp();
-    if (out0 != nullptr) {
-      write_table(tab0 + nb * C0, C0, w0, out0, qrow * K * (C0 + pc), srcs, pos, pc, buf,
-                  K, lane);
-      if (tab1 != nullptr) {
-        write_table(tab1 + nb * C1, C1, w1, out1, qrow * K * (C1 + pc), srcs, pos, pc,
-                    buf, K, lane);
-      }
-    }
-    __syncwarp();  // slots, srcs and pos are rewritten by the next query
+    if (lane == 0) counts[qrow] = min(cnt, K);
   }
 }
 
@@ -307,24 +258,30 @@ int vec_width(const void* tab, int C) {
 
 }  // namespace
 
+// the dynamic shared memory (bytes) of a launch: the staged support and
+// each warp's slots, position channels and assembly buffer
+extern "C" int pdr_ball_group_smem(int N, int C0, int C1, int include_center) {
+  const int pc = include_center ? 9 : 6;
+  return kWarps * warp_bytes(buf_elems((C1 > C0 ? C1 : C0) + pc)) + pdr_staged_bytes(N);
+}
+
 // support (B, N, 3) f32, queries (B, M, 3) f32, tab0 (B, N, C0) bf16 and an
 // optional tab1 (B, N, C1) bf16 (null when absent) -> out_i (B, M, K, Ci+6|9)
 // bf16, counts (B, M) i32 and, when idx is not null, idx (B, M, K) i32 (the
 // neighbours' original support indices, which the backward scatters by).
-// qpw: queries a warp takes in turn.  K <= 64 (checked by the caller); a
-// null out0 writes counts and idx only.
+// qpw: queries a warp takes in turn; any K >= 1.  A null out0 writes counts
+// and idx only.
 extern "C" int pdr_ball_group(const void* support, const void* queries, int B, int N,
                               int M, int K, float r2, int include_center,
                               int empty_mode, int qpw, const void* tab0, int C0,
                               void* out0, const void* tab1, int C1, void* out1,
                               void* counts, void* idx, void* stream) {
-  if (K < 1 || K > kMaxK || qpw < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (K < 1 || qpw < 1 || M < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int pc = include_center ? 9 : 6;
-  const int blen = buf_elems((tab1 != nullptr && C1 > C0 ? C1 : C0) + pc);
-  const int per_warps = kWarps * warp_bytes(blen);
-  const int staged_bytes = 3 * round_up(N, kStep) * 4;
-  const bool staged = N <= kMaxStaged;
-  const int smem = per_warps + (staged ? staged_bytes : 0);
+  const int c1 = tab1 != nullptr ? C1 : 0;
+  const int blen = buf_elems((c1 > C0 ? c1 : C0) + pc);
+  const bool staged = N <= kScanMaxStaged;
+  const int smem = pdr_ball_group_smem(N, C0, c1, include_center);
   const dim3 grid((M + kWarps * qpw - 1) / (kWarps * qpw), B);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* sup = static_cast<const float*>(support);

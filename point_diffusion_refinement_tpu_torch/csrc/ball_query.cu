@@ -17,14 +17,14 @@
 //
 // Design: one warp per centre, 8 centres of one batch row per block, a grid
 // of (ceil(M / 8), B) blocks (512 at 1024 centres and B = 4).  The warp
-// scans the support with pdr_warp_ball_scan (common.cuh, the scan of the
-// fused ball group and of the fused ball query + gather, so all three give
-// the same idx bit for bit): 32 points a step, a ballot and a popcount
-// prefix place each hit straight into the centre's global idx row, and the
-// scan stops at the first 32-point step in which the count reaches K.  The
-// warp then fills the slots past the count with the first hit.  The support
-// is read through the read-only path: the 8 centres of a block share one
-// batch row, which L1 holds.
+// scans the support with pdr_warp_ball_scan (common.cuh; the fused ball
+// group and the fused ball query + gather share ball_scan.cuh's staged
+// scan, and all three give the same idx bit for bit): 32 points a step, a
+// ballot and a popcount prefix place each hit straight into the centre's
+// global idx row, and the scan stops at the first 32-point step in which
+// the count reaches K.  The warp then fills the slots past the count with
+// the first hit.  The support is read through the read-only path: the 8
+// centres of a block share one batch row, which L1 holds.
 #include "common.cuh"
 
 namespace {

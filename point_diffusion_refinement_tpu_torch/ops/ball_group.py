@@ -23,6 +23,7 @@ agree exactly.)
 
 from __future__ import annotations
 
+import functools
 from typing import List, Sequence, Tuple, Union
 
 import torch
@@ -33,7 +34,6 @@ from .sampling import group_points
 from .scatter import group_scatter_add
 
 EMPTY_MODES = {"center_zero": 0, "row0": 1}
-BALL_GROUP_MAX_K = 64
 # queries each warp of the kernel takes in turn (its block stages the support
 # once for 8 warps x this many queries; chip_smoke.py's phase 2 times 1, 2
 # and 4 at the level-0 feature transfer, where 2 is the fastest)
@@ -110,8 +110,8 @@ def ball_group(
         raise ValueError(f"unknown empty_mode {empty_mode!r}")
     if not 1 <= len(tables) <= 2:
         raise ValueError(f"ball_group takes one or two tables, got {len(tables)}")
-    if not 1 <= nsample <= BALL_GROUP_MAX_K:
-        raise ValueError(f"ball_group kernel needs 1 <= nsample <= {BALL_GROUP_MAX_K}")
+    if nsample < 1:
+        raise ValueError(f"ball_group needs nsample >= 1, got {nsample}")
     support, queries = kernels.as_f32(support), kernels.as_f32(queries)
     B, N, _ = support.shape
     M = queries.shape[1]
@@ -122,6 +122,10 @@ def ball_group(
         kernels.check(t, "ball_group table", torch.bfloat16, (B, N, None))
         if t.shape[-1] < 1:
             raise ValueError("ball_group: a table needs at least one channel")
+    too_wide = _smem_excess(support.device.index, N, tabs[0].shape[-1],
+                            tabs[1].shape[-1] if len(tabs) == 2 else 0, include_center)
+    if too_wide:
+        raise ValueError(f"ball_group: {too_wide}")
     pos_cols = 9 if include_center else 6
     outs = [
         torch.empty((B, M, nsample, t.shape[-1] + pos_cols), dtype=torch.bfloat16,
@@ -135,6 +139,18 @@ def ball_group(
         _launch(support, tabs, queries, radius, nsample, include_center, empty_mode, outs,
                 counts, idx)
     return (outs, counts, idx) if return_idx else (outs, counts)
+
+
+@functools.lru_cache(maxsize=None)
+def _smem_excess(device: int, N: int, C0: int, C1: int, include_center: bool) -> str:
+    """Why a launch at these sizes cannot run on the card, or "" if it can:
+    its dynamic shared memory against what a block may opt in to."""
+    smem = kernels.query("ball_group_smem", N, C0, C1, int(include_center))
+    limit = torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+    if smem <= limit:
+        return ""
+    return (f"tables of {C0} and {C1} channels over a support of {N} points need {smem} "
+            f"bytes of shared memory a block, above {limit}")
 
 
 def _launch(support, tabs, queries, radius, nsample, include_center, empty_mode, outs,

@@ -60,11 +60,11 @@ KERNELS = {
     ),
     "ball_query_group": (
         "ball_query_group.cu", "pdr_ball_query_group",
-        [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P, _P, _P],
+        [_P, _P, _P, _I, _I, _I, _I, _I, _F, _I, _P, _P, _P, _P],
     ),
     "group_scatter_add": (
         "group_scatter.cu", "pdr_group_scatter_add",
-        [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+        [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     ),
     # the three sweeps of the fused attention pool
     "attention_stats": (
@@ -93,6 +93,8 @@ QUERIES = {
     # the row blocks (rows of its partial sums) a sweep of the fused
     # attention pool takes at given sizes
     "attention_row_blocks": ("attention_pool.cu", "pdr_attention_row_blocks", [_I] * 9),
+    # the dynamic shared memory a launch of the fused ball group takes
+    "ball_group_smem": ("ball_group.cu", "pdr_ball_group_smem", [_I] * 4),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

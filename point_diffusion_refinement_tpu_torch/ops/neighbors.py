@@ -91,7 +91,29 @@ def ball_query(
     return idx, counts
 
 
-BALL_QUERY_GROUP_MAX_K = 128
+# centres each warp of the fused ball query + gather takes in turn.  A block
+# stages its support row once for all of its warps' centres, which pays
+# where the support is large: the most of 1, 2, 4, 8 that leaves at least
+# GATHER_POINTS_A_CENTRE support points a centre and still gives a grid of
+# GATHER_MIN_BLOCKS blocks of 8 warps.  On an H100 (80GB HBM3, 700 W) that
+# is the fastest choice, or within 1%, at every shape of a B = 32 DDPM
+# training step and at the level-0 feature transfer at B = 4: 2 there, 8 at
+# B = 32 (support 3072), 2 at a 1024-point support, 1 at 256 and below,
+# where more centres a warp ran up to 5x slower (chip_smoke.py's phase 10
+# times each at the feature transfer).
+GATHER_POINTS_A_CENTRE = 384
+GATHER_MIN_BLOCKS = 512
+GATHER_WARPS = 8
+
+
+def gather_queries_per_warp(B: int, M: int, N: int) -> int:
+    """Centres a warp of ``ball_query_group``'s kernel takes, for B x M
+    centres over a support of N points."""
+    qpw = 1
+    while (qpw < 8 and N >= GATHER_POINTS_A_CENTRE * 2 * qpw
+           and B * -(-M // (GATHER_WARPS * 2 * qpw)) >= GATHER_MIN_BLOCKS):
+        qpw *= 2
+    return qpw
 
 
 def ball_query_group_plain(
@@ -111,8 +133,9 @@ def ball_query_group(
     """Ball query and gather in one kernel: gathered (B, M, nsample, C)
     float32 = table[idx], idx (B, M, nsample) int32 and counts (B, M) int32
     as ``ball_query`` gives them (repeat-first padding, row 0 for an empty
-    ball).  xyz (B, N, 3), new_xyz (B, M, 3), table (B, N, C) float32.  The
-    gathered rows are exact (the TPU kernel keeps ~16 mantissa bits)."""
+    ball; any nsample >= 1, nsample > N included).  xyz (B, N, 3), new_xyz
+    (B, M, 3), table (B, N, C) float32.  The gathered rows are exact (the
+    TPU kernel keeps ~16 mantissa bits)."""
     if kernels.use_plain(xyz):
         return ball_query_group_plain(xyz, new_xyz, table, radius, nsample)
     xyz, new_xyz, table = kernels.as_f32(xyz), kernels.as_f32(new_xyz), kernels.as_f32(table)
@@ -122,20 +145,29 @@ def ball_query_group(
     kernels.check(xyz, "ball_query_group xyz", torch.float32, (None, None, 3))
     kernels.check(new_xyz, "ball_query_group new_xyz", torch.float32, (B, None, 3))
     kernels.check(table, "ball_query_group table", torch.float32, (B, N, None))
-    if not 1 <= nsample <= BALL_QUERY_GROUP_MAX_K:
-        raise ValueError(
-            f"ball_query_group kernel needs 1 <= nsample <= {BALL_QUERY_GROUP_MAX_K}")
+    if nsample < 1:
+        raise ValueError(f"ball_query_group needs nsample >= 1, got {nsample}")
     if C < 1:
         raise ValueError("ball_query_group: the table needs at least one channel")
     gathered = torch.empty((B, M, nsample, C), dtype=torch.float32, device=xyz.device)
     idx = torch.empty((B, M, nsample), dtype=torch.int32, device=xyz.device)
     counts = torch.empty((B, M), dtype=torch.int32, device=xyz.device)
+    if M > 0:
+        _gather_launch(xyz, new_xyz, table, radius, gathered, idx, counts,
+                       gather_queries_per_warp(B, M, N))
+    return gathered, idx, counts
+
+
+def _gather_launch(xyz, new_xyz, table, radius, gathered, idx, counts,
+                   queries_per_warp: int) -> None:
+    """One launch of ``csrc/ball_query_group.cu`` on checked tensors."""
+    B, N, _ = xyz.shape
+    M, nsample, C = gathered.shape[1:]
     kernels.launch(
         "ball_query_group", xyz.data_ptr(), new_xyz.data_ptr(), table.data_ptr(),
-        B, N, M, nsample, C, _radius_sq(radius), gathered.data_ptr(), idx.data_ptr(),
-        counts.data_ptr(),
+        B, N, M, nsample, C, _radius_sq(radius), queries_per_warp, gathered.data_ptr(),
+        idx.data_ptr(), counts.data_ptr(),
     )
-    return gathered, idx, counts
 
 
 # lanes a query of the kNN kernel: enough that B * M * lanes reaches this

@@ -20,7 +20,7 @@ def csrc(tmp_path, monkeypatch):
     return copy
 
 
-@pytest.mark.parametrize("header", ["common.cuh", "knn_select.cuh"])
+@pytest.mark.parametrize("header", ["common.cuh", "knn_select.cuh", "ball_scan.cuh"])
 def test_library_path_changes_with_a_header(csrc, header):
     before = {s: kernels._library_path(s) for s in SOURCES}
     path = csrc / header

@@ -9,7 +9,8 @@ Indices, counts, coordinates, kNN distances and grouped bf16 values must
 be equal: kernel and plain version compute the same separately rounded
 float32 distances and round the same float32 values to bf16.  The
 scatter-add kernel sums float32 with atomics, in an order that changes from
-run to run: it is held to SCATTER_TOL of the largest row sum.  The attention
+run to run: it is held to SCATTER_TOL of the largest row sum (the new
+cases: of each element's own sum of magnitudes).  The attention
 sweeps repeat their plain versions' rounding points but add their float32
 products in another order: statistics are held to STATS_TOL, the pooled
 output to ATTENTION_TOL (a bf16 rounding that flips moves one term by 2^-8).
@@ -20,7 +21,7 @@ import pytest
 import torch
 
 from point_diffusion_refinement_tpu_torch import ops
-from point_diffusion_refinement_tpu_torch.ops import sampling
+from point_diffusion_refinement_tpu_torch.ops import neighbors, sampling, scatter
 
 pytestmark = pytest.mark.cuda
 
@@ -319,6 +320,34 @@ def test_ball_group_widths(dev, K, mode):
     assert seen_full and bool((n == 0).any())
 
 
+@pytest.mark.parametrize("K", [96, 160])
+@pytest.mark.parametrize("mode", ["center_zero", "row0"])
+def test_ball_group_any_nsample(dev, K, mode):
+    """nsample past the kernel's 64-slot pass (the scan resumes where the
+    last pass stopped): balls of 0 to K points and beyond, two tables and
+    one, with and without the centre channels, and a support read from
+    global memory."""
+    rng = np.random.default_rng(K)
+    for N, r in ((1100, 0.8), (9000, 0.4)):
+        x, q = _cloud(rng, 2, N, 3).to(dev), _cloud(rng, 2, 301, 3).to(dev)
+        q[:, ::7] += 3.0  # empty balls
+        tabs = [torch.randn(2, N, 4, device=dev), torch.randn(2, N, 33, device=dev)]
+        seen = []
+        for t in (tabs, tabs[1:]):
+            for center in (False, True):
+                seen.append(_ball_group_agrees(x, t, q, r, K, center, mode))
+        n = torch.cat(seen)
+        assert (n == 0).any() and (n == K).any() and ((n > 64) & (n < K)).any()
+
+
+def test_ball_group_refuses_a_table_too_wide(dev):
+    """What still raises, before launch: a table whose assembly buffers and
+    staged support overflow a block's shared memory (not nsample)."""
+    x = torch.rand(1, 3072, 3, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        ops.ball_group(x, [torch.rand(1, 3072, 1500, device=dev)], x[:, :64], 0.1, 96)
+
+
 @pytest.mark.parametrize("r,expect", [(1e-4, "empty"), (9.0, "full")])
 @pytest.mark.parametrize("mode", ["center_zero", "row0"])
 def test_ball_group_all_empty_and_all_full(dev, r, expect, mode):
@@ -386,6 +415,140 @@ def test_ball_query_group(dev, N, M, K, C, r):
     assert (n == 0).any() and (n == min(K, N)).any()
     assert torch.equal(i, ri) and torch.equal(n, rn) and torch.equal(g, rg)
     assert torch.equal(i, qi) and torch.equal(n, qn)
+
+
+def _gather_agrees(x, c, table, r, K, qpw=None):
+    """Kernel #8 against its plain version and the ball-query kernel: idx,
+    counts and the gathered rows equal (``qpw``: centres a warp, else the
+    wrapper's choice)."""
+    if qpw is None:
+        g, i, n = ops.ball_query_group(x, c, table, r, K)
+    else:
+        g = torch.empty(*c.shape[:2], K, table.shape[-1], device=x.device)
+        i = torch.empty(*c.shape[:2], K, dtype=torch.int32, device=x.device)
+        n = torch.empty(c.shape[:2], dtype=torch.int32, device=x.device)
+        neighbors._gather_launch(x, c, table, r, g, i, n, qpw)
+    rg, ri, rn = ops.ball_query_group_plain(x, c, table, r, K)
+    qi, qn = ops.ball_query(x, c, r, K)
+    assert torch.equal(i, ri) and torch.equal(n, rn) and torch.equal(g, rg)
+    assert torch.equal(i, qi) and torch.equal(n, qn)
+    return n
+
+
+@pytest.mark.parametrize("C", [1, 3, 35, 36, 259, 1030])
+@pytest.mark.parametrize("K", [1, 32, 160])
+def test_ball_query_group_widths(dev, C, K):
+    """Kernel #8 at table widths assembled in groups with an unaligned head
+    and tail (1, 3, 35, 259: 3 slots a group), an aligned one (36), a row
+    too wide for the buffer (1030: one float a lane), and at one slot, a
+    full pass, and three passes; M is no multiple of a block's centres."""
+    rng = np.random.default_rng(C * 1000 + K)
+    x, c = _cloud(rng, 2, 1500, 3).to(dev), _cloud(rng, 2, 301, 3).to(dev)
+    c[:, ::7] += 5.0  # empty balls
+    table = _cloud(rng, 2, 1500, C, lo=-9, hi=9).to(dev)
+    n = _gather_agrees(x, c, table, 0.6, K)
+    assert (n == 0).any() and (n == K).any()
+    if K == 160:
+        assert ((n > 64) & (n < K)).any()
+
+
+@pytest.mark.parametrize("N,M,K,C,B,r", [
+    (16, 100, 160, 35, 2, 1.6),  # K > N, three passes
+    (40, 33, 64, 7, 2, 9.0),  # every ball full at K > N
+    (9000, 70, 32, 35, 2, 0.15),  # a support past the staged limit
+    (9000, 70, 160, 36, 2, 0.4),  # ... with several passes
+    (3072, 2048, 32, 35, 32, 0.1),  # the level-0 feature transfer at B = 32
+])
+def test_ball_query_group_shapes(dev, N, M, K, C, B, r):
+    rng = np.random.default_rng(N + K)
+    x, c = _cloud(rng, B, N, 3).to(dev), _cloud(rng, B, M, 3).to(dev)
+    c[:, ::9] += 50.0  # empty balls
+    table = _cloud(rng, B, N, C, lo=-9, hi=9).to(dev)
+    n = _gather_agrees(x, c, table, r, K)
+    assert (n == 0).any()
+
+
+@pytest.mark.parametrize("qpw", [1, 2, 4, 8])
+def test_ball_query_group_queries_per_warp(dev, qpw):
+    rng = np.random.default_rng(qpw)
+    x, c = _cloud(rng, 4, 3072, 3).to(dev), _cloud(rng, 4, 1000, 3).to(dev)
+    table = _cloud(rng, 4, 3072, 35).to(dev)
+    _gather_agrees(x, c, table, 0.2, 32, qpw)
+
+
+def test_ball_query_group_unaligned_table(dev):
+    """A table view off a 16-byte boundary."""
+    rng = np.random.default_rng(21)
+    x, c = _cloud(rng, 2, 500, 3).to(dev), _cloud(rng, 2, 64, 3).to(dev)
+    for C, shift in ((36, 1), (36, 2), (8, 3)):
+        flat = torch.randn(2 * 500 * C + shift, device=dev)
+        table = flat[shift:].view(2, 500, C)
+        assert table.is_contiguous() and table.data_ptr() % 16 != 0
+        _gather_agrees(x, c, table, 0.3, 32)
+
+
+def _scatter_agrees(dg, idx, N, counts=None, balls_per_thread=None):
+    if balls_per_thread is None:
+        out = ops.group_scatter_add(dg, idx, N, counts)
+    else:
+        out = scatter._scatter_launch(dg, dg.stride(2), idx, N, counts, balls_per_thread)
+    ref = ops.group_scatter_add_plain(dg, idx, N, counts)
+    # each element against its own sum of magnitudes, the scale of a
+    # reordered float32 sum's rounding error
+    scale = ops.group_scatter_add_plain(dg.abs(), idx, N, counts)
+    assert out.dtype == torch.float32 and out.shape == (dg.shape[0], N, dg.shape[-1])
+    assert bool(((out - ref).abs() <= SCATTER_TOL * scale + 1e-12).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("K", [1, 32, 160])
+def test_group_scatter_add_slices(dev, dtype, masked, K):
+    """Slices of a wider grouped row at offset 0 and at odd and even channel
+    offsets (ld != C), and K = 1, 32 and 160 slots."""
+    rng = np.random.default_rng(K)
+    B, N, M = 2, 700, 300
+    x, c = _cloud(rng, B, N, 3).to(dev), _cloud(rng, B, M, 3).to(dev)
+    c[:, ::5] += 5.0  # empty balls: every slot is row 0
+    idx, counts = ops.ball_query(x, c, 0.5, K)
+    wide = torch.randn(B, M, K, 80, device=dev).to(dtype)
+    for lo, C in ((0, 32), (1, 32), (2, 32), (3, 35), (8, 64), (0, 3), (5, 1)):
+        _scatter_agrees(wide[..., lo:lo + C], idx, N, counts if masked else None)
+    _scatter_agrees(wide[..., :40].contiguous(), idx, N, counts if masked else None)
+
+
+@pytest.mark.parametrize("bpt", [1, 2, 4, 8])
+def test_group_scatter_add_balls_per_thread(dev, bpt):
+    """Threads taking 1 to 8 consecutive balls and carrying their runs
+    across them: runs of empty balls, threads whose balls cross a batch row
+    (M = 257 is no multiple of them), masked and unmasked, rows of 3, 35
+    and 36 channels."""
+    rng = np.random.default_rng(bpt + 40)
+    B, N, M, K = 3, 500, 257, 32
+    x, c = _cloud(rng, B, N, 3).to(dev), _cloud(rng, B, M, 3).to(dev)
+    c[:, 100:180] += 5.0  # a run of empty balls
+    c[:, ::3] += 5.0
+    idx, counts = ops.ball_query(x, c, 0.3, K)
+    for dtype in (torch.float32, torch.bfloat16):
+        for C in (3, 35, 36):
+            dg = torch.randn(B, M, K, C, device=dev).to(dtype)
+            _scatter_agrees(dg, idx, N, None, bpt)
+            _scatter_agrees(dg, idx, N, counts, bpt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_group_scatter_add_all_empty(dev, dtype):
+    """Every ball empty, so every slot of every ball is row 0: the most
+    atomics on one row; with counts, nothing is added."""
+    B, N, M, K, C = 2, 300, 1024, 32, 35
+    idx = torch.zeros(B, M, K, dtype=torch.int32, device=dev)
+    counts = torch.zeros(B, M, dtype=torch.int32, device=dev)
+    dg = torch.randn(B, M, K, C, device=dev).to(dtype)
+    assert not ops.group_scatter_add(dg, idx, N, counts).any()
+    for bpt in (None, 1, 8):
+        _scatter_agrees(dg, idx, N, None, bpt)
+        if bpt is not None:
+            assert not scatter._scatter_launch(dg, C, idx, N, counts, bpt).any()
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

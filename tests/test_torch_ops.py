@@ -246,10 +246,10 @@ def wclouds():
     return xyz, q, fa, fb
 
 
-def _jax_grouped(xyz, q, feats, **kw):
+def _jax_grouped(xyz, q, feats, radius=RADIUS, k=K, **kw):
     sup = build_support_ctx_t(jnp.asarray(xyz), [jnp.asarray(f) for f in feats])
     qc = build_query_ctx(jnp.asarray(q), sup.axis_onehot)
-    wg = windowed_ball_group_t(sup, qc, RADIUS, K, window=256, interpret=True, **kw)
+    wg = windowed_ball_group_t(sup, qc, radius, k, window=256, interpret=True, **kw)
     grouped = [np.asarray(unsort_rows(g, qc), np.float32) for g in wg.grouped]
     counts = np.asarray(unsort_rows(wg.counts[..., None], qc))[..., 0]
     return grouped, counts
@@ -284,6 +284,28 @@ class TestFusedBallGroup:
         assert outs[0].shape[-1] == fb.shape[-1] + 9
         _compare_grouped(outs[0].float().numpy(), ref[0], fb.shape[-1])
 
+    def test_nsample_beyond_one_pass(self):
+        """nsample 96, past the kernel's 64-slot pass, against the JAX
+        package's query_and_group (XLA; the Pallas kernel in interpret mode
+        takes over 20 s at this nsample): balls of 0 to 96 points."""
+        from point_diffusion_refinement_tpu.models.grouping import query_and_group
+
+        rng = np.random.default_rng(8)
+        xyz = rng.uniform(-1, 1, (2, 256, 3)).astype(np.float32)
+        q = rng.uniform(-1, 1, (2, 128, 3)).astype(np.float32)
+        q[:, ::9] += 4.0  # empty balls
+        fa = rng.normal(size=(2, 256, 5)).astype(np.float32)
+        g, cnt = query_and_group(
+            jnp.asarray(xyz), jnp.asarray(q), jnp.asarray(fa), radius=1.1, nsample=96,
+            use_xyz=True, include_abs_coordinate=True, include_center_coordinate=True,
+            subset=False)
+        outs, tcnt = t_ops.ball_group(T(xyz), [T(fa)], T(q), 1.1, 96, include_center=True)
+        rcnt = _np(cnt)
+        np.testing.assert_array_equal(tcnt.numpy(), rcnt)
+        assert (rcnt == 0).any() and (rcnt == 96).any() and ((rcnt > 64) & (rcnt < 96)).any()
+        ref = _np(jnp.asarray(g).astype(jnp.bfloat16).astype(jnp.float32))
+        np.testing.assert_array_equal(outs[0].float().numpy(), ref)
+
     def test_equals_query_and_group(self, wclouds):
         # the fused group is query_and_group's [feat, rel, abs, center]
         # layout rounded to bf16 (subset=False <-> center_zero)
@@ -298,6 +320,39 @@ class TestFusedBallGroup:
         np.testing.assert_array_equal(tcnt.numpy(), _np(cnt))
         ref = _np(jnp.asarray(g).astype(jnp.bfloat16).astype(jnp.float32))
         np.testing.assert_array_equal(outs[0].float().numpy(), ref)
+
+
+class TestKernelPlans:
+    """The host-side choices of the fused gather (#8) and the scatter-add (B)
+    kernels, made in Python from shapes."""
+
+    @pytest.mark.parametrize("B,M,N,qpw", [
+        (4, 2048, 3072, 2),  # FT0 at B = 4
+        (32, 2048, 3072, 8),  # ... at B = 32
+        (32, 1024, 1024, 2),  # a 1024-point level
+        (32, 256, 256, 1),  # the deep levels
+        (32, 16, 64, 1),
+        (4, 1024, 3072, 1),  # too few blocks for two
+        (1, 1, 9000, 1),  # a tiny grid
+    ])
+    def test_gather_queries_per_warp(self, B, M, N, qpw):
+        from point_diffusion_refinement_tpu_torch.ops.neighbors import gather_queries_per_warp
+
+        assert gather_queries_per_warp(B, M, N) == qpw
+
+    @pytest.mark.parametrize("balls,C,rows,bpt", [
+        (8192, 35, 3072, 2),  # FT0 at B = 4
+        (65536, 35, 3072, 2),  # ... at B = 32
+        (32768, 35, 1024, 2),  # the 1024-point level
+        (3744, 35, 3072, 1),  # one thread short of SCATTER_MIN_THREADS as pairs
+        (8192, 67, 256, 1),  # small supports
+        (512, 131, 16, 1),
+        (1000, 3, 3072, 1),  # few threads
+    ])
+    def test_scatter_balls_per_thread(self, balls, C, rows, bpt):
+        from point_diffusion_refinement_tpu_torch.ops.scatter import scatter_balls_per_thread
+
+        assert scatter_balls_per_thread(balls, C, rows) == bpt
 
 
 class TestRouting:
