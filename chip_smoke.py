@@ -121,9 +121,34 @@
    ``plain_ops()``, one denoise step with ``packed`` against off, and what
    each variant costs: step ms and device-busy share of the denoise step,
    ms of the B=32 refine forward.
-14. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
+14. The README's file-driven pipeline through the port's CLIs, run after
+   the training phases, at full width on seeded random weights, every launch
+   count reset before each call and read after it: the ``ddpm`` config
+   written as JSON in the reference's schema (lists as strings) with a
+   ``synthetic`` dataset of FILE_ITEMS 2048-point clouds with mirrored
+   3072 x 4 partials -> ``train_cli`` with both fused training routes,
+   FILE_STEPS steps at B=32 (one checkpoint and its in-loop FastDPM-50 eval
+   of FILE_TESTED clouds a split, then the last) -> ``generate_cli
+   --fast_sampling`` on FILE_TESTED test clouds at batch 4 -> ``generate_cli
+   --phase test_trainset --num_trials 2 --augment_data_during_generation``
+   -> the ``upsample_16384`` config through ``train_from_file`` (2 steps)
+   and ``run_generation_from_file``, with the first trial's clouds as the
+   coarse input, held in memory -> ``gather_eval_results`` and
+   ``plot_result``.  Where ``h5py`` imports, the same chain runs on files
+   instead: ``write_mvp_style_h5`` -> ``preprocess_cli`` -> ``train_cli`` ->
+   ``generate_cli`` (test, trials, and the bare train split the random trial
+   choice can pick) -> ``train_cli`` and ``generate_cli`` on the refine
+   config, which reads the generated h5.  Prints the route, the wall time
+   and launches of each call, the checkpoint ``generate_cli`` used, every
+   save directory, the train step ms through the CLI beside phase 11's and
+   FastDPM-50 ms a batch of 4 through ``generate_cli`` beside phase 7's.
+   Fails if a checkpoint, ``eval_result.pkl`` or save directory is not at
+   its path, a kernel of a call was not launched, a CD is not finite, or the
+   in-loop eval did not evaluate exactly FILE_TESTED clouds.
+15. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
    (``launches``: the sum over the driven paths, the ``ddpm_avg_max`` step,
-   the two pipelines and the two training runs, each counted from zero;
+   the two pipelines, the two training runs and the file-driven pipeline,
+   each counted from zero;
    ``launches_by_path``
    splits it; the FPS rows add ``latency_floor_ms``, the sweep's per-pick
    time at its smallest N times the row's npoint - 1, beside the roofline
@@ -140,6 +165,8 @@ on any failure, without a result line; needs one card.
 from __future__ import annotations
 
 import json
+import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -159,17 +186,26 @@ KNN_DIST_TOL = 0.0  # both compute the same separately rounded float32 sums
 STEPS = 10  # reverse steps of the main-path run: enough for a steady step time
 REFINE_REL_TOL = 1e-2  # kernels vs plain versions, one bf16 refine forward
 FAST_STEPS = 50  # FastDPM length of the refine_fast50 experiment
-# float32 sums of the same terms in another order (atomics; index_add_)
+# float32 sums of the same terms in another order (atomics; index_add_),
+# relative to the largest: the gradients of ball_group_train
 SCATTER_REL_TOL = 1e-5
 # ... relative to each element's own sum of its terms' magnitudes, the scale
-# of a reordered float32 sum's rounding error: a (b, row) that the empty balls
-# of a batch row all land in takes tens of thousands of terms of either sign,
-# whose signed sum is far below that scale
+# of a reordered float32 sum's rounding error (every scatter-add check): a
+# (b, row) that the empty balls of a batch row all land in takes tens of
+# thousands of terms of either sign, whose signed sum is far below that
+# scale, so a bound relative to the largest sum fails at random
 SCATTER_ABS_REL_TOL = 1e-5
 SCATTER_ABS_FLOOR = 1e-12
 TRAIN_BATCH = 32  # the JAX package's training benchmark batch
 TRAIN_STEPS = 4  # steps of each training run
 TIMED_STEPS = 2  # steps of each timed block (routes on, off, off, on)
+# the file-driven pipeline (phase 14): train items, clouds evaluated in the
+# loop and generated from the test set, train_cli steps (at B = TRAIN_BATCH:
+# one checkpoint with its in-loop eval at the end of the first epoch, then
+# the last)
+FILE_ITEMS = 64
+FILE_TESTED = 8
+FILE_STEPS = 3
 # One bf16 training step, fused routes against unfused.  The forward values
 # are the same (the first Dense rounds the unfused float32 group to bf16 as
 # the fused group already is); the backward differs: the fused routes sum
@@ -917,13 +953,15 @@ def conditions(rng, B: int, dev) -> torch.Tensor:
          rng.integers(0, 2, (B, 3072, 1)) * 2.0 - 1.0], axis=-1).astype(np.float32)).to(dev)
 
 
-def pipeline(model, rng, dev, tag: str = "pipeline", kernel_ms_out=None, **routes):
+def pipeline(model, rng, dev, tag: str = "pipeline", kernel_ms_out=None, timings_out=None,
+             **routes):
     """Phase 7: mirror -> FastDPM-50 -> refine x8 -> CD/F1 at B=4, with the
     launch counts of the whole run.  ``routes`` turns on the opt-in inference
     routes of the sampler and the refiner; their kernels must then have been
     launched on every denoise step and in the refine forward.  Given a dict
     ``kernel_ms_out``, mirror -> FastDPM-50 -> refine runs once more under the
-    profiler and the device ms of PROFILED_KERNELS go into it."""
+    profiler and the device ms of PROFILED_KERNELS go into it; given a dict
+    ``timings_out``, the FastDPM time (``fastdpm_ms``) goes into it."""
     from point_diffusion_refinement_tpu_torch import ops
     from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
     from point_diffusion_refinement_tpu_torch.data import mirror_and_concat
@@ -973,6 +1011,8 @@ def pipeline(model, rng, dev, tag: str = "pipeline", kernel_ms_out=None, **route
                    keep_generated=True, print_every=1)
     counts = ops.launch_counts()
     fast_ms = (t2 - t1) * 1e3
+    if timings_out is not None:
+        timings_out["fastdpm_ms"] = fast_ms
     out = res.generated
     finite = bool(np.isfinite(out).all())
     print(f"{tag}: B={B} routes={routes} mirror_ms={(t1 - t0) * 1e3:.2f} fastdpm{FAST_STEPS}_ms={fast_ms:.1f} "
@@ -1655,11 +1695,17 @@ def check_training_kernels(dev, rng):
         for counts in (None, cnt):
             out = ops.group_scatter_add(dg, idx, N, counts)
             ref = ops.group_scatter_add_plain(dg, idx, N, counts)
+            scale = ops.group_scatter_add_plain(dg.abs(), idx, N, counts)
             torch.cuda.synchronize()
             err = float((out - ref).abs().max())
-            if not err <= SCATTER_REL_TOL * float(ref.abs().max()):
-                raise AssertionError(f"group_scatter_add {dtype}: differs by {err}")
+            excess = (out - ref).abs() - (SCATTER_ABS_REL_TOL * scale + SCATTER_ABS_FLOOR)
+            if not float(excess.max()) <= 0.0:
+                at = tuple(int(v) for v in torch.nonzero(excess == excess.max())[0])
+                raise AssertionError(
+                    f"group_scatter_add {dtype}: differs by {float((out - ref)[at])} at {at}, "
+                    f"its sum of magnitudes {float(scale[at])}")
             worst = max(worst, err)
+            del scale, excess
     # times: float32 cotangents of the gather, and a bf16 channel slice of a
     # wider grouped row (ld = C + 9, as ball_group_train's backward passes
     # it), at B = 4 and at the training batch; the cast is not timed
@@ -1833,12 +1879,15 @@ def check_trained(tag: str, result, fresh_model, counts) -> None:
             raise AssertionError(f"{tag}: parameter {name} did not move")
 
 
-def compare_routes(tag: str, model, loss_for, step_for, state, batch_size: int) -> dict:
+def compare_routes(tag: str, model, loss_for, step_for, state, batch_size: int,
+                   timings_out=None) -> dict:
     """Step time of both routes (on, off, off, on), the gradients of the
     fused routes against the unfused ones at one state and one draw, one
     step through the kernels against one under ``plain_ops()``, and a
     profile of one step of each route (device time; the op table and the
-    device ms of PROFILED_KERNELS for the fused routes, which it returns)."""
+    device ms of PROFILED_KERNELS for the fused routes, which it returns).
+    Given a dict ``timings_out``, the fused routes' step ms goes into it as
+    ``"<tag> fused_ms"``."""
     from point_diffusion_refinement_tpu_torch.ops import kernels
 
     times = {True: [], False: []}
@@ -1852,6 +1901,8 @@ def compare_routes(tag: str, model, loss_for, step_for, state, batch_size: int) 
         torch.cuda.synchronize()
         times[fused].append((time.perf_counter() - t0) * 1e3 / TIMED_STEPS)
     on, off = float(np.mean(times[True])), float(np.mean(times[False]))
+    if timings_out is not None:
+        timings_out[f"{tag} fused_ms"] = on
     print(f"{tag} step: B={batch_size} fused_ms={on:.1f} ({batch_size / on * 1e3:.1f} samples/s) "
           f"unfused_ms={off:.1f} ({batch_size / off * 1e3:.1f} samples/s) "
           f"blocks fused={[round(t, 1) for t in times[True]]} "
@@ -1967,8 +2018,9 @@ def launch_shapes(step, batch: int) -> None:
                                     for k, v in total.items()), flush=True)
 
 
-def ddpm_training(dev, workdir: str):
-    """Phase 11: DDPM training at full width through ``train()``."""
+def ddpm_training(dev, workdir: str, timings_out=None):
+    """Phase 11: DDPM training at full width through ``train()``; its fused
+    step ms goes into ``timings_out``."""
     from point_diffusion_refinement_tpu_torch import ops
     from point_diffusion_refinement_tpu_torch import train as tr
     from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
@@ -2040,7 +2092,8 @@ def ddpm_training(dev, workdir: str):
         return lambda: step(state, x0, cond, label)
 
     launch_shapes(step_for(True), B)
-    return counts, compare_routes("ddpm train", model, loss_for, step_for, state, B)
+    return counts, compare_routes("ddpm train", model, loss_for, step_for, state, B,
+                                  timings_out)
 
 
 def refine_training(dev, workdir: str):
@@ -2133,6 +2186,228 @@ def refine_training(dev, workdir: str):
         return lambda: step(state, *batch, osf)
 
     return counts, compare_routes("refine train", model, loss_for, step_for, state, B)
+
+
+def stringify_lists(tree):
+    """The reference's JSON schema: every list stored as its repr, which
+    ``load_config`` restores."""
+    if isinstance(tree, dict):
+        return {k: stringify_lists(v) for k, v in tree.items()}
+    return str(tree) if isinstance(tree, list) else tree
+
+
+def file_pipeline(dev, workdir: str, direct: dict) -> dict:
+    """Phase 14: the README's file-driven pipeline through the port's CLIs,
+    at full width on seeded random weights; returns the launch counts of the
+    whole phase.  ``direct`` holds phase 7's FastDPM ms and phase 11's fused
+    train step ms, printed beside the same work through the CLIs."""
+    import importlib.util
+
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.cli import generate_cli, preprocess_cli, train_cli
+    from point_diffusion_refinement_tpu_torch.cli.eval_results import (
+        gather_eval_results,
+        plot_result,
+    )
+    from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
+    from point_diffusion_refinement_tpu_torch.data import (
+        ArrayDataset,
+        synthetic_dataset,
+        write_mvp_style_h5,
+    )
+    from point_diffusion_refinement_tpu_torch.sample.pipeline import (
+        generation_save_dir,
+        run_generation_from_file,
+    )
+    from point_diffusion_refinement_tpu_torch.train import find_max_epoch
+    from point_diffusion_refinement_tpu_torch.train.loop import (
+        local_experiment_path,
+        make_dataset,
+        train_from_file,
+    )
+
+    files = importlib.util.find_spec("h5py") is not None
+    print(f"file pipeline: route={'h5 files' if files else 'in memory (h5py does not import)'}",
+          flush=True)
+    data_dir, root = f"{workdir}/mvp", f"{workdir}/exp"
+    total = {}
+
+    def run(tag: str, kernels, call):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = call()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = ops.launch_counts()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        print(f"file pipeline {tag}: wall_s={secs:.2f} "
+              f"launches={ {k: v for k, v in counts.items() if v} }", flush=True)
+        missing = [k for k in kernels if counts[k] <= 0]
+        if missing:
+            raise AssertionError(f"file pipeline {tag}: kernels {missing} were not launched")
+        return out
+
+    def evaluated(eval_dir: str, it: int, tag: str = "") -> int:
+        with open(os.path.join(eval_dir, f"eval_result_ckpt_{it}_rank_0{tag}.pkl"), "rb") as f:
+            cd = pickle.load(f)["cd_distance"]
+        if not np.isfinite(cd).all():
+            raise AssertionError(f"file pipeline: in-loop CD at {it}{tag} is not finite")
+        return len(cd)
+
+    def saved(path: str) -> str:
+        if not os.path.isfile(os.path.join(path, "eval_result.pkl")):
+            raise AssertionError(f"file pipeline: no eval_result.pkl under {path}")
+        print(f"file pipeline saved: {os.path.relpath(path, workdir)} "
+              f"{sorted(os.listdir(path))}", flush=True)
+        return path
+
+    def finite(tag: str, res, shape) -> None:
+        ok = (res.generated.shape == shape and np.isfinite(res.generated).all()
+              and all(np.isfinite(v).all() for v in res.metrics.values())
+              and len(res.metrics["cd_distance"]) == shape[0])
+        print(f"file pipeline {tag}: generated={res.generated.shape} avg_cd={res.avg_cd:.6g} "
+              f"avg_emd={res.avg_emd:.6g} finite={ok}", flush=True)
+        if not ok:
+            raise AssertionError(f"file pipeline {tag}: not {shape[0]} finite clouds and CDs")
+
+    # 1. the DDPM config, in the reference's schema
+    ddpm = EXPERIMENTS["ddpm"]()
+    ddpm["train_config"].update(root_directory=root, n_epochs=2, epochs_per_ckpt=1,
+                                iters_per_logging=1, eval_sampling_steps=FAST_STEPS,
+                                shuffle_seed=0)
+    mc = ddpm["mvp_dataset_config"]
+    mc.update(data_dir=data_dir, batch_size=TRAIN_BATCH, eval_batch_size=FILE_TESTED,
+              num_samples_tested=FILE_TESTED)
+    refine = EXPERIMENTS["upsample_16384"]()
+    # 2048-point coarse clouds, 3072 x 4 mirrored partials, 16384-point GT
+    n_coarse, n_partial = mc["npoints"], mc["number_partial_points"]
+    n_fine = refine["mvp_dataset_config"]["npoints"]
+    spec = dict(num_samples=FILE_ITEMS, npoints=n_coarse, partial_points=n_coarse, seed=30,
+                mirror_to=n_partial)
+    if files:  # 3 GT shapes a split, 78 partials; the GT at n_fine points too
+        for npoints in (n_fine, n_coarse):
+            write_mvp_style_h5(data_dir, num_shapes=2, npoints=npoints, partial_points=n_coarse)
+        run("preprocess_cli", ("fps_idx",), lambda: preprocess_cli.main(
+            ["--data_dir", data_dir, "--num_points", str(n_partial)]))
+    else:
+        mc["synthetic"] = spec
+    ddpm_path = f"{workdir}/config_ddpm.json"
+    with open(ddpm_path, "w") as f:
+        json.dump(stringify_lists(ddpm), f)
+
+    # 2. train: one checkpoint with its in-loop eval, then the last
+    result = run("train_cli ddpm", TRAIN_PATH_KERNELS + ("ball_query",), lambda: train_cli.main(
+        ["-c", ddpm_path, "--max_steps", str(FILE_STEPS), "--fused_gather", "--fused_sa"]))
+    exp = os.path.join(root, local_experiment_path(ddpm))
+    ckpt_dir, eval_dir = os.path.join(exp, "logs", "checkpoint"), os.path.join(exp, "eval_result")
+    ckpts = find_max_epoch(ckpt_dir, "all")
+    n_eval = (evaluated(eval_dir, 1), evaluated(eval_dir, 1, "_trainset"))
+    steps_ms = [round(s * 1e3, 1) for s in result["step_seconds"]]
+    print(f"file pipeline ddpm: checkpoints={ckpts} under {os.path.relpath(ckpt_dir, workdir)} "
+          f"in-loop eval clouds (test, trainset)={n_eval} of num_samples_tested={FILE_TESTED}",
+          flush=True)
+    print(f"file pipeline ddpm train step B={TRAIN_BATCH}: through train_cli step_ms={steps_ms} "
+          f"(batch assembly included; median of the later steps "
+          f"{float(np.median(steps_ms[1:])):.1f}) direct train() step_ms "
+          f"{direct.get('ddpm train fused_ms', float('nan')):.1f} (phase 11)", flush=True)
+    if ckpts != [FILE_STEPS, 1] or n_eval != (FILE_TESTED, FILE_TESTED):
+        raise AssertionError("file pipeline ddpm: checkpoints or in-loop eval are wrong")
+    if not np.isfinite(result["losses"]).all():
+        raise AssertionError("file pipeline ddpm: losses are not finite")
+
+    # 3. generate the test set with FastDPM on the newest checkpoint
+    it = find_max_epoch(ckpt_dir, "max")
+    print(f"file pipeline generate_cli checkpoint: "
+          f"{os.path.relpath(ckpt_dir, workdir)}/pointnet_ckpt_{it}", flush=True)
+    fs = {"length": FAST_STEPS, "sampling_method": "var", "schedule": "quadratic", "kappa": 0.5}
+    fast = ["--fast_sampling", "--fast_sampling_length", str(FAST_STEPS)]
+    (test_res,) = run("generate_cli test", COARSE_PATH_KERNELS, lambda: generate_cli.main(
+        ["-c", ddpm_path, "--batch_size", "4", "--num_samples_tested", str(FILE_TESTED)]
+        + fast))
+    if files:  # the refine stage reads the generations of the whole split: rewrite them
+        run("generate_cli test (whole split)", COARSE_PATH_KERNELS, lambda: generate_cli.main(
+            ["-c", ddpm_path, "--batch_size", str(TRAIN_BATCH)] + fast))
+    test_dir = saved(generation_save_dir(ddpm, it, fast_sampling=True, fast_sampling_config=fs))
+    finite("generate_cli test", test_res, (FILE_TESTED, n_coarse, 3))
+    print(f"file pipeline FastDPM-{FAST_STEPS} B=4: through generate_cli ms_per_batch="
+          f"{test_res.total_generation_time / (FILE_TESTED // 4) * 1e3:.1f} (first batch "
+          f"included) direct fastdpm{FAST_STEPS}_ms "
+          f"{direct.get('fastdpm_ms', float('nan')):.1f} (phase 7)", flush=True)
+
+    # 4. generate the train set: two augmented trials (and the bare
+    # directory, which random trial selection can pick, where files are read)
+    n_train = len(make_dataset(mc, "train")) if files else FILE_ITEMS
+    trials = run("generate_cli test_trainset", COARSE_PATH_KERNELS, lambda: generate_cli.main(
+        ["-c", ddpm_path, "--phase", "test_trainset", "--num_trials", "2",
+         "--augment_data_during_generation", "--batch_size", str(TRAIN_BATCH)] + fast))
+    for i, res in enumerate(trials, 1):
+        saved(generation_save_dir(ddpm, it, fast_sampling=True, fast_sampling_config=fs,
+                                  trial_index=i, phase="test_trainset"))
+        finite(f"generate_cli trial {i}", res, (n_train, n_coarse, 3))
+    if files:
+        run("generate_cli test_trainset bare", COARSE_PATH_KERNELS, lambda: generate_cli.main(
+            ["-c", ddpm_path, "--phase", "test_trainset", "--batch_size", str(TRAIN_BATCH)]
+            + fast))
+
+    # 5. refine x8 on the generated clouds
+    refine["train_config"].update(root_directory=root, n_epochs=1, iters_per_logging=1,
+                                  shuffle_seed=0)
+    refine["mvp_dataset_config"].update(
+        data_dir=data_dir, batch_size=TRAIN_BATCH, eval_batch_size=FILE_TESTED,
+        generated_sample_path=os.path.relpath(os.path.dirname(test_dir), data_dir))
+    refine["refine_config"].update(epochs_per_ckpt=1, num_samples_tested=FILE_TESTED)
+    refine_path = f"{workdir}/config_refine.json"
+    with open(refine_path, "w") as f:
+        json.dump(stringify_lists(refine), f)
+    refine_kernels = ("fps", "ball_query", "knn")  # the unfused refine forward
+    if files:
+        rresult = run("train_cli refine", TRAIN_PATH_KERNELS, lambda: train_cli.main(
+            ["-c", refine_path, "--max_steps", "2", "--fused_gather", "--fused_sa"]))
+        (refined,) = run("generate_cli refine", refine_kernels, lambda: generate_cli.main(
+            ["-c", refine_path, "--num_samples_tested", str(FILE_TESTED)]))
+    else:
+        # the two-stage hand-off in memory: the generated clouds back at the
+        # data's scale (evaluate divides by 2 * scale) beside the same items'
+        # n_fine-point GT (parametric shapes: the same surfaces)
+        s = 2.0 * mc["scale"]
+        tr = make_dataset(mc, "train").arrays
+        big = synthetic_dataset(FILE_ITEMS, n_fine, n_coarse, seed=spec["seed"]).arrays
+        train_ds = ArrayDataset(complete=big["complete"], partial=tr["partial"],
+                                label=tr["label"], generated=trials[0].generated * s)
+        te = make_dataset(mc, "test", eval_subset=FILE_TESTED).arrays
+        te_big = make_dataset({"synthetic": {**spec, "npoints": n_fine, "mirror_to": 0}},
+                              "test", eval_subset=FILE_TESTED).arrays
+        test_ds = ArrayDataset(complete=te_big["complete"], partial=te["partial"],
+                               label=te["label"], generated=test_res.generated * s)
+        trainset_ds = ArrayDataset(**{k: v[:FILE_TESTED] for k, v in train_ds.arrays.items()})
+        rresult = run("train_from_file refine", TRAIN_PATH_KERNELS, lambda: train_from_file(
+            refine_path, max_steps=2, dataset_override=train_ds, eval_dataset_override=test_ds,
+            trainset_eval_dataset_override=trainset_ds, fused_gather=True, fused_sa=True))
+        (refined,) = run("run_generation refine", refine_kernels, lambda: run_generation_from_file(
+            refine_path, dataset_override=test_ds))
+    rexp = os.path.join(root, local_experiment_path(refine))
+    rckpt = os.path.join(rexp, "logs", "checkpoint")
+    rit = find_max_epoch(rckpt, "max")
+    print(f"file pipeline refine: checkpoints={sorted(os.listdir(rckpt))} under "
+          f"{os.path.relpath(rckpt, workdir)} losses={[round(v, 6) for v in rresult['losses']]} "
+          f"in-loop eval clouds={evaluated(os.path.join(rexp, 'eval_result'), 1)}", flush=True)
+    if (rit != 2 or not os.path.isdir(os.path.join(rckpt, "pointnet_ckpt_1_best_cd"))
+            or not np.isfinite(rresult["losses"]).all()
+            or evaluated(os.path.join(rexp, "eval_result"), 1) != FILE_TESTED):
+        raise AssertionError("file pipeline refine: checkpoints, losses or eval are wrong")
+    saved(generation_save_dir(refine, rit))
+    finite("refine generation", refined, (FILE_TESTED, n_fine, 3))
+
+    # 6. gather and plot the DDPM's eval results
+    gathered = gather_eval_results(eval_dir)
+    plot = plot_result(gathered, save_path=f"{workdir}/ddpm_eval.png")
+    print(f"file pipeline gathered: iter={gathered['iter']} avg_cd={gathered['avg_cd']} "
+          f"plot={'drawn' if plot and os.path.isfile(plot) else 'not drawn (no matplotlib)'}",
+          flush=True)
+    if gathered["iter"] != [1] or not np.isfinite(gathered["avg_cd"]).all():
+        raise AssertionError("file pipeline: the gathered eval results are wrong")
+    return total
 
 
 def main() -> int:
@@ -2249,8 +2524,10 @@ def main() -> int:
     path_counts = {"ddpm_avg_max_step": avg_max_step(rng, dev)}
     preprocess(rng)
     kernel_ms["per_pipeline_ms"] = {}
+    direct = {}  # direct-call times the CLIs' are printed beside (phase 14)
     path_counts["pipeline"] = pipeline(model, rng, dev,
-                                       kernel_ms_out=kernel_ms["per_pipeline_ms"])
+                                       kernel_ms_out=kernel_ms["per_pipeline_ms"],
+                                       timings_out=direct)
     refine_at_batch(rng, dev)
     evaluation_cost(rng, dev)
 
@@ -2270,15 +2547,17 @@ def main() -> int:
     try:
         at("11 ddpm training")
         path_counts["ddpm_train"], kernel_ms["per_ddpm_train_step_ms"] = ddpm_training(
-            dev, workdir)
+            dev, workdir, direct)
         at("12 refine training")
         path_counts["refine_train"], kernel_ms["per_refine_train_step_ms"] = refine_training(
             dev, workdir)
+        at("14 file pipeline")
+        path_counts["file_pipeline"] = file_pipeline(dev, workdir, direct)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    at("14 report")
-    # 14. report
+    at("15 report")
+    # 15. report
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60)

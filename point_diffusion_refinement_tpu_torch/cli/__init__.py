@@ -1,1 +1,1 @@
-"""Command-line helpers of the port (counterpart of the JAX package's ``cli/``)."""
+"""Command-line entry points (train / generate / preprocess / eval bookkeeping)."""

@@ -1,14 +1,83 @@
-"""Model configs, schema-compatible with the reference JSONs.
+"""Experiment-config loading, schema-compatible with the reference JSONs.
 
-The port's own copy of the JAX package's ``config/loader.py``: the shipped
-DDPM config and the miniature one the tests use.  JSON loading comes with
-the port's data and CLI slice.
+The port's own copy of the JAX package's ``config/loader.py``: configs store
+lists as strings (``"[1024, 256, 64, 16]"``), restored to lists on load with
+``ast.literal_eval`` (never ``eval``); a refine config's ``refine_config``
+keys override the same-named keys of the train, network and dataset
+sections.  Also the shipped DDPM network config and the miniature one the
+tests use.
 """
 
 from __future__ import annotations
 
+import ast
 import copy
+import json
+import os
+import re
 from typing import Any, Mapping
+
+
+def _maybe_list(v):
+    if isinstance(v, str) and len(v) > 1 and v.strip()[:1] == "[":
+        try:
+            return ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            return v
+    return v
+
+
+def restore_string_to_list_in_a_dict(config: dict) -> dict:
+    """Recursively restore stringified lists."""
+    out = {}
+    for k, v in config.items():
+        if isinstance(v, dict):
+            out[k] = restore_string_to_list_in_a_dict(v)
+        else:
+            out[k] = _maybe_list(v)
+    return out
+
+
+def merge_refine_config(config: dict) -> dict:
+    """Overlay the ``refine_config`` keys onto ``train_config``,
+    ``pointnet_config`` and ``mvp_dataset_config``: a key overrides only where
+    that section already has it."""
+    cfg = copy.deepcopy(config)
+    refine = cfg.get("refine_config", {})
+    for key, val in refine.items():
+        for section in ("train_config", "pointnet_config", "mvp_dataset_config"):
+            if section in cfg and key in cfg[section]:
+                cfg[section][key] = val
+    return cfg
+
+
+def find_config_file(file_name: str) -> str:
+    """Locate a config JSON: ``file_name`` itself if it is one, else the
+    ``*config*.json`` in its directory (or in ``file_name`` if that is a
+    directory) with the largest number in its name."""
+    if "config" in file_name and file_name.endswith(".json") and os.path.isfile(file_name):
+        return file_name
+    file_path = file_name if os.path.isdir(file_name) else os.path.split(file_name)[0]
+    files = [f for f in os.listdir(file_path) if "config" in f and f.endswith(".json")]
+    if not files:
+        raise FileNotFoundError(f"no config json under {file_path}")
+    best, best_num = files[0], -1
+    for f in files:
+        nums = [int(n) for n in re.findall(r"\d+", f)]
+        num = max(nums) if nums else -1
+        if num > best_num:
+            best, best_num = f, num
+    return os.path.join(file_path, best)
+
+
+def load_config(path: str) -> dict:
+    """Read a JSON config, restore its lists and merge its refine keys."""
+    with open(path) as f:
+        config = json.load(f)
+    config = restore_string_to_list_in_a_dict(config)
+    if "refine_config" in config:
+        config = merge_refine_config(config)
+    return config
 
 
 # The shipped DDPM training config (exp_configs/mvp_configs/

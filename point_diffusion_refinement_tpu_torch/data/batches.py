@@ -1,8 +1,9 @@
 """Fixed-size numpy batches over an in-memory dataset.
 
-Counterpart of the per-item branch of the JAX package's
-``data/mvp.py::iterate_batches``; the h5-backed ``MVPDataset`` and its
-batched collation are not ported yet.
+Counterpart of the JAX package's ``data/mvp.py::iterate_batches``: an
+``MVPDataset`` takes the batched collation of ``get_batch_fast`` where it
+can, any other dataset (and an ``MVPDataset`` whose augmentation needs the
+per-item path) is assembled item by item.
 """
 
 from __future__ import annotations
@@ -10,6 +11,8 @@ from __future__ import annotations
 from typing import Iterator, Optional
 
 import numpy as np
+
+from .mvp import MVPDataset, get_batch_fast
 
 
 def iterate_batches(
@@ -29,5 +32,8 @@ def iterate_batches(
         idx = order[i: i + batch_size]
         if drop_last and len(idx) < batch_size:
             return
-        items = [dataset[int(j)] for j in idx]
-        yield {k: np.stack([it[k] for it in items]) for k in items[0].keys()}
+        batch = get_batch_fast(dataset, idx) if isinstance(dataset, MVPDataset) else None
+        if batch is None:
+            items = [dataset[int(j)] for j in idx]
+            batch = {k: np.stack([it[k] for it in items]) for k in items[0].keys()}
+        yield batch

@@ -15,7 +15,7 @@ import os
 
 import numpy as np
 
-VIEWS_PER_SHAPE = 26  # partial views of each MVP shape
+from .mvp import VIEWS_PER_SHAPE
 
 
 def _unit_shape(rng: np.random.Generator, kind: int, n: int) -> np.ndarray:

@@ -4,22 +4,22 @@ Counterpart of the JAX package's ``train/loop.py`` for one process and one
 device.  ``train(config, ...)`` builds the model on the device (the GPU
 unless the caller asks for ``"cpu"``), resumes from the newest checkpoint,
 runs the DDPM completion step or the refine / denoise step over shuffled
-batches, ramps the refine output scale, saves checkpoints at the configured
-cadence, evaluates in the loop through ``sample/evaluate.py`` and keeps the
-best checkpoint.
+batches of the MVP dataset (``make_dataset``), ramps the refine output
+scale, saves checkpoints at the configured cadence, evaluates a random
+subset of ``num_samples_tested`` clouds in the loop through
+``sample/evaluate.py`` and keeps the best checkpoint.  ``train_from_file``
+reads the config from a JSON file.
 
-Not ported yet, and raising when asked for: the h5-backed ``MVPDataset``
-(``make_dataset`` builds only the in-memory synthetic dataset described by
-``mvp_dataset_config["synthetic"]``; pass ``dataset_override`` otherwise),
-multi-device and multi-process training with its gather of eval results
-across processes, the neighbour statistics, the non-PointNet++ backbones,
-and training from a config file (the config loader comes with the CLIs).
+Not ported yet, and raising when asked for: multi-device and multi-process
+training with its gather of eval results across processes, the neighbour
+statistics and the non-PointNet++ backbones.
 """
 
 from __future__ import annotations
 
 import os
 import pickle
+import random
 import shutil
 import time
 from typing import Optional
@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from ..cli.eval_results import gather_eval_results, save_eval_result
-from ..data import iterate_batches, synthetic_dataset
+from ..config.loader import load_config
+from ..data import ArrayDataset, MVPDataset, MVPDatasetConfig, iterate_batches, synthetic_dataset
 from ..diffusion import calc_diffusion_hyperparams, make_fast_sampling_plan
 from ..models import PointNet2CloudCondition
 from ..sample import evaluate, make_coarse_sampler, make_refiner
@@ -62,23 +63,77 @@ def build_model(pointnet_config: dict, device: DeviceLike = None, seed: int = 0)
     raise ValueError(network_type)
 
 
-def make_dataset(trainset_config: dict, phase="train"):
-    """The dataset of a phase.  Only the in-memory synthetic dataset is
-    built here: ``trainset_config["synthetic"]`` holds the arguments of
-    ``data.synthetic_dataset`` (the test phases draw from ``seed + 1``).  The
-    h5-backed MVP dataset is not ported yet."""
+def make_dataset(trainset_config: dict, phase="train", rank: int = 0, world: int = 1,
+                 eval_subset: Optional[int] = None):
+    """The dataset of a phase.
+
+    phase: 'train' (train split, augmented, padded last rank), 'test' / 'val'
+    (test split, not augmented), or 'test_trainset' (the train split, not
+    augmented unless the config sets ``augment_data_during_generation``);
+    True / False stand for 'train' / 'test'.  ``eval_subset`` draws that many
+    items at random.
+
+    The h5 ``MVPDataset`` under ``data_dir``, or, where the config holds a
+    ``synthetic`` entry, the in-memory dataset of ``data.synthetic_dataset``
+    with those arguments (the test phases draw from ``seed + 1``; it is
+    never augmented, and with ``return_augmentation_params`` its batches
+    carry the identity transform).
+    """
     if isinstance(phase, bool):
         phase = "train" if phase else "test"
     assert phase in ("train", "val", "test", "test_trainset"), phase
+    train = phase == "train"
+    train_split = train or phase == "test_trainset"
     spec = trainset_config.get("synthetic")
-    if spec is None:
-        raise NotImplementedError(
-            "the h5-backed MVP dataset is not ported yet: pass dataset_override or "
-            "describe an in-memory dataset under mvp_dataset_config['synthetic']")
-    spec = dict(spec)
-    if phase in ("val", "test"):
+    if spec is not None:
+        return _synthetic(dict(spec), train_split, eval_subset,
+                          trainset_config.get("return_augmentation_params", False))
+    aug = trainset_config.get("augmentation") if train else None
+    if not train and trainset_config.get("augment_data_during_generation", False):
+        aug = trainset_config.get("augmentation")
+    random_trials = trainset_config.get("randomly_select_generated_samples", False)
+    return MVPDataset(MVPDatasetConfig(
+        data_dir=trainset_config["data_dir"],
+        train=train_split,
+        npoints=trainset_config.get("npoints", 2048),
+        novel_input=trainset_config.get("novel_input", True),
+        novel_input_only=trainset_config.get("novel_input_only", False),
+        scale=trainset_config.get("scale", 1),
+        rank=rank,
+        world_size=world,
+        augmentation=aug if isinstance(aug, dict) else None,
+        return_augmentation_params=trainset_config.get("return_augmentation_params", False),
+        random_subsample=eval_subset is not None,
+        num_samples=eval_subset or 0,
+        include_generated_samples=trainset_config.get("include_generated_samples", False),
+        generated_sample_path=trainset_config.get("generated_sample_path"),
+        # random trials on the train split only
+        randomly_select_generated_samples=random_trials and train_split,
+        use_mirrored_partial_input=trainset_config.get("use_mirrored_partial_input", False),
+        number_partial_points=trainset_config.get("number_partial_points", 2048),
+        load_pre_computed_XT=trainset_config.get("load_pre_computed_XT", False),
+        T_step=trainset_config.get("T_step", 100),
+        XT_folder=trainset_config.get("XT_folder"),
+        append_samples_to_last_rank=train,  # eval: no padding
+    ))
+
+
+def _synthetic(spec: dict, train_split: bool, eval_subset: Optional[int],
+               with_identity_transform: bool) -> ArrayDataset:
+    """The synthetic branch of ``make_dataset``: the subset drawn from the
+    spec's seed, so every build of a phase takes the same items."""
+    if not train_split:
         spec["seed"] = int(spec.get("seed", 0)) + 1
-    return synthetic_dataset(**spec)
+    ds = synthetic_dataset(**spec)
+    arrays = ds.arrays
+    if eval_subset is not None and eval_subset < len(ds):
+        idx = np.array(random.Random(spec.get("seed")).sample(range(len(ds)), eval_subset))
+        arrays = {k: v[idx] for k, v in arrays.items()}
+    if with_identity_transform:
+        n = len(arrays["label"])
+        arrays["M_inv"] = np.broadcast_to(np.eye(3, dtype=np.float32), (n, 3, 3)).copy()
+        arrays["translation"] = np.zeros((n, 1, 3), np.float32)
+    return ArrayDataset(**arrays)
 
 
 def make_eval_sampler(model, schedule, diffusion_config: dict, num_points: int,
@@ -113,7 +168,9 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
     ``fused_sa`` turn on the network's fused training routes (off by
     default).  ``train_config["shuffle_seed"]`` makes the batch order of
     epoch e a function of ``shuffle_seed + e``, so a resumed run repeats
-    it; without it every epoch shuffles from fresh entropy."""
+    it; without it every epoch shuffles from fresh entropy.  The result's
+    ``step_seconds`` hold each step's host time from the assembly of its
+    batch to its loss on the host (checkpoints and evals excluded)."""
     if mesh is not None:
         raise NotImplementedError("multi-device training is not ported yet")
     train_config = config["train_config"]
@@ -138,7 +195,8 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
         diffusion_config["T"], diffusion_config["beta_0"], diffusion_config["beta_T"])
     model = build_model(pointnet_config, device=dev, seed=0)
 
-    dataset = dataset_override or make_dataset(trainset_config, "train")
+    rank, world = 0, 1  # one process
+    dataset = dataset_override or make_dataset(trainset_config, "train", rank, world)
     batch_size = trainset_config.get("batch_size", 32)
     loader_len = max(1, len(dataset) // batch_size)
     n_iters = int(loader_len * train_config.get("n_epochs", 1))
@@ -225,8 +283,10 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
         def eval_split(split_phase: str, tag: str):
             override = (eval_dataset_override if split_phase == "test"
                         else trainset_eval_dataset_override)
+            # num_samples_tested in all, split across the processes
             eval_ds = override if override is not None else make_dataset(
-                trainset_config, split_phase)
+                trainset_config, split_phase, rank, world,
+                eval_subset=max(1, num_samples_tested // world))
             res = evaluate(gen_fn, iterate_batches(eval_ds, bs, shuffle=False), scale=scale,
                            compute_emd=compute_emd, print_every=10 ** 9)
             os.makedirs(eval_dir, exist_ok=True)
@@ -261,9 +321,14 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
     last_saved_best = None
     num_ckpts = 0
 
+    step_seconds = []
     while n_iter < n_iters:
         epoch = n_iter // loader_len
         seed = None if shuffle_seed is None else int(shuffle_seed) + epoch
+        if trainset_config.get("randomly_select_generated_samples", False):
+            # another random trial directory of generated samples each epoch
+            dataset = dataset_override or make_dataset(trainset_config, "train", rank, world)
+        t_batch = time.perf_counter()
         for batch in iterate_batches(dataset, batch_size, shuffle=True, drop_last=True,
                                      seed=seed):
             x0 = _to_device(batch, "complete", dev)
@@ -277,6 +342,7 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
                 state, loss = step_fn(state, x0, condition, label, generated,
                                       osf_at(n_iter))
             loss_val = float(loss)
+            step_seconds.append(time.perf_counter() - t_batch)
             loss_meter.update(loss_val)
             losses.append(loss_val)
 
@@ -318,6 +384,7 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
             n_iter += 1
             if n_iter >= n_iters:
                 break
+            t_batch = time.perf_counter()
 
     save_checkpoint(output_directory, n_iter, state,
                     training_time_seconds=time.time() - time0)
@@ -329,8 +396,13 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
         "output_directory": output_directory,
         "final_loss": loss_meter.avg,
         "losses": losses,
+        "step_seconds": step_seconds,
         "n_iter": n_iter,
         "eval_records": eval_records,
         "best_cd": best_cd,
     }
 
+
+def train_from_file(config_path: str, **kw) -> dict:
+    """``train`` on the JSON config at ``config_path`` (``load_config``)."""
+    return train(load_config(config_path), **kw)

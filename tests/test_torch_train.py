@@ -469,8 +469,10 @@ def test_unported_options_raise(tmp_path):
         ptrain.make_refine_train_step(port, record_stats=True)
     with pytest.raises(NotImplementedError):
         ptrain.jit_step_for_mesh()
-    with pytest.raises(NotImplementedError):
-        train(_config("completion", str(tmp_path)), device="cpu")  # h5 dataset
+    cfg = _config("completion", str(tmp_path))
+    cfg["mvp_dataset_config"]["data_dir"] = str(tmp_path / "no_data")
+    with pytest.raises(FileNotFoundError):  # the h5 dataset is read, and is missing
+        train(cfg, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError):  # no card and no device="cpu"
             train(_config("completion", str(tmp_path)))
