@@ -145,10 +145,38 @@
    Fails if a checkpoint, ``eval_result.pkl`` or save directory is not at
    its path, a kernel of a call was not launched, a CD is not finite, or the
    in-loop eval did not evaluate exactly FILE_TESTED clouds.
+16. The networks and model options of the tenth slice, run after phase 14,
+   every launch count reset before each run and read after it.  (a)
+   ``network_type: "pvd"`` (PVCNN2Completion at its class defaults: 2048
+   points joined with the 3072-point condition, embed_dim 64, voxel
+   attention, four SA and four FP blocks) through ``train()`` on phase 11's
+   kind of data, the largest power-of-two batch up to 32 (printed with the
+   peak memory), TRAIN_STEPS steps: FPS idx (#6), the ball query (#3) and
+   3-NN (#4) held against their plain versions on the joined 5120-point
+   cloud, each launched on every step (the run's launches are TRAIN_STEPS
+   times one step's), finite losses, every parameter with a finite
+   gradient and moved (but for tensors whose gradient is all zero: a
+   squeeze-excitation's hidden ReLU units can all be off); a forward and
+   gradient through the kernels against ``plain_ops()``; step ms and
+   samples/s; a profile of one step (device-busy share, the top device
+   ops, the device ms and launches of the hand-written kernels); one
+   refine-task forward.  (b) ``network_type: "pointwise_net"`` at its
+   defaults, TRAIN_STEPS steps at B=32: finite losses, parameters moved,
+   step ms; no kernel.  (c) ``DEFAULT_POINTNET_CONFIG`` with the
+   feature-propagation grouper in bf16: one B=4 encode + ``denoise(fused=
+   True)`` against ``plain_ops()``, one DDPM training step with both fused
+   routes at the largest batch up to 32, and the launches inside each FP
+   module (the grouper's ball query, #3, or fused gather, #8).  (d)
+   ``concate_partial_with_noisy_input``: one B=4 forward over the
+   5120-point joined cloud against ``plain_ops()``.  (e)
+   ``record_neighbor_stats``: 2 DDPM steps at B=32 with both fused routes
+   through ``train()``; every module's histogram sums to B x centres x
+   steps, the one-shot and the accumulated reports, and one step's
+   histograms through the kernels equal to those under ``plain_ops()``.
 15. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
    (``launches``: the sum over the driven paths, the ``ddpm_avg_max`` step,
-   the two pipelines, the two training runs and the file-driven pipeline,
-   each counted from zero;
+   the two pipelines, the two training runs, the file-driven pipeline and
+   the five runs of phase 16, each counted from zero;
    ``launches_by_path``
    splits it; the FPS rows add ``latency_floor_ms``, the sweep's per-pick
    time at its smallest N times the row's npoint - 1, beside the roofline
@@ -243,6 +271,15 @@ VARIANT_MEAN_TOL = 1.5e-2
 # perturbation: 0.8e-2 found at the B=4 denoise step, 1.2e-2 at the B=32
 # refine forward, the size of the on-against-off difference itself.
 VARIANT_PLAIN_REL_TOL = 3e-2
+# PVCNN2 is float32 throughout.  Through the kernels against plain_ops() the
+# kernels' outputs are equal; index_add_ (voxelize, the backward of every
+# gather) adds float32 terms in another order, which the voxel attention's
+# unscaled softmax amplifies (3e-5 of the output's scale between the JAX
+# package and the port on the CPU, tests/test_torch_pvcnn.py)
+PVD_PLAIN_LOSS_REL_TOL = 1e-4
+PVD_PLAIN_GRAD_REL_TOL = 1e-3
+# the kernels of a PVD training step: idx-only FPS, ball query, 3-NN
+PVD_PATH_KERNELS = ("fps_idx", "ball_query", "knn")
 VARIANTS = (
     ("off", {}),
     ("attention", dict(fused_attention=True)),
@@ -383,26 +420,36 @@ def device_ms(fn, name: str, iters: int = 30) -> float:
 
     fn()
     torch.cuda.synchronize()
-    # the trace on the card can miss device records of a window (3 of 30
-    # and 5 of 10 seen, and once all 10) and keep some too short (a mean of
-    # 21 seen read half the kernel's time), so the median is over the
-    # launches it saw, and a window that saw none is taken again
+    # the trace on the card can miss device records of a window (5 of 10,
+    # 8 of 30, and in whole windows of 10 all of them) and keep some too
+    # short (a mean of 21 seen read half the kernel's time), so each window
+    # pads the timed launches with as many before and after them, the
+    # median is over the launches it saw, and a window that saw none is
+    # taken again; after three such windows the time is CUDA events' mean
+    # a call, said so, which counts the wrapper's host time where that is
+    # the longer
     keys = PROFILED_KERNELS[name]
+    calls = 3 * iters
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
+            for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
         us = sorted(e.time_range.elapsed_us() for e in prof.events()
                     if e.device_type == DeviceType.CUDA and any(k in e.name for k in keys))
         if us:
             break
-        print(f"profiler: no device record of {name} in a window of {iters}", flush=True)
+        print(f"profiler: no device record of {name} in a window of {calls}", flush=True)
     n = len(us)
-    if not 1 <= n <= iters:
-        raise AssertionError(f"profiler saw {n} launches of {name}, not {iters}")
-    if n < iters:
-        print(f"profiler: {n} of {iters} device records of {name} in its window", flush=True)
+    if n > calls:
+        raise AssertionError(f"profiler saw {n} launches of {name} in a window of {calls}")
+    if n == 0:
+        ms = time_ms(fn, iters, warmup=1)
+        print(f"profiler: no device record of {name} in three windows; {ms:.4f} ms a call "
+              f"by CUDA events instead", flush=True)
+        return ms
+    if n < calls:
+        print(f"profiler: {n} of {calls} device records of {name} in its window", flush=True)
     mid = n // 2
     return (us[mid] if n % 2 else 0.5 * (us[mid - 1] + us[mid])) / 1e3
 
@@ -2410,6 +2457,440 @@ def file_pipeline(dev, workdir: str, direct: dict) -> dict:
     return total
 
 
+# ---- phase 16: the networks and model options of the tenth slice ----------
+
+
+def moved_check(tag: str, model, fresh_model) -> int:
+    """Every parameter has a finite gradient and moved from its seeded start,
+    but for tensors whose gradient is exactly zero (a squeeze-excitation's
+    hidden ReLU units all off); returns their count."""
+    start = dict(fresh_model.named_parameters())
+    dead = 0
+    for name, p in model.named_parameters():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"{tag}: parameter {name} has no finite gradient")
+        if torch.equal(p.detach(), start[name].detach()):
+            if bool(p.grad.any()):
+                raise AssertionError(f"{tag}: parameter {name} did not move")
+            dead += 1
+    return dead
+
+
+def pvd_kernels_at_its_shapes(x0, cond) -> None:
+    """The PVD path's kernels on the joined (B, 5120) cloud, against their
+    plain versions: FPS to 1024 (#6), the level-0 ball query (#3, r=0.1,
+    K=32) and the level-3 feature propagation's 3-NN (#4, 5120 queries over
+    1024 points)."""
+    from point_diffusion_refinement_tpu_torch.ops import neighbors, sampling
+
+    pts = torch.cat([x0, cond[..., :3]], dim=1).contiguous()
+    B, N, _ = pts.shape
+    idx = sampling.furthest_point_sample(pts, 1024)
+    ridx = sampling.furthest_point_sample_plain(pts, 1024)
+    centers = sampling.gather_points(pts, idx)
+    bidx, bcnt = neighbors.ball_query(pts, centers, 0.1, 32)
+    rbidx, rbcnt = neighbors.ball_query_plain(pts, centers, 0.1, 32)
+    d, kidx = neighbors.knn(pts, centers, 3)
+    rd, rkidx = neighbors.knn_plain(pts, centers, 3)
+    torch.cuda.synchronize()
+    equal = (torch.equal(idx, ridx), torch.equal(bidx, rbidx) and torch.equal(bcnt, rbcnt),
+             torch.equal(kidx.long(), rkidx.long()) and torch.equal(d, rd))
+    runs = (
+        ("fps_idx", f"({B},{N})->1024", lambda: sampling.furthest_point_sample(pts, 1024),
+         lambda: sampling.furthest_point_sample_plain(pts, 1024)),
+        ("ball_query", f"sup ({B},{N}) q 1024 r=0.1 K=32",
+         lambda: neighbors.ball_query(pts, centers, 0.1, 32),
+         lambda: neighbors.ball_query_plain(pts, centers, 0.1, 32)),
+        ("knn", f"q ({B},{N}) pts 1024 k=3", lambda: neighbors.knn(pts, centers, 3),
+         lambda: neighbors.knn_plain(pts, centers, 3)),
+    )
+    for (name, shape, run, plain), ok in zip(runs, equal):
+        print(f"pvd kernel {name} {shape}: equal to plain: {ok} "
+              f"device_ms={device_ms(run, name, iters=10):.4f} "
+              f"plain_ms={time_ms(plain, 2, warmup=1):.4f}", flush=True)
+        if not ok:
+            raise AssertionError(f"pvd: kernel {name} differs from its plain version")
+
+
+def pvd_training(dev, workdir: str):
+    """Phase 16a: PVCNN2Completion at the class defaults through ``train()``
+    (task completion, the ``ddpm`` schedule), the largest power-of-two batch
+    up to TRAIN_BATCH."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch import train as tr
+    from point_diffusion_refinement_tpu_torch.data import ArrayDataset
+    from point_diffusion_refinement_tpu_torch.ops import kernels
+    from point_diffusion_refinement_tpu_torch.sample import make_refiner
+    from point_diffusion_refinement_tpu_torch.train.loop import build_model, train
+
+    arrays = training_arrays(TRAIN_BATCH * TRAIN_STEPS, 2048, seed=30)
+    pc = {"network_type": "pvd", "model_name": "pvd", "network_args": {}}
+    schedule = option_schedule()
+
+    def tensors(batch: int):
+        return tuple(torch.from_numpy(arrays[k][:batch]).to(dev)
+                     for k in ("complete", "partial", "label", "generated"))
+
+    def step_at(batch: int):
+        model = build_model(pc, device=dev, seed=0)
+        step = tr.make_completion_train_step(model, schedule)
+        step(tr.create_train_state(model, seed=1), *tensors(batch)[:3])
+
+    B = fit_batch("pvd train", step_at, TRAIN_BATCH)
+    x0, cond, label, coarse = tensors(B)
+    pvd_kernels_at_its_shapes(x0, cond)
+
+    ds = ArrayDataset(**{k: v[: B * TRAIN_STEPS] for k, v in arrays.items()})
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    result = train(option_config(f"{workdir}/pvd", B, pc), dataset_override=ds)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    losses = result["losses"]
+    print(f"pvd train: {TRAIN_STEPS} steps at B={B} through train() in "
+          f"{time.perf_counter() - t0:.1f} s, losses={[round(v, 5) for v in losses]}", flush=True)
+    model, state = result["model"], result["state"]
+
+    # one step's launches: the run made TRAIN_STEPS times as many of each
+    step = tr.make_completion_train_step(model, schedule)
+    ops.reset_launch_counts()
+    step(state, x0, cond, label)
+    torch.cuda.synchronize()
+    one = ops.launch_counts()
+    print(f"pvd train launches: run={counts} one_step={one}", flush=True)
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"pvd train: losses are not {TRAIN_STEPS} finite values")
+    for name in PVD_PATH_KERNELS:
+        if one[name] <= 0 or counts[name] != TRAIN_STEPS * one[name]:
+            raise AssertionError(f"pvd train: kernel {name} was not launched on every step")
+    dead = moved_check("pvd train", model, build_model(pc, device=dev, seed=0))
+    print(f"pvd train: every parameter finite and moved, but {dead} tensors with an all-zero "
+          f"gradient", flush=True)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    sched = schedule.to(dev)
+    t = torch.randint(0, sched.T, (B,), generator=gen, device=dev)
+    z = torch.randn(x0.shape, generator=gen, device=dev)
+    loss_fn = tr.make_completion_loss(model, sched)
+    loss_k, g_k = grads_at(model, lambda: loss_fn(x0, cond, label, t, z))
+    with kernels.plain_ops():
+        loss_p, g_p = grads_at(model, lambda: loss_fn(x0, cond, label, t, z))
+    rel_loss = abs(loss_k - loss_p) / abs(loss_p)
+    rel_norm, worst, worst_name = grad_difference(g_k, g_p)
+    print(f"pvd train kernels vs plain: loss_rel={rel_loss:.3g} (tol {PVD_PLAIN_LOSS_REL_TOL}) "
+          f"grad_norm_rel={rel_norm:.3g} (tol {PVD_PLAIN_GRAD_REL_TOL}) "
+          f"worst_tensor_rel={worst:.3g} at {worst_name}", flush=True)
+    if not (rel_loss <= PVD_PLAIN_LOSS_REL_TOL and rel_norm <= PVD_PLAIN_GRAD_REL_TOL):
+        raise AssertionError("pvd train: a step through the kernels disagrees with the plain path")
+    model.zero_grad(set_to_none=True)
+    del g_k, g_p
+
+    run = lambda: step(state, x0, cond, label)
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        run()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    print(f"pvd train step: B={B} step_ms={ms:.1f} ({B / ms * 1e3:.1f} samples/s)", flush=True)
+    profile_window(f"pvd train steps at B={B}", run, 1, grad=True, kernels="a pvd train step")
+
+    with torch.no_grad():
+        refined = make_refiner(model)(coarse, cond, label, 0.001)
+    torch.cuda.synchronize()
+    finite = bool(torch.isfinite(refined).all())
+    print(f"pvd refine forward: B={B} out={tuple(refined.shape)} finite={finite}", flush=True)
+    if tuple(refined.shape) != (B, 2048, 3) or not finite:
+        raise AssertionError("pvd refine forward is not a finite (B, 2048, 3) cloud")
+    return counts, arrays
+
+
+def pointwise_training(dev, workdir: str, arrays):
+    """Phase 16b: PointwiseNet at its defaults through ``train()`` at
+    B = TRAIN_BATCH on phase 16a's data; it runs no kernel."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.data import ArrayDataset
+    from point_diffusion_refinement_tpu_torch.train.loop import build_model, train
+
+    pc = {"network_type": "pointwise_net", "model_name": "pointwise", "network_args": {}}
+    ds = ArrayDataset(**{k: v[: TRAIN_BATCH * TRAIN_STEPS] for k, v in arrays.items()})
+    ops.reset_launch_counts()
+    result = train(option_config(f"{workdir}/pointwise", TRAIN_BATCH, pc), dataset_override=ds)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    losses = result["losses"]
+    step_ms = [round(s * 1e3, 1) for s in result["step_seconds"]]
+    print(f"pointwise train: {TRAIN_STEPS} steps at B={TRAIN_BATCH} losses="
+          f"{[round(v, 5) for v in losses]} step_ms={step_ms} (host, from batch to loss; "
+          f"median after the first {float(np.median(step_ms[1:])):.1f}) launches={counts}",
+          flush=True)
+    if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"pointwise train: losses are not {TRAIN_STEPS} finite values")
+    cond_w = arrays["partial"].shape[-1]
+    dead = moved_check("pointwise train", result["model"],
+                       build_model(pc, device=dev, seed=0, condition_features=cond_w))
+    print(f"pointwise train: every parameter finite and moved, but {dead} tensors with an "
+          f"all-zero gradient", flush=True)
+    return counts
+
+
+def fp_launches(model, call) -> dict:
+    """{FP module: launches inside its forward} of one ``call()``."""
+    from point_diffusion_refinement_tpu_torch import ops
+
+    seen, hooks = {}, []
+    for name, m in model.named_children():
+        if name.startswith("fp"):
+            def pre(mod, args, name=name):
+                seen[name] = ops.launch_counts()
+
+            def post(mod, args, out, name=name):
+                after = ops.launch_counts()
+                seen[name] = {k: after[k] - seen[name][k] for k in after
+                              if after[k] != seen[name][k]}
+
+            hooks += [m.register_forward_pre_hook(pre), m.register_forward_hook(post)]
+    try:
+        call()
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    return seen
+
+
+def option_model(dev, **overrides):
+    """``DEFAULT_POINTNET_CONFIG`` in bf16 with seeded weights, with
+    ``overrides`` (``grouper=True`` sets ``include_grouper`` in both
+    ladders)."""
+    import copy
+
+    from point_diffusion_refinement_tpu_torch.config import DEFAULT_POINTNET_CONFIG
+    from point_diffusion_refinement_tpu_torch.models import PointNet2CloudCondition
+
+    cfg = copy.deepcopy(dict(DEFAULT_POINTNET_CONFIG))
+    cfg["compute_dtype"] = "bfloat16"
+    if overrides.pop("grouper", False):
+        for arch in ("architecture", "condition_net_architecture"):
+            cfg[arch]["include_grouper"] = True
+    cfg.update(overrides)
+    return cfg, PointNet2CloudCondition.from_config(cfg, device=dev, seed=0)
+
+
+def fp_grouper(dev, rng):
+    """Phase 16c: the feature-propagation grouper at the default config in
+    bf16: one B=4 ``denoise(fused=True)`` step against ``plain_ops()``, one
+    DDPM training step with both fused routes, and the launches inside each
+    FP module (the grouper's: #3 at inference, #8 under ``fused_gather``)."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch import train as tr
+    from point_diffusion_refinement_tpu_torch.ops import kernels
+
+    B = 4
+    _, model = option_model(dev, grouper=True)
+    cond = conditions(rng, B, dev)
+    label = torch.zeros(B, dtype=torch.int64, device=dev)
+    x = torch.from_numpy(rng.standard_normal((B, 2048, 3)).astype(np.float32)).to(dev)
+    ts = torch.full((B,), 5.0, device=dev)
+    with torch.no_grad():
+        model.denoise(x, ts, label, model.encode_condition(cond), fused=True)  # warm-up
+        ops.reset_launch_counts()
+        out = {}
+        by_fp = fp_launches(model, lambda: out.update(y=model.denoise(
+            x, ts, label, model.encode_condition(cond), fused=True).float()))
+        counts = ops.launch_counts()
+        with kernels.plain_ops():
+            y_p = model.denoise(x, ts, label, model.encode_condition(cond), fused=True).float()
+    y_k = out["y"]
+    rel = float((y_k - y_p).norm() / y_p.norm())
+    finite = bool(torch.isfinite(y_k).all())
+    print(f"fp grouper: encode + denoise step B={B} out={tuple(y_k.shape)} finite={finite} "
+          f"launches={counts} kernels vs plain rel_err={rel:.3g} (tol {DENOISE_REL_TOL})",
+          flush=True)
+    print(f"fp grouper: launches inside each FP module of encode + denoise: {by_fp}",
+          flush=True)
+    if tuple(y_k.shape) != (B, 2048, 3) or not finite or not rel <= DENOISE_REL_TOL:
+        raise AssertionError("fp grouper: the denoise step is wrong or disagrees with plain")
+    if any(c.get("ball_query", 0) < 1 for c in by_fp.values()):
+        raise AssertionError("fp grouper: an FP level did not launch the ball query")
+    del model
+
+    schedule = option_schedule()
+    arrays = training_arrays(TRAIN_BATCH, 2048, seed=31)
+
+    def tensors(batch: int):
+        return tuple(torch.from_numpy(arrays[k][:batch]).to(dev)
+                     for k in ("complete", "partial", "label"))
+
+    def step_at(batch: int):
+        _, m = option_model(dev, grouper=True)
+        tr.make_completion_train_step(m, schedule, fused_gather=True, fused_sa=True)(
+            tr.create_train_state(m, seed=1), *tensors(batch))
+
+    Bt = fit_batch("fp grouper train", step_at, TRAIN_BATCH)
+    _, model = option_model(dev, grouper=True)
+    state = tr.create_train_state(model, seed=1)
+    step = tr.make_completion_train_step(model, schedule, fused_gather=True, fused_sa=True)
+    batch = tensors(Bt)
+    step(state, *batch)  # warm-up
+    torch.cuda.synchronize()
+    ops.reset_launch_counts()
+    got = {}
+    t0 = time.perf_counter()
+    by_fp_train = fp_launches(model, lambda: got.update(loss=step(state, *batch)[1]))
+    ms = (time.perf_counter() - t0) * 1e3
+    train_counts = ops.launch_counts()
+    print(f"fp grouper train step: B={Bt} fused routes loss={float(got['loss']):.5f} "
+          f"step_ms={ms:.1f} launches={train_counts}", flush=True)
+    print(f"fp grouper: launches inside each FP module of the train step (forward): "
+          f"{by_fp_train}", flush=True)
+    if not np.isfinite(float(got["loss"])):
+        raise AssertionError("fp grouper: the training loss is not finite")
+    if any(c.get("ball_query_group", 0) < 1 for c in by_fp_train.values()):
+        raise AssertionError("fp grouper: an FP level did not launch the fused gather")
+    return {k: counts[k] + train_counts[k] for k in counts}
+
+
+def concat_partial(dev, rng):
+    """Phase 16d: ``concate_partial_with_noisy_input`` (local and global
+    features off) in bf16: one B=4 forward over the 5120-point joined cloud
+    against ``plain_ops()``."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.ops import kernels
+
+    B = 4
+    _, model = option_model(dev, include_local_feature=False, include_global_feature=False,
+                            concate_partial_with_noisy_input=True)
+    cond = conditions(rng, B, dev)
+    label = torch.zeros(B, dtype=torch.int64, device=dev)
+    x = torch.from_numpy(rng.standard_normal((B, 2048, 3)).astype(np.float32)).to(dev)
+    ts = torch.full((B,), 5.0, device=dev)
+    with torch.no_grad():
+        model(x, cond, ts, label)  # warm-up
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        y_k = model(x, cond, ts, label).float()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = ops.launch_counts()
+        with kernels.plain_ops():
+            y_p = model(x, cond, ts, label).float()
+    rel = float((y_k - y_p).norm() / y_p.norm())
+    finite = bool(torch.isfinite(y_k).all())
+    print(f"concat partial: forward B={B} over {2048 + 3072} points ms={ms:.2f} "
+          f"out={tuple(y_k.shape)} finite={finite} launches={counts} kernels vs plain "
+          f"rel_err={rel:.3g} (tol {DENOISE_REL_TOL})", flush=True)
+    if tuple(y_k.shape) != (B, 2048, 3) or not finite or not rel <= DENOISE_REL_TOL:
+        raise AssertionError("concat partial: the forward is wrong or disagrees with plain")
+    for name in ("fps", "ball_query", "knn"):
+        if counts[name] <= 0:
+            raise AssertionError(f"concat partial: kernel {name} was not launched")
+    return counts
+
+
+def expected_centres(cfg: dict, name: str) -> int:
+    """Centres a recording module queries a forward, per cloud."""
+    arch, cond_arch = cfg["architecture"], cfg["condition_net_architecture"]
+    kind, level = name.split("/")[0].rsplit("_", 1)
+    level = int(level)
+    if kind == "sa":
+        return int(arch["npoint"][level])
+    if kind == "sa_cond":
+        return int(cond_arch["npoint"][level])
+    if kind == "fp_cond":
+        return 3072 if level == 0 else int(cond_arch["npoint"][level - 1])
+    # enc_map, dec_map and fp query the x_t cloud's level
+    return 2048 if level == 0 else int(arch["npoint"][level - 1])
+
+
+def neighbor_stats_training(dev, workdir: str):
+    """Phase 16e: ``record_neighbor_stats`` for 2 DDPM steps at B =
+    TRAIN_BATCH with both fused routes through ``train()``: every module's
+    histogram sums to B * centres * steps; one step's histograms through the
+    kernels equal those under ``plain_ops()``."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch import train as tr
+    from point_diffusion_refinement_tpu_torch.data import ArrayDataset
+    from point_diffusion_refinement_tpu_torch.ops import kernels
+    from point_diffusion_refinement_tpu_torch.train.loop import train
+
+    steps = 2
+    cfg, _ = option_model(dev, record_neighbor_stats=True)
+    cfg["model_name"] = "stats"
+    arrays = training_arrays(TRAIN_BATCH * steps, 2048, seed=32)
+    ds = ArrayDataset(**arrays)
+    ops.reset_launch_counts()
+    result = train(option_config(f"{workdir}/stats", TRAIN_BATCH, cfg), dataset_override=ds,
+                   fused_gather=True, fused_sa=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    acc = result["neighbor_stats"]
+    sums = {k: float(v.sum()) for k, v in sorted(acc.hists.items())}
+    want = {k: float(TRAIN_BATCH * expected_centres(cfg, k) * steps) for k in sums}
+    print(f"neighbor stats: {steps} steps at B={TRAIN_BATCH} forwards={acc.forwards} "
+          f"launches={counts} histogram sums={sums}", flush=True)
+    acc.report()
+    if acc.forwards != steps or sums != want or not sums:
+        raise AssertionError(f"neighbor stats: histogram sums {sums}, expected {want}")
+
+    model = result["model"]
+    x0, cond, label = (torch.from_numpy(arrays[k][:TRAIN_BATCH]).to(dev)
+                       for k in ("complete", "partial", "label"))
+    sched = option_schedule().to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    t = torch.randint(0, sched.T, (TRAIN_BATCH,), generator=gen, device=dev)
+    z = torch.randn(x0.shape, generator=gen, device=dev)
+    loss_fn = tr.make_completion_loss(model, sched, fused_gather=True, fused_sa=True,
+                                      record_stats=True)
+    with torch.no_grad():
+        _, st_k = loss_fn(x0, cond, label, t, z)
+        with kernels.plain_ops():
+            _, st_p = loss_fn(x0, cond, label, t, z)
+    same = sorted(st_k) == sorted(st_p) and all(torch.equal(st_k[k], st_p[k]) for k in st_k)
+    print(f"neighbor stats: one step's {len(st_k)} histograms through the kernels equal "
+          f"plain: {same}", flush=True)
+    if not same:
+        raise AssertionError("neighbor stats: the kernels' counts differ from the plain path's")
+    return counts
+
+
+def option_schedule():
+    from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
+    from point_diffusion_refinement_tpu_torch.diffusion import calc_diffusion_hyperparams
+
+    dc = EXPERIMENTS["ddpm"]()["diffusion_config"]
+    return calc_diffusion_hyperparams(dc["T"], dc["beta_0"], dc["beta_T"])
+
+
+def option_config(root: str, batch: int, pointnet_config: dict) -> dict:
+    """The ``ddpm`` experiment with ``pointnet_config`` in place of its
+    network: one epoch, a checkpoint at its end, no in-loop eval."""
+    from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
+
+    cfg = EXPERIMENTS["ddpm"]()
+    cfg["pointnet_config"] = dict(pointnet_config)
+    cfg["train_config"].update(root_directory=root, n_epochs=1, epochs_per_ckpt=1,
+                               iters_per_logging=1, shuffle_seed=0)
+    cfg["mvp_dataset_config"].update(batch_size=batch, num_samples_tested=0)
+    return cfg
+
+
+def model_options(dev, workdir: str, rng) -> dict:
+    """Phase 16: every network and model option of the tenth slice, each
+    path's launch counts reset before and read after."""
+    paths = {}
+    paths["pvd_train"], arrays = pvd_training(dev, workdir)
+    paths["pointwise_train"] = pointwise_training(dev, workdir, arrays)
+    paths["fp_grouper"] = fp_grouper(dev, rng)
+    paths["concat_partial"] = concat_partial(dev, rng)
+    paths["neighbor_stats_train"] = neighbor_stats_training(dev, workdir)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2553,6 +3034,8 @@ def main() -> int:
             dev, workdir)
         at("14 file pipeline")
         path_counts["file_pipeline"] = file_pipeline(dev, workdir, direct)
+        at("16 model options")
+        path_counts.update(model_options(dev, workdir, rng))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

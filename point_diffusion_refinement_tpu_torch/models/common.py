@@ -75,6 +75,31 @@ class _GNParams(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
 
+class GroupNorm(_GNParams):
+    """Flax ``nn.GroupNorm(num_groups, epsilon)`` on a channels-last tensor
+    (B, ..., C): float32 statistics over every non-batch axis and one group
+    of C / num_groups channels, Flax's fast variance max(E[x^2] - E[x]^2,
+    0), a float32 output.  Parameters ``scale`` and ``bias``, as Flax names
+    them."""
+
+    def __init__(self, features: int, num_groups: int = 32, epsilon: float = 1e-6):
+        super().__init__(features)
+        if features % num_groups:
+            raise ValueError(f"{features} channels do not split into {num_groups} groups")
+        self.num_groups = int(num_groups)
+        self.epsilon = float(epsilon)
+
+    def forward(self, x):
+        B, C = x.shape[0], x.shape[-1]
+        g = self.num_groups
+        xg = x.to(torch.float32).reshape(B, -1, g, C // g)
+        mean = xg.mean(dim=(1, 3), keepdim=True)
+        var = ((xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean).clamp(min=0.0)
+        mul = torch.rsqrt(var + self.epsilon) * self.scale.reshape(1, 1, g, C // g)
+        y = (xg - mean) * mul + self.bias.reshape(1, 1, g, C // g)
+        return y.reshape(x.shape)
+
+
 def _group_affine(sum_c, ssq_c, cnt, num_groups, scale, bias):
     """Per-(batch, channel) affine (mu, s, b) of a group norm from per-channel
     f32 sums: fast variance max(E[x^2] - E[x]^2, 0), eps 1e-5."""

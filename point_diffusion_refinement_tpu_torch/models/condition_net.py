@@ -35,6 +35,12 @@ at the eligible kNN feature propagations) and ``packed`` (merged first-layer
 products).  As in the JAX package they take effect only together with the
 fused inference routing (``fused=True`` with at least one eligible FT level)
 and never in ``encode_condition`` or ``forward``.
+
+``concate_partial_with_noisy_input`` (local and global features off) runs
+one ``denoise`` over the joined cloud of [x_t, 0] and [condition, 1] rows
+and returns the x_t rows.  ``record_neighbor_stats`` builds every grouping
+module to record its neighbour counts inside
+``modules.collect_neighbor_stats``.
 """
 
 from __future__ import annotations
@@ -47,7 +53,7 @@ import torch.nn as nn
 from ..diffusion.schedule import calc_t_emb
 from ..ops.ball_group import ball_group
 from ..utils.device import DeviceLike, resolve_device
-from .common import ACTIVATIONS, Dense, swish
+from .common import ACTIVATIONS, Dense, GroupNorm, swish
 from .model_config import (
     as_config,
     attention_kwargs,
@@ -95,27 +101,6 @@ class Embed(nn.Module):
         return self.embedding[ids.long()]
 
 
-class HeadGroupNorm(nn.Module):
-    """Flax ``nn.GroupNorm`` (32 groups, eps 1e-5) on (B, N, C): float32
-    statistics over N and the group's channels, float32 output."""
-
-    def __init__(self, features: int, num_groups: int = 32):
-        super().__init__()
-        self.num_groups = num_groups
-        self.scale = nn.Parameter(torch.ones(features))
-        self.bias = nn.Parameter(torch.zeros(features))
-
-    def forward(self, x):
-        B, N, C = x.shape
-        g = self.num_groups
-        xg = x.to(torch.float32).reshape(B, N, g, C // g)
-        mean = xg.mean(dim=(1, 3), keepdim=True)
-        var = ((xg * xg).mean(dim=(1, 3), keepdim=True) - mean * mean).clamp(min=0.0)
-        mul = torch.rsqrt(var + 1e-5) * self.scale.reshape(1, 1, g, C // g)
-        y = (xg - mean) * mul + self.bias.reshape(1, 1, g, C // g)
-        return y.reshape(B, N, C)
-
-
 class PointNet2CloudCondition(nn.Module):
     """Built from the reference ``pointnet_config`` dict (the schema of
     exp_configs/mvp_configs/*.json after list restoration)."""
@@ -129,8 +114,12 @@ class PointNet2CloudCondition(nn.Module):
         self.include_class_condition = bool(hp.get("include_class_condition", False))
         self.include_local_feature = bool(hp.get("include_local_feature", True))
         self.include_global_feature = bool(hp.get("include_global_feature", False))
-        if hp.get("concate_partial_with_noisy_input", False):
-            raise NotImplementedError("concate_partial_with_noisy_input is not ported yet")
+        # one cloud of [x_t, 0] and [condition, 1] rows through the x_t
+        # branch, with no condition branch
+        self.concat_partial = bool(hp.get("concate_partial_with_noisy_input", False))
+        if self.concat_partial:
+            assert not self.include_local_feature and not self.include_global_feature
+        self._record = bool(hp.get("record_neighbor_stats", False))
         self.attach_position = bool(hp["attach_position_to_input_feature"])
         self.pooling = hp.get("pooling", "max")
         self.activation_name = hp.get("activation", "relu")
@@ -145,7 +134,8 @@ class PointNet2CloudCondition(nn.Module):
         pos_w = (6 * self.pos_multires if self.use_position_encoding else 0) + (
             3 if self.attach_position else 0
         )
-        x_feat0 = int(hp.get("in_fea_dim", 0)) + pos_w
+        # the joined cloud's extra channel is the flag
+        x_feat0 = (1 if self.concat_partial else int(hp.get("in_fea_dim", 0))) + pos_w
         c_feat0 = int(hp.get("partial_in_fea_dim", 0)) + pos_w
 
         t_w = 4 * self.t_dim
@@ -229,7 +219,7 @@ class PointNet2CloudCondition(nn.Module):
         else:
             self.head_mid = Dense(head_in, 128, use_bias=bool(hp["bias"]), dtype=dtype)
             if self.head_bn:
-                self.head_norm = HeadGroupNorm(128)
+                self.head_norm = GroupNorm(128, 32, epsilon=1e-5)
             self.head_out = Dense(128, out_dim)
 
     # ---- construction helpers ------------------------------------------
@@ -244,6 +234,7 @@ class PointNet2CloudCondition(nn.Module):
             bn=bool(hp.get("bn", True)), bn_first=bool(hp["bn_first"]),
             bias=bool(hp["bias"]), res_connect=bool(hp["res_connect"]),
             activation=hp.get("activation", "relu"), dtype=self.dtype,
+            record_neighbor_stats=self._record,
         )
 
     def _cond_kwargs(self, cond):
@@ -274,15 +265,24 @@ class PointNet2CloudCondition(nn.Module):
         return mods
 
     def _fp_ladder(self, arch, unknown_w, known_w, include_t, t_w, cond, att, g_att=None):
+        hp = self.hp
         dfd = arch["decoder_feature_dim"]
         depth = int(arch["decoder_mlp_depth"])
         use_knn = bool(arch.get("use_knn_FP", False))
         K = int(arch.get("K", 3))
+        nd = arch["neighbor_definition"]
+        nd = tuple(nd) if isinstance(nd, (list, tuple)) else (nd,) * len(arch["radius"])
         mods = []
         for j in range(len(dfd) - 1):
+            # the grouper of FP j groups at SA level j's radius and nsample
             kw = dict(include_t=include_t, t_features=t_w,
                       include_grouper=bool(arch.get("include_grouper", False)),
-                      **self._common())
+                      radius=float(arch["radius"][j]), nsample=int(arch["nsample"][j]),
+                      use_xyz=bool(hp["model.use_xyz"]),
+                      include_abs_coordinate=bool(hp["include_abs_coordinate"]),
+                      include_center_coordinate=bool(
+                          hp.get("include_center_coordinate", False)),
+                      neighbor_def=nd[j], **self._common())
             if use_knn:
                 # the global condition feeds mlp2, the class condition mlp1
                 ck = self._cond_kwargs(cond)
@@ -419,7 +419,8 @@ class PointNet2CloudCondition(nn.Module):
             n = len(self.fp_cond)
             for i in range(-1, -(n + 1), -1):
                 feats[i - 1] = self.fp_cond[i](
-                    l_uvw[i - 1], l_uvw[i], feats[i - 1], feats[i], pooling=self.pooling
+                    l_uvw[i - 1], l_uvw[i], feats[i - 1], feats[i], pooling=self.pooling,
+                    fused_gather=fused_gather,
                 )
             decoder_feats = tuple(feats)
         else:
@@ -499,9 +500,9 @@ class PointNet2CloudCondition(nn.Module):
                 input_feature = self._cat([mapped, l_features[i]])
             else:
                 input_feature = l_features[i]
-            fp_kw = {}
+            fp_kw = dict(fused_gather=fused_gather)
             if isinstance(self.fp[i], KnnFeaturePropagation):
-                fp_kw = dict(fused_knn=fused and fused_knn, **inference)
+                fp_kw.update(fused_knn=fused and fused_knn, **inference)
             l_features[i - 1] = self.fp[i](
                 l_xyz[i - 1], l_xyz[i], l_features[i - 1], input_feature, **fp_kw, **kw
             )
@@ -524,5 +525,15 @@ class PointNet2CloudCondition(nn.Module):
         if self.include_global_feature or self.include_local_feature:
             assert condition is not None
         routes = dict(fused_gather=fused_gather, fused_sa=fused_sa)
+        if self.concat_partial:
+            B1, N1, C1 = pointcloud.shape
+            assert C1 == 3
+            pc = torch.cat([pointcloud, pointcloud.new_zeros(B1, N1, 1)], dim=2)
+            cnd = condition.to(pointcloud.dtype)
+            if cnd.shape[-1] == 3:
+                cnd = torch.cat([cnd, cnd.new_ones(cnd.shape[:2] + (1,))], dim=2)
+            out = self.denoise(torch.cat([pc, cnd], dim=1), ts=ts, label=label, cond=None,
+                               **routes)
+            return out[:, :N1, :]
         cond = self.encode_condition(condition, **routes) if condition is not None else None
         return self.denoise(pointcloud, ts=ts, label=label, cond=cond, **routes)

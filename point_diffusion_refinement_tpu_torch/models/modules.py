@@ -36,13 +36,25 @@ stays unfused: packed wins.
 
 ``GlobalSelfAttention`` follows a set abstraction or a kNN feature
 propagation at the levels a config's ``global_attention_setting`` names, on
-[features, xyz], as in the JAX package.  The grouper inside feature
-propagation is not ported (off in the shipped configs); asking for it raises.
+[features, xyz], as in the JAX package.  With ``include_grouper`` a
+feature propagation groups its joined features over its own points (ball
+query or kNN at the level's radius and nsample), runs its MLP over the
+groups and pools them; the fused kNN route stays off there, and under
+``fused_gather`` the grouping takes the fused ball query + gather as every
+other radius grouping does.
+
+Neighbour statistics: a grouping module built with
+``record_neighbor_stats`` records a (nsample + 1,) histogram of its
+neighbour counts, clipped to nsample, on every forward inside
+``collect_neighbor_stats(model)``, keyed by the Flax path the JAX package's
+``neighbor_stats`` collection flattens to (``sa_0/count_hist``).  kNN
+groupings record nothing, and outside the context nothing is recorded.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+import contextlib
+from typing import Dict, Optional, Sequence
 
 import torch
 import torch.nn as nn
@@ -65,15 +77,44 @@ TRAIN_FUSED_MAX_TABLE = 128
 KNN_FUSED_MAX_TABLE = 256
 
 
-def _unsupported(flag: bool, what: str) -> None:
-    if flag:
-        raise NotImplementedError(f"{what} is not ported yet")
+def _sow_count_hist(mod: nn.Module, counts, nsample: int) -> None:
+    """Add this forward's (nsample + 1,) float32 histogram of ``counts``
+    (clipped to nsample) to the sink ``collect_neighbor_stats`` armed
+    ``mod`` with; nothing without a sink or for kNN counts ("all")."""
+    sink = getattr(mod, "_stats_sink", None)
+    if sink is None or counts is None or isinstance(counts, str):
+        return
+    c = counts.clamp(0, nsample).reshape(-1).to(torch.int64)
+    hist = torch.bincount(c, minlength=nsample + 1).to(torch.float32)
+    name = mod._stats_name
+    sink[name] = sink[name] + hist if name in sink else hist
 
 
-def _cat_promoted(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``concatenate([a, b], -1)`` in the promoted dtype, as jnp does."""
-    dt = torch.promote_types(a.dtype, b.dtype)
-    return torch.cat([a.to(dt), b.to(dt)], dim=-1)
+@contextlib.contextmanager
+def collect_neighbor_stats(model: nn.Module):
+    """Within the context, every submodule of ``model`` built with
+    ``record_neighbor_stats`` adds its count histogram of each forward to
+    the dict this yields, keyed ``<flax path>/count_hist``."""
+    stats: Dict[str, torch.Tensor] = {}
+    armed = []
+    for name, m in model.named_modules():
+        if getattr(m, "record_neighbor_stats", False):
+            m._stats_sink = stats
+            m._stats_name = name.replace(".", "/") + "/count_hist"
+            armed.append(m)
+    try:
+        yield stats
+    finally:
+        for m in armed:
+            m._stats_sink = None
+
+
+def _cat_all(parts) -> torch.Tensor:
+    """``concatenate(parts, -1)`` in the promoted dtype, as jnp does."""
+    dt = parts[0].dtype
+    for p in parts[1:]:
+        dt = torch.promote_types(dt, p.dtype)
+    return torch.cat([p.to(dt) for p in parts], dim=-1)
 
 
 def _packed_first_layers(grouped: torch.Tensor, cm: ConditionedMLP,
@@ -165,8 +206,9 @@ class SetAbstraction(nn.Module):
                  attention_last_activation: bool = True,
                  use_global_attention: bool = False, global_attention_bn: bool = True,
                  global_attention_last_activation: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, record_neighbor_stats: bool = False):
         super().__init__()
+        self.record_neighbor_stats = record_neighbor_stats
         self.npoint, self.radius, self.nsample = int(npoint), float(radius), int(nsample)
         self.in_features = int(in_features)
         self.use_xyz, self.include_abs = use_xyz, include_abs_coordinate
@@ -255,6 +297,7 @@ class SetAbstraction(nn.Module):
                 include_center_coordinate=self.include_center, subset=True,
                 fused_gather=fused_gather,
             )
+        _sow_count_hist(self, counts, self.nsample)
         query = None
         if self.use_attention:
             query = (features[:, : self.npoint] if fps_ordered
@@ -269,14 +312,48 @@ class SetAbstraction(nn.Module):
             ),
         )
         if self.use_global_attention:
-            new_features = self.GlobalSelfAttention_0(_cat_promoted(new_features, new_xyz))
+            new_features = self.GlobalSelfAttention_0(_cat_all([new_features, new_xyz]))
         # new_xyz stays in FPS selection order: the next level's
         # fps_ordered=True relies on it
         return new_xyz, new_features
 
 
-class FeaturePropagation(nn.Module):
-    """3-NN inverse-distance interpolation + skip concat + conditioned MLP."""
+class _Grouper:
+    """The grouper of a feature propagation: ``query_and_group`` of the
+    joined features over the propagation's own points."""
+
+    def _init_grouper(self, include_grouper: bool, radius: float, nsample: int,
+                      use_xyz: bool, include_abs_coordinate: bool,
+                      include_center_coordinate: bool, neighbor_def: str,
+                      record_neighbor_stats: bool) -> None:
+        self.include_grouper = include_grouper
+        self.radius, self.nsample = float(radius), int(nsample)
+        self.use_xyz, self.include_abs = use_xyz, include_abs_coordinate
+        self.include_center = include_center_coordinate
+        self.neighbor_def = neighbor_def
+        self.record_neighbor_stats = record_neighbor_stats
+
+    def _mlp_in(self, joined: int) -> int:
+        """The MLP's input width over ``joined`` feature channels."""
+        if not self.include_grouper:
+            return joined
+        return grouped_width(joined, self.use_xyz, self.include_abs, self.include_center)
+
+    def _group(self, unknown, new_features, fused_gather: bool):
+        grouped, counts = query_and_group(
+            unknown, unknown, new_features, radius=self.radius, nsample=self.nsample,
+            neighbor_def=self.neighbor_def, use_xyz=self.use_xyz,
+            include_abs_coordinate=self.include_abs,
+            include_center_coordinate=self.include_center, subset=True,
+            fused_gather=fused_gather,
+        )
+        _sow_count_hist(self, counts, self.nsample)
+        return grouped, counts
+
+
+class FeaturePropagation(_Grouper, nn.Module):
+    """3-NN inverse-distance interpolation + skip concat + conditioned MLP
+    (over the groups of the grouper, then pooled, with ``include_grouper``)."""
 
     def __init__(self, unknown_features: int, known_features: int, mlp: Sequence[int],
                  include_t: bool = False, t_features: int = 0,
@@ -285,14 +362,19 @@ class FeaturePropagation(nn.Module):
                  second_condition_features: int = 0, bn: bool = True,
                  bn_first: bool = False, bias: bool = False, res_connect: bool = False,
                  first_conv_features: Optional[int] = None, include_grouper: bool = False,
-                 activation: str = "relu", dtype: Optional[torch.dtype] = None):
+                 radius: float = 0.0, nsample: int = 32, use_xyz: bool = True,
+                 include_abs_coordinate: bool = True,
+                 include_center_coordinate: bool = False, neighbor_def: str = "radius",
+                 activation: str = "relu", dtype: Optional[torch.dtype] = None,
+                 record_neighbor_stats: bool = False):
         super().__init__()
-        _unsupported(include_grouper, "the feature-propagation grouper")
+        self._init_grouper(include_grouper, radius, nsample, use_xyz, include_abs_coordinate,
+                           include_center_coordinate, neighbor_def, record_neighbor_stats)
         self.include_t = include_t
         self.include_condition = include_condition
         self.include_second_condition = include_second_condition
         self.ConditionedMLP_0 = ConditionedMLP(
-            int(known_features) + int(unknown_features), mlp, include_t=include_t,
+            self._mlp_in(int(known_features) + int(unknown_features)), mlp, include_t=include_t,
             t_features=t_features, include_condition=include_condition,
             condition_features=condition_features,
             include_second_condition=include_second_condition,
@@ -302,7 +384,8 @@ class FeaturePropagation(nn.Module):
         )
 
     def forward(self, unknown, known, unknown_feats, known_feats, t_emb=None,
-                condition_emb=None, second_condition_emb=None, pooling: str = "max"):
+                condition_emb=None, second_condition_emb=None, pooling: str = "max",
+                fused_gather: bool = False):
         if known is not None:
             dist, idx = three_nn(unknown, known)
             interpolated = three_interpolate(known_feats, idx, inverse_distance_weights(dist))
@@ -314,22 +397,30 @@ class FeaturePropagation(nn.Module):
             torch.cat([interpolated, unknown_feats], dim=-1)
             if unknown_feats is not None else interpolated
         )
+        if self.include_grouper:
+            h, counts = self._group(unknown, new_features, fused_gather)
+        else:
+            h = new_features[:, :, None, :]  # K = 1
         h = self.ConditionedMLP_0(
-            new_features[:, :, None, :],
+            h,
             t_emb=t_emb if self.include_t else None,
             condition_emb=condition_emb if self.include_condition else None,
             second_condition_emb=(
                 second_condition_emb if self.include_second_condition else None
             ),
         )
+        if self.include_grouper:
+            return pool_features(h, counts, pooling)
         return h[:, :, 0, :]
 
 
-class KnnFeaturePropagation(nn.Module):
+class KnnFeaturePropagation(_Grouper, nn.Module):
     """kNN feature propagation (the shipped configs' use_knn_FP, K=8):
     group_knn (+11 position/distance channels) -> mlp1 (+class condition) ->
     attention (query = skip features) or pool -> concat skip + xyz ->
-    mlp2 (+t, +global condition)."""
+    mlp2 (+t, +global condition).  With ``include_grouper`` the concat of
+    interpolated and skip features is grouped over the unknown points
+    instead of taking xyz, and mlp2's output is pooled."""
 
     def __init__(self, unknown_features: int, known_features: int,
                  mlp1: Sequence[int], mlp2: Sequence[int], k: int,
@@ -338,15 +429,22 @@ class KnnFeaturePropagation(nn.Module):
                  include_second_condition: bool = False,
                  second_condition_features: int = 0, bn: bool = True,
                  bn_first: bool = False, bias: bool = False, res_connect: bool = False,
-                 include_grouper: bool = False, activation: str = "relu",
+                 include_grouper: bool = False, radius: float = 0.0, nsample: int = 32,
+                 use_xyz: bool = True, include_abs_coordinate: bool = True,
+                 include_center_coordinate: bool = False, neighbor_def: str = "radius",
+                 activation: str = "relu",
                  use_attention: bool = False, attention_bn: bool = True,
                  attention_transform_out: bool = True,
                  attention_last_activation: bool = True,
                  use_global_attention: bool = False, global_attention_bn: bool = True,
                  global_attention_last_activation: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, record_neighbor_stats: bool = False):
         super().__init__()
-        _unsupported(include_grouper, "the feature-propagation grouper")
+        if use_global_attention and include_grouper:
+            raise ValueError("global attention after a feature propagation needs "
+                             "include_grouper off")
+        self._init_grouper(include_grouper, radius, nsample, use_xyz, include_abs_coordinate,
+                           include_center_coordinate, neighbor_def, record_neighbor_stats)
         self.k = int(k)
         self.include_t = include_t
         self.include_condition = include_condition
@@ -366,8 +464,10 @@ class KnnFeaturePropagation(nn.Module):
                 transform_grouped_feat_out=attention_transform_out,
                 last_activation=attention_last_activation, dtype=dtype,
             )
+        # [interpolated, skip] grouped, or with xyz attached
+        mlp2_in = self._mlp_in(int(mlp1[-1]) + uw) + (0 if include_grouper else 3)
         self.ConditionedMLP_1 = ConditionedMLP(
-            int(mlp1[-1]) + uw + 3, mlp2, include_t=include_t, t_features=t_features,
+            mlp2_in, mlp2, include_t=include_t, t_features=t_features,
             include_condition=include_condition, condition_features=condition_features,
             **common,
         )
@@ -383,6 +483,7 @@ class KnnFeaturePropagation(nn.Module):
         its windowed kernel, table width included)."""
         return (
             fused_knn
+            and not self.include_grouper
             and known is not None
             and known_feats is not None
             and self.dtype is not None
@@ -395,7 +496,7 @@ class KnnFeaturePropagation(nn.Module):
     def forward(self, unknown, known, unknown_feats, known_feats, t_emb=None,
                 condition_emb=None, second_condition_emb=None, pooling: str = "max",
                 fused_attention: bool = False, fused_knn: bool = False,
-                packed: bool = False):
+                packed: bool = False, fused_gather: bool = False):
         if known is not None:
             grouped = group_knn_features(
                 unknown, known, known_feats, min(self.k, known.shape[1]),
@@ -422,19 +523,20 @@ class KnnFeaturePropagation(nn.Module):
                 unknown_feats = unknown_feats.to(self.dtype)
             pos = unknown.to(self.dtype)
         parts = [interpolated] + ([unknown_feats] if unknown_feats is not None else [])
-        parts.append(pos)
-        dt = parts[0].dtype
-        for p in parts[1:]:
-            dt = torch.promote_types(dt, p.dtype)
-        h = torch.cat([p.to(dt) for p in parts], dim=-1)[:, :, None, :]
+        if self.include_grouper:
+            h, counts = self._group(unknown, _cat_all(parts), fused_gather)
+        else:
+            h = _cat_all(parts + [pos])[:, :, None, :]
         h = self.ConditionedMLP_1(
             h,
             t_emb=t_emb if self.include_t else None,
             condition_emb=condition_emb if self.include_condition else None,
         )
+        if self.include_grouper:
+            return pool_features(h, counts, pooling)
         h = h[:, :, 0, :]
         if self.use_global_attention:
-            h = self.GlobalSelfAttention_0(_cat_promoted(h, unknown))
+            h = self.GlobalSelfAttention_0(_cat_all([h, unknown]))
         return h
 
 
@@ -454,8 +556,9 @@ class FeatureTransfer(nn.Module):
                  activation: str = "relu", use_attention: bool = False,
                  attention_bn: bool = True, attention_transform_out: bool = True,
                  attention_last_activation: bool = True,
-                 dtype: Optional[torch.dtype] = None):
+                 dtype: Optional[torch.dtype] = None, record_neighbor_stats: bool = False):
         super().__init__()
+        self.record_neighbor_stats = record_neighbor_stats
         self.radius, self.k = float(radius), int(k)
         self.use_xyz, self.include_abs = use_xyz, include_abs_coordinate
         self.include_center = include_center_coordinate
@@ -489,6 +592,7 @@ class FeatureTransfer(nn.Module):
                 include_center_coordinate=self.include_center, subset=subset,
                 fused_gather=fused_gather,
             )
+        _sow_count_hist(self, counts, self.k)
         if self.use_attention:
             assert query_feats is not None
         return _mlp_and_pool(

@@ -30,7 +30,8 @@ def make_coarse_sampler(
     fused_knn: bool = False,
     packed: bool = False,
 ):
-    """Build a sampler for ``model`` (a PointNet2CloudCondition).
+    """Build a sampler for ``model``, a PointNet2CloudCondition (another
+    network raises ``ValueError``).
 
     Returns fn(condition, label, generator=None, x_T=None, noise=None,
     XT=None) -> x0 (B, num_points, 3) float32 on the model's device, or
@@ -45,6 +46,10 @@ def make_coarse_sampler(
     inference routes of ``denoise`` (the fused attention-pool kernel, the
     fused kNN group, merged first-layer products); all off by default.
     """
+    if not hasattr(model, "encode_condition"):
+        # as in the JAX package, whose sampler reads model.encode_condition
+        raise ValueError(f"{type(model).__name__} has no encode_condition: the coarse "
+                         "sampler needs the pointnet++ network")
     routes = dict(fused_attention=fused_attention, fused_knn=fused_knn, packed=packed)
 
     def sampler(condition: torch.Tensor, label: torch.Tensor,

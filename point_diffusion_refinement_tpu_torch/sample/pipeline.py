@@ -24,7 +24,8 @@ import torch
 
 from ..config.loader import load_config
 from ..diffusion import calc_diffusion_hyperparams, make_fast_sampling_plan
-from ..train.checkpoints import find_max_epoch, maybe_resume
+from ..models.pointwise_net import PointwiseNet
+from ..train.checkpoints import CKPT_PREFIX, STATE_FILE, find_max_epoch, maybe_resume
 from ..train.step import TrainState, create_train_state
 from ..utils.device import DeviceLike, resolve_device
 from .evaluate import evaluate
@@ -72,7 +73,15 @@ def _restore(config: dict, ckpt_iter, dev: torch.device):
     it = find_max_epoch(ckpt_dir, ckpt_iter) if ckpt_iter in ("max", "best") else int(ckpt_iter)
     if it < 0:
         raise FileNotFoundError(f"no checkpoint under {ckpt_dir}")
-    model = build_model(config["pointnet_config"], device=dev, seed=0)
+    cond_w = None
+    if config["pointnet_config"].get("network_type") == "pointwise_net":
+        # the condition width its global encoder was built for (the JAX
+        # pipeline initialises from a batch of the dataset)
+        blob = torch.load(os.path.join(ckpt_dir, f"{CKPT_PREFIX}_{it}", STATE_FILE),
+                          map_location="cpu", weights_only=True)
+        cond_w = blob["model_state_dict"][PointwiseNet.CONDITION_WEIGHT].shape[1]
+    model = build_model(config["pointnet_config"], device=dev, seed=0,
+                        condition_features=cond_w)
     state, _, _ = maybe_resume(ckpt_dir, it, create_train_state(model))
     if state is None:
         raise FileNotFoundError(f"checkpoint {it} under {ckpt_dir}")

@@ -10,9 +10,17 @@ subset of ``num_samples_tested`` clouds in the loop through
 ``sample/evaluate.py`` and keeps the best checkpoint.  ``train_from_file``
 reads the config from a JSON file.
 
+``build_model`` builds any of the JAX package's three networks:
+``pointnet++`` (the default), ``pvd`` (PVCNN2) and ``pointwise_net``, the
+last two from ``network_args``.  With ``record_neighbor_stats`` (PointNet++
+only) the loop prints the configuration's neighbour-count report once on
+the first batch, feeds every step's histograms to a
+``NeighborStatsAccumulator``, reports it at each checkpoint and returns it.
+As in the JAX package, the in-loop eval of the completion task needs the
+PointNet++ network (``make_coarse_sampler`` raises for another one).
+
 Not ported yet, and raising when asked for: multi-device and multi-process
-training with its gather of eval results across processes, the neighbour
-statistics and the non-PointNet++ backbones.
+training with its gather of eval results across processes.
 """
 
 from __future__ import annotations
@@ -31,11 +39,12 @@ from ..cli.eval_results import gather_eval_results, save_eval_result
 from ..config.loader import load_config
 from ..data import ArrayDataset, MVPDataset, MVPDatasetConfig, iterate_batches, synthetic_dataset
 from ..diffusion import calc_diffusion_hyperparams, make_fast_sampling_plan
-from ..models import PointNet2CloudCondition
+from ..models import PointNet2CloudCondition, PointwiseNet, PVCNN2Completion
 from ..sample import evaluate, make_coarse_sampler, make_refiner
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import TensorBoardLogger
 from ..utils.meters import AverageMeter
+from ..utils.neighbor_stats import NeighborStatsAccumulator, model_neighbor_stats
 from .checkpoints import maybe_resume, save_checkpoint
 from .scheduler import QuantityScheduler
 from .step import create_train_state, make_completion_train_step, make_refine_train_step
@@ -54,13 +63,32 @@ def local_experiment_path(config: dict) -> str:
     return path
 
 
-def build_model(pointnet_config: dict, device: DeviceLike = None, seed: int = 0):
+def build_model(pointnet_config: dict, device: DeviceLike = None, seed: Optional[int] = 0,
+                condition_features: Optional[int] = None):
+    """The network of ``pointnet_config["network_type"]`` on ``device``,
+    with weights drawn from ``seed`` when it is not None.  The pointwise
+    network's global encoder reads the condition's channel count,
+    ``condition_features``, which Flax takes from the example batch the JAX
+    package initialises with."""
     network_type = pointnet_config.get("network_type", "pointnet++")
     if network_type == "pointnet++":
         return PointNet2CloudCondition.from_config(pointnet_config, device=device, seed=seed)
-    if network_type in ("pointwise_net", "pvd"):
-        raise NotImplementedError(f"network_type {network_type!r} is not ported yet")
-    raise ValueError(network_type)
+    args = dict(pointnet_config.get("network_args", {}))
+    if network_type == "pointwise_net":
+        if condition_features is None:
+            raise ValueError("a pointwise_net network needs condition_features, the "
+                             "condition cloud's channel count")
+        model = PointwiseNet(condition_features=int(condition_features), **args)
+    elif network_type == "pvd":
+        model = PVCNN2Completion(**args)
+    else:
+        raise ValueError(network_type)
+    dev = resolve_device(device)
+    if seed is not None:
+        g = torch.Generator()
+        g.manual_seed(int(seed))
+        model.init_weights(g)
+    return model.to(dev).eval()
 
 
 def make_dataset(trainset_config: dict, phase="train", rank: int = 0, world: int = 1,
@@ -179,8 +207,9 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
     trainset_config = config.get("mvp_dataset_config", config.get("dataset_config", {}))
     refine_config = config.get("refine_config", {})
     task = train_config.get("task", "completion")
-    if pointnet_config.get("record_neighbor_stats", False):
-        raise NotImplementedError("record_neighbor_stats is not ported yet")
+    network_type = pointnet_config.get("network_type", "pointnet++")
+    record_stats = bool(pointnet_config.get("record_neighbor_stats", False)
+                        and network_type == "pointnet++")
 
     dev = resolve_device(device)
     root = train_config.get("root_directory", "exp")
@@ -193,11 +222,29 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
 
     schedule = calc_diffusion_hyperparams(
         diffusion_config["T"], diffusion_config["beta_0"], diffusion_config["beta_T"])
-    model = build_model(pointnet_config, device=dev, seed=0)
 
     rank, world = 0, 1  # one process
     dataset = dataset_override or make_dataset(trainset_config, "train", rank, world)
     batch_size = trainset_config.get("batch_size", 32)
+    # the first batch, where the network or the statistics read it
+    example = None
+    if network_type == "pointwise_net" or record_stats:
+        example = next(iterate_batches(dataset, batch_size, shuffle=False))
+    model = build_model(
+        pointnet_config, device=dev, seed=0,
+        condition_features=(np.asarray(example["partial"]).shape[-1]
+                            if network_type == "pointwise_net" else None))
+    stats_acc = None
+    if record_stats:
+        # a one-shot report of the configuration's radius ladders on the
+        # first batch, then every step's histograms, reported at each
+        # checkpoint
+        net_in = (example.get("generated", example["complete"])
+                  if task == "refine_completion" else example["complete"])
+        model_neighbor_stats(pointnet_config,
+                             torch.as_tensor(np.asarray(net_in, np.float32)).to(dev),
+                             _to_device(example, "partial", dev))
+        stats_acc = NeighborStatsAccumulator()
     loader_len = max(1, len(dataset) // batch_size)
     n_iters = int(loader_len * train_config.get("n_epochs", 1))
     if max_steps is not None:
@@ -219,7 +266,7 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
     upsample = int(pointnet_config.get("point_upsample_factor", 1))
     include_center = bool(
         pointnet_config.get("include_displacement_center_to_final_output", False))
-    routes = dict(fused_gather=fused_gather, fused_sa=fused_sa)
+    routes = dict(fused_gather=fused_gather, fused_sa=fused_sa, record_stats=record_stats)
     if task == "completion":
         step_fn = make_completion_train_step(model, schedule, **routes)
     else:
@@ -335,12 +382,16 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
             condition = _to_device(batch, "partial", dev)
             label = _to_device(batch, "label", dev, torch.int64)
             if task == "completion":
-                state, loss = step_fn(state, x0, condition, label)
+                out = step_fn(state, x0, condition, label)
             else:
                 generated = torch.as_tensor(np.asarray(
                     batch.get("generated", batch["complete"]), np.float32)).to(dev)
-                state, loss = step_fn(state, x0, condition, label, generated,
-                                      osf_at(n_iter))
+                out = step_fn(state, x0, condition, label, generated, osf_at(n_iter))
+            if record_stats:
+                state, loss, step_stats = out
+                stats_acc.update(step_stats)
+            else:
+                state, loss = out
             loss_val = float(loss)
             step_seconds.append(time.perf_counter() - t_batch)
             loss_meter.update(loss_val)
@@ -358,6 +409,8 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
                     output_directory, n_iter, state,
                     training_time_seconds=time.time() - time0)
                 print(f"checkpoint saved at iteration {n_iter}", flush=True)
+                if stats_acc is not None and stats_acc.forwards:
+                    stats_acc.report()
 
                 if (num_samples_tested > 0 and n_iter >= eval_start_iter
                         and num_ckpts % eval_per_ckpt == 0):
@@ -400,6 +453,7 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
         "n_iter": n_iter,
         "eval_records": eval_records,
         "best_cd": best_cd,
+        "neighbor_stats": stats_acc,
     }
 
 

@@ -11,13 +11,19 @@ that draws them from the state's generator.
 The two fused training routes of the network (``fused_gather``,
 ``fused_sa``; see ``models/modules.py``) are keyword arguments of the step
 makers and are off by default, as their environment opt-ins are in the JAX
-package.  The neighbour-statistics collection (``record_stats``) and the
-multi-device step (``jit_step_for_mesh``) are not ported yet; asking for
-them raises.
+package.  Only the PointNet++ network has them: asking for one with the
+PVCNN2 or pointwise network raises.  With ``record_stats`` a loss function
+returns (loss, stats) and a step (state, loss, stats), where stats are the
+neighbour-count histograms the forward recorded
+(``models.modules.collect_neighbor_stats``), as the JAX steps return their
+``neighbor_stats`` collection.  No step passes a dropout draw, so the
+networks' dropout stays off, as in the JAX package.  The multi-device step
+(``jit_step_for_mesh``) is not ported yet; asking for it raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Optional
 
@@ -25,6 +31,8 @@ import torch
 
 from ..diffusion.ddpm import q_sample
 from ..diffusion.schedule import DiffusionSchedule
+from ..models.condition_net import PointNet2CloudCondition
+from ..models.modules import collect_neighbor_stats
 from ..models.upsample import point_upsample
 from ..ops.chamfer import calc_cd
 
@@ -55,9 +63,19 @@ def create_train_state(model: torch.nn.Module, seed: int = 0,
     return TrainState(model=model, optimizer=optimizer, generator=generator)
 
 
-def _no_record_stats(record_stats: bool) -> None:
-    if record_stats:
-        raise NotImplementedError("record_stats (neighbour statistics) is not ported yet")
+def _route_kwargs(model, fused_gather: bool, fused_sa: bool) -> dict:
+    """The fused training routes as forward keywords: the PointNet++
+    network takes them; another network has none to take."""
+    if isinstance(model, PointNet2CloudCondition):
+        return dict(fused_gather=fused_gather, fused_sa=fused_sa)
+    if fused_gather or fused_sa:
+        raise ValueError(f"{type(model).__name__} has no fused training route: "
+                         "fused_gather and fused_sa need a pointnet++ network")
+    return {}
+
+
+def _recording(model, record_stats: bool):
+    return collect_neighbor_stats(model) if record_stats else contextlib.nullcontext()
 
 
 def _apply(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
@@ -68,17 +86,28 @@ def _apply(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
     return loss.detach()
 
 
+def _finish(state: TrainState, out, record_stats: bool):
+    """One optimizer step on the loss function's output: (state, loss), or
+    (state, loss, stats) with ``record_stats``."""
+    if record_stats:
+        loss, stats = out
+        return state, _apply(state, loss), stats
+    return state, _apply(state, out)
+
+
 def make_completion_loss(model, schedule: DiffusionSchedule, *, fused_gather: bool = False,
-                         fused_sa: bool = False) -> Callable:
+                         fused_sa: bool = False, record_stats: bool = False) -> Callable:
     """loss(x0, condition, label, t, z) -> scalar epsilon-MSE of the DDPM
-    step at the given draws: t (B,) int, z like x0.  ``schedule`` lies on
-    x0's device."""
+    step at the given draws: t (B,) int, z like x0; (loss, stats) with
+    ``record_stats``.  ``schedule`` lies on x0's device."""
+    routes = _route_kwargs(model, fused_gather, fused_sa)
 
     def loss_fn(x0, condition, label, t, z):
         x_t = q_sample(x0, t, z, schedule)
-        eps_hat = model(x_t, condition, t.to(torch.float32), label,
-                        fused_gather=fused_gather, fused_sa=fused_sa)
-        return torch.mean(torch.square(eps_hat - z))
+        with _recording(model, record_stats) as stats:
+            eps_hat = model(x_t, condition, t.to(torch.float32), label, **routes)
+        loss = torch.mean(torch.square(eps_hat - z))
+        return (loss, stats) if record_stats else loss
 
     return loss_fn
 
@@ -87,20 +116,19 @@ def make_completion_train_step(model, schedule: DiffusionSchedule, *,
                                record_stats: bool = False, fused_gather: bool = False,
                                fused_sa: bool = False) -> Callable:
     """DDPM epsilon-MSE step: step(state, x0, condition, label) ->
-    (state, loss), with t ~ U[0, T) and z ~ N(0, 1) drawn from
-    ``state.generator``."""
-    _no_record_stats(record_stats)
+    (state, loss), or (state, loss, stats) with ``record_stats``, with
+    t ~ U[0, T) and z ~ N(0, 1) drawn from ``state.generator``."""
     device = next(model.parameters()).device
     sched = schedule.to(device)
     loss_fn = make_completion_loss(model, sched, fused_gather=fused_gather,
-                                   fused_sa=fused_sa)
+                                   fused_sa=fused_sa, record_stats=record_stats)
 
     def step(state: TrainState, x0, condition, label):
         B = x0.shape[0]
         t = torch.randint(0, sched.T, (B,), generator=state.generator, device=x0.device)
         z = torch.randn(x0.shape, generator=state.generator, device=x0.device,
                         dtype=x0.dtype)
-        return state, _apply(state, loss_fn(x0, condition, label, t, z))
+        return _finish(state, loss_fn(x0, condition, label, t, z), record_stats)
 
     return step
 
@@ -116,17 +144,19 @@ def make_refine_loss(
     task: str = "refine_completion",
     fused_gather: bool = False,
     fused_sa: bool = False,
+    record_stats: bool = False,
 ) -> Callable:
     """loss(x_gt, condition, label, generated, output_scale_factor,
-    noise=None) -> scalar chamfer loss of the refinement / denoise step.
-    For task='denoise' the network input is ``x_gt + noise`` and
-    ``generated`` is not read."""
+    noise=None) -> scalar chamfer loss of the refinement / denoise step, or
+    (loss, stats) with ``record_stats``.  For task='denoise' the network
+    input is ``x_gt + noise`` and ``generated`` is not read."""
     loss_idx = 1 if cd_loss_type == "cd_t" else 0
+    routes = _route_kwargs(model, fused_gather, fused_sa)
 
     def loss_fn(x_gt, condition, label, generated, output_scale_factor, noise=None):
         generated_in = x_gt + noise if task == "denoise" else generated
-        displacement = model(generated_in, condition, None, label,
-                             fused_gather=fused_gather, fused_sa=fused_sa)
+        with _recording(model, record_stats) as stats:
+            displacement = model(generated_in, condition, None, label, **routes)
         if point_upsample_factor > 1:
             refined, intermediate = point_upsample(
                 generated_in, displacement, point_upsample_factor,
@@ -141,7 +171,7 @@ def make_refine_loss(
         if intermediate is not None and intermediate_loss_weight > 0:
             inter = intermediate / scale / 2.0
             loss = loss + calc_cd(inter, x)[loss_idx].mean() * intermediate_loss_weight
-        return loss
+        return (loss, stats) if record_stats else loss
 
     return loss_fn
 
@@ -161,17 +191,17 @@ def make_refine_train_step(
     fused_sa: bool = False,
 ) -> Callable:
     """Refinement / denoise step: step(state, x_gt, condition, label,
-    generated, output_scale_factor) -> (state, loss).  The per-step
-    ``output_scale_factor`` is an argument, so a schedule can ramp it.  For
-    task='denoise' the input is made inside the step as x_gt +
-    N(0, noise_magnitude) from ``state.generator``."""
-    _no_record_stats(record_stats)
+    generated, output_scale_factor) -> (state, loss), or (state, loss,
+    stats) with ``record_stats``.  The per-step ``output_scale_factor`` is
+    an argument, so a schedule can ramp it.  For task='denoise' the input is
+    made inside the step as x_gt + N(0, noise_magnitude) from
+    ``state.generator``."""
     loss_fn = make_refine_loss(
         model, scale=scale, cd_loss_type=cd_loss_type,
         point_upsample_factor=point_upsample_factor,
         include_displacement_center=include_displacement_center,
         intermediate_loss_weight=intermediate_loss_weight, task=task,
-        fused_gather=fused_gather, fused_sa=fused_sa,
+        fused_gather=fused_gather, fused_sa=fused_sa, record_stats=record_stats,
     )
 
     def step(state: TrainState, x_gt, condition, label, generated,
@@ -181,8 +211,8 @@ def make_refine_train_step(
             noise = noise_magnitude * torch.randn(
                 x_gt.shape, generator=state.generator, device=x_gt.device,
                 dtype=x_gt.dtype)
-        loss = loss_fn(x_gt, condition, label, generated, output_scale_factor, noise)
-        return state, _apply(state, loss)
+        out = loss_fn(x_gt, condition, label, generated, output_scale_factor, noise)
+        return _finish(state, out, record_stats)
 
     return step
 

@@ -4,11 +4,15 @@ Counterpart of the JAX package's ``utils/torch_interop.py``, for the port's
 own modules: every submodule of the port carries its Flax scope name
 (``sa_0.ConditionedMLP_0.SharedMLP_1.Dense_0`` ...), so a ``state_dict`` key
 is the Flax parameter path joined by dots.  Dense kernels are stored (in,
-out) by Flax and (out, in) by the port, so they are transposed and renamed
-``kernel`` -> ``weight``; GroupNorm ``scale``/``bias``, Dense ``bias`` and
-``embedding`` tables copy over unchanged.  The conversion follows the tree,
-so the refine net (``include_t=False``: no ``fc_t1``/``fc_t2``, a
-``head_out`` of 3*(F+1) or 3*F outputs) carries across like the denoiser.
+out) by Flax and (out, in) by the port, so they are transposed; Conv
+kernels are stored (*window, in, out) by Flax, e.g. (kd, kh, kw, Cin, Cout)
+for a 3-D convolution, and (out, in, *window) by ``torch.nn.Conv3d``, so
+their axes are permuted, chosen by the array's rank.  Both are renamed
+``kernel`` -> ``weight``; GroupNorm ``scale``/``bias``, Dense and Conv
+``bias`` and ``embedding`` tables copy over unchanged.  The conversion
+follows the tree, so the refine net (``include_t=False``: no
+``fc_t1``/``fc_t2``, a ``head_out`` of 3*(F+1) or 3*F outputs) and the
+PVCNN2 and pointwise networks carry across like the denoiser.
 
 The optimizer state carries across the same way: optax Adam's ``mu`` and
 ``nu`` are trees shaped like the parameters and map onto ``torch.optim.Adam``'s
@@ -39,6 +43,19 @@ def _flatten(tree: Mapping[str, Any], prefix: str = "") -> Dict[str, np.ndarray]
     return out
 
 
+def kernel_to_torch(arr: np.ndarray) -> np.ndarray:
+    """A Flax Dense (in, out) or Conv (*window, in, out) kernel in the
+    port's (out, in, *window) layout."""
+    n = arr.ndim
+    return np.transpose(arr, (n - 1, n - 2) + tuple(range(n - 2)))
+
+
+def kernel_to_flax(arr: np.ndarray) -> np.ndarray:
+    """The inverse of ``kernel_to_torch``."""
+    n = arr.ndim
+    return np.transpose(arr, tuple(range(2, n)) + (1, 0))
+
+
 def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """Flax parameter tree (with or without the top-level ``params``
     collection) -> the port model's ``state_dict`` (float32 tensors)."""
@@ -46,11 +63,11 @@ def flax_to_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         params = params["params"]
     sd = {}
     for key, arr in _flatten(params).items():
-        t = torch.from_numpy(np.array(arr, dtype=np.float32))
+        arr = np.array(arr, dtype=np.float32)
         if key.endswith(".kernel"):
-            sd[key[: -len("kernel")] + "weight"] = t.t().contiguous()
-        else:
-            sd[key] = t
+            key = key[: -len("kernel")] + "weight"
+            arr = kernel_to_torch(arr)
+        sd[key] = torch.from_numpy(np.ascontiguousarray(arr))
     return sd
 
 
@@ -63,7 +80,7 @@ def state_dict_to_flax(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]
         parts = key.split(".")
         if parts[-1] == "weight":
             parts[-1] = "kernel"
-            arr = arr.T
+            arr = kernel_to_flax(arr)
         node = root
         for p in parts[:-1]:
             node = node.setdefault(p, {})

@@ -463,10 +463,10 @@ def test_train_loop_and_resume(tmp_path, task, routes):
 def test_unported_options_raise(tmp_path):
     port = PointNet2CloudCondition.from_config(tiny_pointnet_config(), device="cpu", seed=0)
     sched = calc_diffusion_hyperparams(T, 1e-4, 0.02)
-    with pytest.raises(NotImplementedError):
-        ptrain.make_completion_train_step(port, sched, record_stats=True)
-    with pytest.raises(NotImplementedError):
-        ptrain.make_refine_train_step(port, record_stats=True)
+    # the neighbour statistics are ported (tests/test_torch_neighbor_stats.py):
+    # the steps build; the multi-device step is not
+    assert callable(ptrain.make_completion_train_step(port, sched, record_stats=True))
+    assert callable(ptrain.make_refine_train_step(port, record_stats=True))
     with pytest.raises(NotImplementedError):
         ptrain.jit_step_for_mesh()
     cfg = _config("completion", str(tmp_path))
