@@ -173,10 +173,34 @@
    through ``train()``; every module's histogram sums to B x centres x
    steps, the one-shot and the accumulated reports, and one step's
    histograms through the kernels equal to those under ``plain_ops()``.
+17. The two-stage demo of the eleventh slice, after phase 16
+   (``cli/two_stage_demo.py::run_demo``): ``DEFAULT_POINTNET_CONFIG`` in
+   bf16, T = DEMO_T, batch DEMO_BATCH, the fused training routes on, on
+   synthetic shapes cut to DEMO_SHAPES a split (78 train clouds), the first
+   DEMO_TESTED test clouds and one augmented train-set trial, DEMO_DDPM_STEPS
+   + DEMO_REFINE_STEPS steps; launch counts reset just before and read just
+   after.  Prints each stage's seconds, the DDPM loss over its first and
+   last 10 steps, coarse CD-t at 2048 and refined CD-t at 4096 points and
+   ``refined_beats_coarse`` (reported, not a check); fails if a loss or CD
+   is not finite, the last 10 steps' mean loss is not below the first 10's,
+   a cloud has the wrong shape or a kernel of DEMO_PATH_KERNELS was not
+   launched.  (b) Two B=32 DDPM steps through ``train(mesh=make_mesh())`` on
+   an NCCL process group of one (``tcp://127.0.0.1``, a free port) against
+   the same steps with no process group, from the same weights and
+   batches: the first loss must be equal, the second loss and the
+   parameters after step 2 (relative L2) within RESUME_REL_TOL; then one
+   FastDPM-10 ``run_generation(mesh=)`` batch; the group is destroyed.  (c)
+   ``compute_all_metrics`` and ``jsd_between_point_cloud_sets`` on the
+   demo's coarse test clouds against their 2048-point GT, with their ms:
+   every value finite, 1-NN-CD-acc in [0, 1].  (d) ``StepTimer`` over demo
+   DDPM steps at B = DEMO_BATCH, then ``trace`` + ``summarize_trace`` over
+   three: the top 10 device ops; fails if no device row is returned in
+   three trace windows.
 15. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
    (``launches``: the sum over the driven paths, the ``ddpm_avg_max`` step,
-   the two pipelines, the two training runs, the file-driven pipeline and
-   the five runs of phase 16, each counted from zero;
+   the two pipelines, the two training runs, the file-driven pipeline,
+   the five runs of phase 16 and the demo of phase 17, each counted from
+   zero;
    ``launches_by_path``
    splits it; the FPS rows add ``latency_floor_ms``, the sweep's per-pick
    time at its smallest N times the row's npoint - 1, beside the roofline
@@ -280,6 +304,19 @@ PVD_PLAIN_LOSS_REL_TOL = 1e-4
 PVD_PLAIN_GRAD_REL_TOL = 1e-3
 # the kernels of a PVD training step: idx-only FPS, ball query, 3-NN
 PVD_PATH_KERNELS = ("fps_idx", "ball_query", "knn")
+# the two-stage demo of phase 17 (the JAX demo's T and batch; its data cut
+# to 2 shapes a split, 16 test clouds and one train-set trial, and its steps
+# to 40 + 20, to keep the phase near 3 minutes): DDPM training (#1, #8, B,
+# #4, and #3 where no fused route serves), coarse generation (#1, #2, #3,
+# #4), x2 refine training and evaluation (#1, #3, #4, #8, B)
+DEMO_T = 100
+DEMO_BATCH = 8
+DEMO_SHAPES = 2
+DEMO_TESTED = 16
+DEMO_DDPM_STEPS = 40
+DEMO_REFINE_STEPS = 20
+DEMO_PATH_KERNELS = ("fps", "ball_group", "ball_query", "knn", "ball_query_group",
+                     "group_scatter_add")
 VARIANTS = (
     ("off", {}),
     ("attention", dict(fused_attention=True)),
@@ -2891,6 +2928,200 @@ def model_options(dev, workdir: str, rng) -> dict:
     return paths
 
 
+# ---- phase 17: the two-stage demo, data parallelism, metrics, profiling --
+
+
+def ddp_world1(dev, workdir: str) -> None:
+    """Phase 17 (b): two B=32 DDPM steps through ``train(mesh=)`` on an NCCL
+    process group of one, against the same steps with no process group, and
+    one ``run_generation(mesh=)`` batch; the group is destroyed after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from point_diffusion_refinement_tpu_torch.cli.two_stage_demo import demo_configs
+    from point_diffusion_refinement_tpu_torch.data import ArrayDataset
+    from point_diffusion_refinement_tpu_torch.parallel import initialize_distributed, make_mesh
+    from point_diffusion_refinement_tpu_torch.sample.pipeline import run_generation
+    from point_diffusion_refinement_tpu_torch.train.loop import train
+
+    arrays = training_arrays(2 * TRAIN_BATCH, 2048, seed=40)
+    ds = ArrayDataset(**{k: arrays[k] for k in ("complete", "partial", "label")})
+
+    def run(tag: str, mesh):
+        cfg, _ = demo_configs(f"{workdir}/ddp_{tag}", f"{workdir}/ddp_{tag}/mvp", DEMO_T,
+                              TRAIN_BATCH, 2048, 3072)
+        cfg["train_config"]["shuffle_seed"] = 0
+        t0 = time.perf_counter()
+        res = train(cfg, max_steps=2, dataset_override=ds, fused_gather=True, fused_sa=True,
+                    mesh=mesh, device=None if mesh is not None else dev)
+        torch.cuda.synchronize()
+        print(f"ddp {tag}: 2 steps at B={TRAIN_BATCH} in {time.perf_counter() - t0:.1f} s "
+              f"losses={res['losses']} step_ms={[round(s * 1e3, 1) for s in res['step_seconds']]}",
+              flush=True)
+        return cfg, res
+
+    _, plain = run("plain", None)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    initialize_distributed(backend="nccl", init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        print(f"ddp mesh: rank={mesh.rank} world={mesh.world} shape={mesh.shape} "
+              f"device={mesh.device} backend={dist.get_backend()}", flush=True)
+        cfg, ddp = run("world1", mesh)
+        a = {k: v.detach().double() for k, v in ddp["model"].state_dict().items()}
+        b = {k: v.detach().double() for k, v in plain["model"].state_dict().items()}
+        num = sum(float((a[k] - b[k]).pow(2).sum()) for k in b) ** 0.5
+        den = sum(float(b[k].pow(2).sum()) for k in b) ** 0.5
+        worst = max(b, key=lambda k: float((a[k] - b[k]).norm() / (b[k].norm() + 1e-30)))
+        loss2 = abs(ddp["losses"][1] - plain["losses"][1]) / abs(plain["losses"][1])
+        print(f"ddp world 1 vs no process group: first_loss_equal="
+              f"{ddp['losses'][0] == plain['losses'][0]} second_loss_rel={loss2:.3g} "
+              f"params_rel_l2_after_2={num / den:.3g} (tol {RESUME_REL_TOL}; worst tensor "
+              f"{worst}) ddp_step_ms={[round(s * 1e3, 1) for s in ddp['step_seconds']]} "
+              f"plain_step_ms={[round(s * 1e3, 1) for s in plain['step_seconds']]}", flush=True)
+        if ddp["losses"][0] != plain["losses"][0] or not (
+                num / den <= RESUME_REL_TOL and loss2 <= RESUME_REL_TOL):
+            raise AssertionError("ddp: the world-1 DDP steps disagree with the plain steps")
+        test = ArrayDataset(**{k: v[:DEMO_BATCH] for k, v in ds.arrays.items()})
+        t0 = time.perf_counter()
+        (gen,) = run_generation(cfg, state_override=ddp["state"], dataset_override=test,
+                                batch_size=DEMO_BATCH, save_generated=False,
+                                keep_generated=True, compute_emd=False, mesh=mesh,
+                                fast_sampling=True, fast_sampling_config={"length": 10})
+        torch.cuda.synchronize()
+        ok = gen.generated.shape == (DEMO_BATCH, 2048, 3) and np.isfinite(gen.generated).all()
+        print(f"ddp run_generation(mesh=) world 1: FastDPM-10 B={DEMO_BATCH} "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms generated={gen.generated.shape} "
+              f"avg_cd={gen.avg_cd:.6g} finite={ok}", flush=True)
+        if not ok:
+            raise AssertionError("ddp: run_generation(mesh=) output is wrong")
+    finally:
+        dist.destroy_process_group()
+
+
+def generation_metrics(art) -> None:
+    """Phase 17 (c): MMD / COV / 1-NNA and the occupancy JSD of the demo's
+    coarse test clouds against their 2048-point GT, on the card."""
+    from point_diffusion_refinement_tpu_torch.metrics import (
+        compute_all_metrics,
+        jsd_between_point_cloud_sets,
+    )
+
+    sample = torch.from_numpy(art["coarse"]).cuda()
+    ref = torch.from_numpy(art["coarse_gt"]).cuda()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = compute_all_metrics(sample, ref)
+    all_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    jsd = jsd_between_point_cloud_sets(art["coarse"], art["coarse_gt"])
+    jsd_ms = (time.perf_counter() - t0) * 1e3
+    print(f"generation metrics: {tuple(sample.shape)} vs {tuple(ref.shape)} "
+          f"compute_all_metrics_ms={all_ms:.1f} jsd_ms={jsd_ms:.1f} jsd={jsd:.6g} "
+          f"{ {k: round(float(v), 6) for k, v in res.items()} }", flush=True)
+    if not (all(np.isfinite(float(v)) for v in res.values()) and np.isfinite(jsd)
+            and 0.0 <= res["1-NN-CD-acc"] <= 1.0):
+        raise AssertionError("generation metrics: a value is not finite or 1-NNA is out of [0, 1]")
+
+
+def demo_profile(art, dev, workdir: str) -> None:
+    """Phase 17 (d): ``StepTimer`` over demo DDPM steps at the demo's batch,
+    then ``trace`` + ``summarize_trace`` over three of them."""
+    from point_diffusion_refinement_tpu_torch.diffusion import calc_diffusion_hyperparams
+    from point_diffusion_refinement_tpu_torch.train import make_completion_train_step
+    from point_diffusion_refinement_tpu_torch.utils.profiling import (
+        StepTimer,
+        summarize_trace,
+        trace,
+    )
+
+    model, state = art["ddpm"]["model"], art["ddpm"]["state"]
+    step = make_completion_train_step(model, calc_diffusion_hyperparams(DEMO_T, 1e-4, 0.02),
+                                      fused_gather=True, fused_sa=True)
+    arrays = training_arrays(DEMO_BATCH, 2048, seed=41)
+    batch = [torch.from_numpy(arrays[k]).to(dev) for k in ("complete", "partial", "label")]
+    timer = StepTimer(warmup=1)
+    for _ in range(5):
+        with timer:
+            step(state, *batch)
+    print(f"demo ddpm step B={DEMO_BATCH} (StepTimer, warm-up discarded): "
+          f"ms={[round(t * 1e3, 2) for t in timer.times]} mean_ms={timer.mean * 1e3:.2f} "
+          f"best_ms={timer.best * 1e3:.2f}", flush=True)
+    rows = []
+    for window in range(3):
+        log_dir = f"{workdir}/demo_trace_{window}"
+        with trace(log_dir):
+            for _ in range(3):
+                step(state, *batch)
+        rows = summarize_trace(log_dir, top=10, host_fallback=False)
+        if rows:
+            break
+        print(f"profile: no device record in trace window {window}", flush=True)
+    print("demo ddpm steps, 3 under trace(): top device ops (name, total_us, count)", flush=True)
+    for name, us, count in rows:
+        print(f"  {us:12.1f} us {count:6d}x {name[:110]}", flush=True)
+    if not rows:
+        raise AssertionError("profile: summarize_trace returned no device row")
+
+
+def two_stage(dev, workdir: str) -> dict:
+    """Phase 17: the two-stage demo at full width (launch counts reset just
+    before and read just after), then (b)-(d)."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.cli.two_stage_demo import run_demo
+
+    art = {}
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = run_demo(steps_ddpm=DEMO_DDPM_STEPS, steps_refine=DEMO_REFINE_STEPS, T=DEMO_T,
+                       num_shapes=DEMO_SHAPES, batch_size=DEMO_BATCH, workdir=f"{workdir}/demo",
+                       device=dev, num_tested=DEMO_TESTED, trainset_trials=1, in_memory=True,
+                       artifacts=art)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    losses = art["ddpm"]["losses"]
+    print(f"two-stage demo: wall_s={time.perf_counter() - t0:.1f} stage_seconds="
+          f"{summary['stage_seconds']} train={summary['num_train']} test={summary['num_test']}",
+          flush=True)
+    print(f"two-stage demo: ddpm loss first10={summary['ddpm_loss_first10']:.6f} "
+          f"last10={summary['ddpm_loss_last10']:.6f} steps={len(losses)} "
+          f"step_ms_median={float(np.median(art['ddpm']['step_seconds'][1:])) * 1e3:.1f}; "
+          f"refine loss first={art['refine']['losses'][0]:.6f} "
+          f"last={art['refine']['losses'][-1]:.6f}", flush=True)
+    print(f"two-stage demo: coarse_cd_t_2048={summary['coarse_cd_t_2048']:.6f} "
+          f"refined_cd_t_4096={summary['refined_cd_t_4096']:.6f} "
+          f"refined_beats_coarse={summary['refined_beats_coarse']} (reported, not a check)",
+          flush=True)
+    print(f"two-stage demo launches: { {k: v for k, v in counts.items() if v} }", flush=True)
+    values = [summary[k] for k in ("coarse_cd_t_2048", "refined_cd_t_4096",
+                                   "ddpm_loss_first10", "ddpm_loss_last10")]
+    if not (np.isfinite(values).all() and np.isfinite(losses).all()
+            and np.isfinite(art["refine"]["losses"]).all()):
+        raise AssertionError("two-stage demo: a loss or CD is not finite")
+    if not summary["ddpm_loss_last10"] < summary["ddpm_loss_first10"]:
+        raise AssertionError("two-stage demo: the DDPM loss did not fall")
+    shapes = {"coarse": (art["coarse"].shape, (DEMO_TESTED, 2048, 3)),
+              "refined": (art["refined"].shape, (DEMO_TESTED, 4096, 3)),
+              "trial": (art["trials"][0].generated.shape, (summary["num_train"], 2048, 3))}
+    for name, (got, want) in shapes.items():
+        if got != want:
+            raise AssertionError(f"two-stage demo: {name} clouds are {got}, not {want}")
+    missing = [k for k in DEMO_PATH_KERNELS if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"two-stage demo: kernels {missing} were not launched")
+
+    at_phase = time.perf_counter()
+    ddp_world1(dev, workdir)
+    print(f"ddp phase: {time.perf_counter() - at_phase:.1f} s", flush=True)
+    generation_metrics(art)
+    demo_profile(art, dev, workdir)
+    return {"two_stage_demo": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3036,6 +3267,8 @@ def main() -> int:
         path_counts["file_pipeline"] = file_pipeline(dev, workdir, direct)
         at("16 model options")
         path_counts.update(model_options(dev, workdir, rng))
+        at("17 two-stage demo")
+        path_counts.update(two_stage(dev, workdir))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

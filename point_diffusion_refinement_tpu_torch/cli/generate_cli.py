@@ -1,4 +1,4 @@
-"""Generation CLI: one process on one device.
+"""Generation CLI: one process a device (several under ``torchrun``).
 
     python -m point_diffusion_refinement_tpu_torch.cli.generate_cli -c cfg.json \
         --phase test_trainset --num_trials 10 --augment_data_during_generation
@@ -7,7 +7,9 @@ Counterpart of the JAX package's ``cli/generate_cli.py``: the test set, or
 (``--num_trials``) the augmented train-set generations the refinement net
 trains on.  Runs on the GPU unless ``--device cpu`` is given;
 ``--fused_attention``, ``--fused_knn`` and ``--packed`` turn on the opt-in
-inference routes (off by default).
+inference routes (off by default).  Under ``torchrun`` each process generates
+its rank's shard into ``rank_<i>`` and rank 0 merges them
+(``parallel.mesh_from_environment``; gloo with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import argparse
 
 from ..config.loader import load_config
+from ..parallel.mesh import mesh_from_environment
 from ..sample.pipeline import run_generation
 
 
@@ -69,6 +72,7 @@ def main(argv=None):
         T_step=args.T_step,
         XT_folder=args.XT_folder,
         device=args.device,
+        mesh=mesh_from_environment(args.device),
         fused_attention=args.fused_attention,
         fused_knn=args.fused_knn,
         packed=args.packed,

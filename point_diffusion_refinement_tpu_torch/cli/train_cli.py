@@ -1,10 +1,13 @@
-"""Training CLI: one process on one device.
+"""Training CLI: one process a device.
 
     python -m point_diffusion_refinement_tpu_torch.cli.train_cli -c cfg.json
+    torchrun --nproc_per_node 8 -m point_diffusion_refinement_tpu_torch.cli.train_cli -c cfg.json
 
 Counterpart of the JAX package's ``cli/train_cli.py``.  Runs on the GPU
 unless ``--device cpu`` is given; ``--fused_gather`` and ``--fused_sa`` turn
-on the network's fused training routes (off by default).
+on the network's fused training routes (off by default).  Under ``torchrun``
+each process trains data-parallel on its card (``parallel.mesh_from_environment``;
+gloo with ``--device cpu``).
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import argparse
 
 from ..config.loader import load_config
+from ..parallel.mesh import mesh_from_environment
 from ..train.loop import train
 
 
@@ -27,7 +31,8 @@ def main(argv=None):
                    help="eligible set-abstraction levels through the fused ball group")
     args = p.parse_args(argv)
     result = train(load_config(args.config), max_steps=args.max_steps, device=args.device,
-                   fused_gather=args.fused_gather, fused_sa=args.fused_sa)
+                   fused_gather=args.fused_gather, fused_sa=args.fused_sa,
+                   mesh=mesh_from_environment(args.device))
     print(f"training finished at iteration {result['n_iter']}, "
           f"avg loss {result['final_loss']:.6f}")
     return result

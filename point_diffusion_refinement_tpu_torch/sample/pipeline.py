@@ -1,15 +1,19 @@
 """The generation pipeline: checkpoint discovery, the save-dir taxonomy, and
 multi-trial (optionally augmented) generation.
 
-Counterpart of the JAX package's ``sample/pipeline.py`` for one process on
-one device.  ``run_generation`` restores a checkpoint (or takes the state
-handed in), builds the dataset of a phase, and per trial generates every
-cloud (the reverse process for the DDPM, one refine forward a batch for the
-refinement task), evaluates it and writes the clouds (where ``h5py``
-imports) and ``eval_result.pkl`` under ``generation_save_dir``, the layout
-the refine config's ``generated_sample_path`` reads back.  The JAX package's
+Counterpart of the JAX package's ``sample/pipeline.py``.  ``run_generation``
+restores a checkpoint (or takes the state handed in), builds the dataset of
+a phase, and per trial generates every cloud (the reverse process for the
+DDPM, one refine forward a batch for the refinement task), evaluates it and
+writes the clouds (where ``h5py`` imports) and ``eval_result.pkl`` under
+``generation_save_dir``, the layout the refine config's
+``generated_sample_path`` reads back.  The JAX package's
 ``segment_size`` bounds one XLA execution and has no counterpart in eager
-PyTorch; ``mesh=`` (multi-device generation) raises.
+PyTorch.  With ``mesh=`` each process of the process group generates its
+rank's shard of the phase into ``<save_dir>/rank_<i>``; the metrics are
+gathered over the processes, so every rank returns the same averages, and
+after a barrier rank 0 merges the rank directories
+(``gather_generated_results``).
 """
 
 from __future__ import annotations
@@ -25,6 +29,8 @@ import torch
 from ..config.loader import load_config
 from ..diffusion import calc_diffusion_hyperparams, make_fast_sampling_plan
 from ..models.pointwise_net import PointwiseNet
+from ..parallel.mesh import shard_dataset
+from ..parallel.multihost import all_gather_host_arrays, barrier
 from ..train.checkpoints import CKPT_PREFIX, STATE_FILE, find_max_epoch, maybe_resume
 from ..train.step import TrainState, create_train_state
 from ..utils.device import DeviceLike, resolve_device
@@ -99,6 +105,7 @@ def run_generation(
     augment_data_during_generation: bool = False,
     num_samples_tested: Optional[int] = None,
     save_generated: bool = True,
+    keep_generated: bool = False,
     state_override=None,
     dataset_override=None,
     base_save_dir: Optional[str] = None,
@@ -121,14 +128,20 @@ def run_generation(
     checkpoint; its outputs go under ``ckpt_0``.  Trial i draws its noise from a
     generator on the device seeded ``1000 + i``.  ``fused_attention``,
     ``fused_knn`` and ``packed`` turn on the opt-in inference routes of the
-    sampler and the refiner (all off by default).
+    sampler and the refiner (all off by default).  The results hold the
+    generated clouds where they are saved or ``keep_generated`` is set.
+
+    ``mesh`` (``parallel.make_mesh()``) generates on ``mesh.device``, which
+    replaces ``device``; each process takes its rank's contiguous shard of
+    the phase (a ``dataset_override`` is split by the same rule), and at
+    world > 1 saves under ``rank_<i>`` and returns the metrics of every
+    rank.
     """
-    if mesh is not None:
-        raise NotImplementedError("multi-device generation is not ported yet")
     from ..data import iterate_batches
     from ..train.loop import make_dataset  # train.loop imports sample
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    rank, world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
     pointnet_config = config["pointnet_config"]
     dc = config["diffusion_config"]
     ts_cfg = config.get("mvp_dataset_config", {})
@@ -177,7 +190,7 @@ def run_generation(
     results = []
     for trial in range(num_trials):
         if dataset_override is not None:
-            dataset = dataset_override
+            dataset = shard_dataset(dataset_override, mesh, pad=False)
         else:
             ds_cfg = dict(ts_cfg)
             if augment_data_during_generation:
@@ -189,7 +202,7 @@ def run_generation(
                 ds_cfg["T_step"] = T_step
                 if XT_folder is not None:
                     ds_cfg["XT_folder"] = XT_folder
-            dataset = make_dataset(ds_cfg, phase, 0, 1, eval_subset=num_samples_tested)
+            dataset = make_dataset(ds_cfg, phase, rank, world, eval_subset=num_samples_tested)
 
         if refine_task:
             def gen_fn(batch):
@@ -213,15 +226,29 @@ def run_generation(
                 fast_sampling_config=fast_sampling_config,
                 trial_index=trial + 1 if num_trials > 1 else None,
                 phase=phase, base_dir=base_save_dir)
+            if world > 1:
+                save_dir = os.path.join(save_dir, f"rank_{rank}")
             os.makedirs(save_dir, exist_ok=True)
         res = evaluate(
             gen_fn, iterate_batches(dataset, bs, shuffle=False), scale=scale,
             save_generated_samples=save_generated, save_dir=save_dir,
+            keep_generated=keep_generated,
             unaugment_results=augment_data_during_generation, compute_emd=compute_emd)
         if save_dir is not None:
             with open(os.path.join(save_dir, "eval_result.pkl"), "wb") as f:
                 pickle.dump({"avg_cd": res.avg_cd, "avg_emd": res.avg_emd,
                              "metrics": res.metrics, "labels": res.labels}, f)
+        if world > 1:
+            # every rank holds its shard's metrics: gather them, so the
+            # averages (and any decision taken on them) agree on all ranks
+            res.metrics = {k: all_gather_host_arrays(v) for k, v in res.metrics.items()}
+            res.labels = all_gather_host_arrays(res.labels)
+            res.avg_cd = float(np.mean(res.metrics["cd_distance"]))
+            res.avg_emd = float(np.mean(res.metrics["emd_distance"]))
+            if save_dir is not None:
+                barrier("pdr_generation_trial")
+                if rank == 0:
+                    gather_generated_results(os.path.dirname(save_dir), world)
         results.append(res)
         print(f"trial {trial}: avg CD {res.avg_cd:.8f} avg EMD {res.avg_emd:.8f} "
               f"({res.total_generation_time:.1f}s generation)", flush=True)

@@ -1,13 +1,13 @@
 """The training loop: config in, checkpoints, eval results and logs out.
 
-Counterpart of the JAX package's ``train/loop.py`` for one process and one
-device.  ``train(config, ...)`` builds the model on the device (the GPU
-unless the caller asks for ``"cpu"``), resumes from the newest checkpoint,
-runs the DDPM completion step or the refine / denoise step over shuffled
-batches of the MVP dataset (``make_dataset``), ramps the refine output
-scale, saves checkpoints at the configured cadence, evaluates a random
-subset of ``num_samples_tested`` clouds in the loop through
-``sample/evaluate.py`` and keeps the best checkpoint.  ``train_from_file``
+Counterpart of the JAX package's ``train/loop.py``.  ``train(config, ...)``
+builds the model on the device (the GPU unless the caller asks for
+``"cpu"``), resumes from the newest checkpoint, runs the DDPM completion
+step or the refine / denoise step over shuffled batches of the MVP dataset
+(``make_dataset``), ramps the refine output scale, saves checkpoints at the
+configured cadence, evaluates a random subset of ``num_samples_tested``
+clouds in the loop through ``sample/evaluate.py`` and keeps the best
+checkpoint.  ``train_from_file``
 reads the config from a JSON file.
 
 ``build_model`` builds any of the JAX package's three networks:
@@ -19,8 +19,13 @@ the first batch, feeds every step's histograms to a
 As in the JAX package, the in-loop eval of the completion task needs the
 PointNet++ network (``make_coarse_sampler`` raises for another one).
 
-Not ported yet, and raising when asked for: multi-device and multi-process
-training with its gather of eval results across processes.
+With ``mesh=`` (``parallel.make_mesh()`` in each of the processes of an
+initialised process group) it trains data-parallel, one process a device:
+each process takes its rank's shard of the dataset, seeds its draws with
+``rank + 1`` and steps through ``DistributedDataParallel``; the in-loop eval
+writes a pickle a rank, gathers the metrics over the processes and
+broadcasts rank 0's test CD, so every rank takes the same best-checkpoint
+decision; rank 0 alone writes checkpoints and the scalar log.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from ..config.loader import load_config
 from ..data import ArrayDataset, MVPDataset, MVPDatasetConfig, iterate_batches, synthetic_dataset
 from ..diffusion import calc_diffusion_hyperparams, make_fast_sampling_plan
 from ..models import PointNet2CloudCondition, PointwiseNet, PVCNN2Completion
+from ..parallel.mesh import Mesh, shard_dataset
+from ..parallel.multihost import all_gather_host_arrays, broadcast_scalar
 from ..sample import evaluate, make_coarse_sampler, make_refiner
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.logging import TensorBoardLogger
@@ -47,7 +54,12 @@ from ..utils.meters import AverageMeter
 from ..utils.neighbor_stats import NeighborStatsAccumulator, model_neighbor_stats
 from .checkpoints import maybe_resume, save_checkpoint
 from .scheduler import QuantityScheduler
-from .step import create_train_state, make_completion_train_step, make_refine_train_step
+from .step import (
+    create_train_state,
+    jit_step_for_mesh,
+    make_completion_train_step,
+    make_refine_train_step,
+)
 
 
 def local_experiment_path(config: dict) -> str:
@@ -105,7 +117,8 @@ def make_dataset(trainset_config: dict, phase="train", rank: int = 0, world: int
     ``synthetic`` entry, the in-memory dataset of ``data.synthetic_dataset``
     with those arguments (the test phases draw from ``seed + 1``; it is
     never augmented, and with ``return_augmentation_params`` its batches
-    carry the identity transform).
+    carry the identity transform; at ``world`` > 1 it is sharded as the h5
+    dataset is, the train split padded to equal shards).
     """
     if isinstance(phase, bool):
         phase = "train" if phase else "test"
@@ -115,7 +128,8 @@ def make_dataset(trainset_config: dict, phase="train", rank: int = 0, world: int
     spec = trainset_config.get("synthetic")
     if spec is not None:
         return _synthetic(dict(spec), train_split, eval_subset,
-                          trainset_config.get("return_augmentation_params", False))
+                          trainset_config.get("return_augmentation_params", False),
+                          Mesh(rank, world, torch.device("cpu")), pad=train)
     aug = trainset_config.get("augmentation") if train else None
     if not train and trainset_config.get("augment_data_during_generation", False):
         aug = trainset_config.get("augmentation")
@@ -147,12 +161,13 @@ def make_dataset(trainset_config: dict, phase="train", rank: int = 0, world: int
 
 
 def _synthetic(spec: dict, train_split: bool, eval_subset: Optional[int],
-               with_identity_transform: bool) -> ArrayDataset:
-    """The synthetic branch of ``make_dataset``: the subset drawn from the
-    spec's seed, so every build of a phase takes the same items."""
+               with_identity_transform: bool, mesh: Mesh, pad: bool) -> ArrayDataset:
+    """The synthetic branch of ``make_dataset``: the rank's shard, then the
+    subset drawn from the spec's seed, so every build of a phase takes the
+    same items."""
     if not train_split:
         spec["seed"] = int(spec.get("seed", 0)) + 1
-    ds = synthetic_dataset(**spec)
+    ds = shard_dataset(synthetic_dataset(**spec), mesh, pad)
     arrays = ds.arrays
     if eval_subset is not None and eval_subset < len(ds):
         idx = np.array(random.Random(spec.get("seed")).sample(range(len(ds)), eval_subset))
@@ -198,9 +213,12 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
     epoch e a function of ``shuffle_seed + e``, so a resumed run repeats
     it; without it every epoch shuffles from fresh entropy.  The result's
     ``step_seconds`` hold each step's host time from the assembly of its
-    batch to its loss on the host (checkpoints and evals excluded)."""
-    if mesh is not None:
-        raise NotImplementedError("multi-device training is not ported yet")
+    batch to its loss on the host (checkpoints and evals excluded).
+
+    ``mesh`` (``parallel.make_mesh()``) trains data-parallel over the
+    processes of the initialised process group on ``mesh.device``, which
+    replaces ``device``; the dataset overrides are sharded by rank like
+    the h5 dataset.  Without a process group it is the one-process run."""
     train_config = config["train_config"]
     pointnet_config = config["pointnet_config"]
     diffusion_config = config["diffusion_config"]
@@ -211,20 +229,26 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
     record_stats = bool(pointnet_config.get("record_neighbor_stats", False)
                         and network_type == "pointnet++")
 
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    rank, world = (mesh.rank, mesh.world) if mesh is not None else (0, 1)
     root = train_config.get("root_directory", "exp")
     local_path = local_experiment_path(config)
     output_directory = os.path.join(
         root, local_path, train_config.get("output_directory", "logs/checkpoint"))
     os.makedirs(output_directory, exist_ok=True)
     tb = TensorBoardLogger(os.path.join(
-        root, local_path, train_config.get("tensorboard_directory", "logs/tb")))
+        root, local_path, train_config.get("tensorboard_directory", "logs/tb"))) \
+        if rank == 0 else _NoLogger()
 
     schedule = calc_diffusion_hyperparams(
         diffusion_config["T"], diffusion_config["beta_0"], diffusion_config["beta_T"])
 
-    rank, world = 0, 1  # one process
-    dataset = dataset_override or make_dataset(trainset_config, "train", rank, world)
+    def train_split():
+        if dataset_override is not None:
+            return shard_dataset(dataset_override, mesh, pad=True)
+        return make_dataset(trainset_config, "train", rank, world)
+
+    dataset = train_split()
     batch_size = trainset_config.get("batch_size", 32)
     # the first batch, where the network or the statistics read it
     example = None
@@ -253,12 +277,14 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
     iters_per_logging = train_config.get("iters_per_logging", 50)
     shuffle_seed = train_config.get("shuffle_seed")
 
-    state = create_train_state(model, seed=1,
+    state = create_train_state(model, seed=rank + 1,
                                learning_rate=train_config.get("learning_rate", 2e-4))
     restored, ckpt_iter, prev_secs = maybe_resume(
         output_directory, train_config.get("ckpt_iter", "max"), state)
     if restored is not None:
         state = restored
+        if world > 1:  # rank 0 saved its generator: the others draw anew
+            state.generator.manual_seed((rank + 1) * 1_000_003 + ckpt_iter)
     n_iter = ckpt_iter + 1
     time0 = time.time() - prev_secs
 
@@ -268,16 +294,20 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
         pointnet_config.get("include_displacement_center_to_final_output", False))
     routes = dict(fused_gather=fused_gather, fused_sa=fused_sa, record_stats=record_stats)
     if task == "completion":
-        step_fn = make_completion_train_step(model, schedule, **routes)
+        make_step, step_args = make_completion_train_step, dict(schedule=schedule, **routes)
     else:
-        step_fn = make_refine_train_step(
-            model, scale=scale, cd_loss_type=refine_config.get("cd_loss_type", "cd_t"),
+        make_step, step_args = make_refine_train_step, dict(
+            scale=scale, cd_loss_type=refine_config.get("cd_loss_type", "cd_t"),
             point_upsample_factor=upsample, include_displacement_center=include_center,
             intermediate_loss_weight=(
                 pointnet_config.get("intermediate_refined_X_loss_weight", 0.0)
                 if upsample > 1 else 0.0),
             task=task, **routes,
         )
+    if mesh is not None:
+        step_fn, state = jit_step_for_mesh(make_step, mesh, state, **step_args)
+    else:
+        step_fn = make_step(model, **step_args)
 
     osf_scheduler = None
     output_scale_factor = refine_config.get("output_scale_factor", 0.001)
@@ -331,32 +361,41 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
             override = (eval_dataset_override if split_phase == "test"
                         else trainset_eval_dataset_override)
             # num_samples_tested in all, split across the processes
-            eval_ds = override if override is not None else make_dataset(
-                trainset_config, split_phase, rank, world,
-                eval_subset=max(1, num_samples_tested // world))
+            if override is not None:
+                eval_ds = shard_dataset(override, mesh, pad=False)
+            else:
+                eval_ds = make_dataset(trainset_config, split_phase, rank, world,
+                                       eval_subset=max(1, num_samples_tested // world))
             res = evaluate(gen_fn, iterate_batches(eval_ds, bs, shuffle=False), scale=scale,
                            compute_emd=compute_emd, print_every=10 ** 9)
             os.makedirs(eval_dir, exist_ok=True)
             with open(os.path.join(
-                    eval_dir, f"eval_result_ckpt_{n_iter_now}_rank_0{tag}.pkl"), "wb") as f:
+                    eval_dir, f"eval_result_ckpt_{n_iter_now}_rank_{rank}{tag}.pkl"),
+                    "wb") as f:
                 pickle.dump({"avg_cd": res.avg_cd, "avg_emd": res.avg_emd,
                              **{k: np.asarray(v) for k, v in res.metrics.items()}}, f)
-            return (float(np.mean(res.metrics["cd_distance"])),
-                    float(np.mean(res.metrics["emd_distance"])), res.metrics)
+            metrics = res.metrics
+            if world > 1:
+                metrics = {k: all_gather_host_arrays(v) for k, v in metrics.items()}
+            return (float(np.mean(metrics["cd_distance"])),
+                    float(np.mean(metrics["emd_distance"])), metrics)
 
         avg_cd, avg_emd, metrics = eval_split("test", "")
         tb.add_scalar("CD-Loss", avg_cd, n_iter_now)
         tb.add_scalar("EMD-Loss", avg_emd, n_iter_now)
-        # one pickle per iteration, gathered from disk: a resumed run keeps
-        # the evaluations from before the resume
-        save_eval_result(eval_dir, n_iter_now, avg_cd, avg_emd, metrics)
-        gather_eval_results(eval_dir)
+        if rank == 0:
+            # one pickle per iteration, gathered from disk: a resumed run
+            # keeps the evaluations from before the resume
+            save_eval_result(eval_dir, n_iter_now, avg_cd, avg_emd, metrics)
+            gather_eval_results(eval_dir)
         if test_trainset_during_eval:
             tr_cd, tr_emd, _ = eval_split("test_trainset", "_trainset")
             tb.add_scalar("Trainset CD-Loss", tr_cd, n_iter_now)
             tb.add_scalar("Trainset EMD-Loss", tr_emd, n_iter_now)
             print(f"eval @ iter {n_iter_now}: Trainset CD {tr_cd:.8f} EMD {tr_emd:.8f}",
                   flush=True)
+        # rank 0's gathered value decides on every rank
+        avg_cd = broadcast_scalar(avg_cd)
         print(f"eval @ iter {n_iter_now}: CD {avg_cd:.8f} EMD {avg_emd:.8f}", flush=True)
         return avg_cd, avg_emd
 
@@ -374,7 +413,7 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
         seed = None if shuffle_seed is None else int(shuffle_seed) + epoch
         if trainset_config.get("randomly_select_generated_samples", False):
             # another random trial directory of generated samples each epoch
-            dataset = dataset_override or make_dataset(trainset_config, "train", rank, world)
+            dataset = train_split()
         t_batch = time.perf_counter()
         for batch in iterate_batches(dataset, batch_size, shuffle=True, drop_last=True,
                                      seed=seed):
@@ -403,14 +442,15 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
 
             if n_iter > 0 and (n_iter + 1) % iters_per_ckpt == 0:
                 num_ckpts += 1
-                if last_saved is not None and only_best:
-                    shutil.rmtree(last_saved, ignore_errors=True)
-                last_saved = save_checkpoint(
-                    output_directory, n_iter, state,
-                    training_time_seconds=time.time() - time0)
-                print(f"checkpoint saved at iteration {n_iter}", flush=True)
-                if stats_acc is not None and stats_acc.forwards:
-                    stats_acc.report()
+                if rank == 0:
+                    if last_saved is not None and only_best:
+                        shutil.rmtree(last_saved, ignore_errors=True)
+                    last_saved = save_checkpoint(
+                        output_directory, n_iter, state,
+                        training_time_seconds=time.time() - time0)
+                    print(f"checkpoint saved at iteration {n_iter}", flush=True)
+                    if stats_acc is not None and stats_acc.forwards:
+                        stats_acc.report()
 
                 if (num_samples_tested > 0 and n_iter >= eval_start_iter
                         and num_ckpts % eval_per_ckpt == 0):
@@ -418,7 +458,7 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
                     eval_records["iter"].append(n_iter)
                     eval_records["avg_cd"].append(avg_cd)
                     eval_records["avg_emd"].append(avg_emd)
-                    if only_best and (best_cd is None or avg_cd <= best_cd):
+                    if only_best and rank == 0 and (best_cd is None or avg_cd <= best_cd):
                         if last_saved_best is not None:
                             shutil.rmtree(last_saved_best, ignore_errors=True)
                         best_cd = avg_cd
@@ -439,8 +479,9 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
                 break
             t_batch = time.perf_counter()
 
-    save_checkpoint(output_directory, n_iter, state,
-                    training_time_seconds=time.time() - time0)
+    if rank == 0:
+        save_checkpoint(output_directory, n_iter, state,
+                        training_time_seconds=time.time() - time0)
     tb.close()
     return {
         "state": state,
@@ -455,6 +496,16 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
         "best_cd": best_cd,
         "neighbor_stats": stats_acc,
     }
+
+
+class _NoLogger:
+    """The scalar log of a rank other than 0: rank 0 writes it."""
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
 
 
 def train_from_file(config_path: str, **kw) -> dict:

@@ -17,8 +17,11 @@ returns (loss, stats) and a step (state, loss, stats), where stats are the
 neighbour-count histograms the forward recorded
 (``models.modules.collect_neighbor_stats``), as the JAX steps return their
 ``neighbor_stats`` collection.  No step passes a dropout draw, so the
-networks' dropout stays off, as in the JAX package.  The multi-device step
-(``jit_step_for_mesh``) is not ported yet; asking for it raises.
+networks' dropout stays off, as in the JAX package.
+
+``jit_step_for_mesh`` is the data-parallel step over processes: the step
+maker's step on the model wrapped in ``DistributedDataParallel``, one rank's
+rows of the global batch a process.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
+from torch.nn.parallel import DistributedDataParallel
 
 from ..diffusion.ddpm import q_sample
 from ..diffusion.schedule import DiffusionSchedule
@@ -63,9 +68,15 @@ def create_train_state(model: torch.nn.Module, seed: int = 0,
     return TrainState(model=model, optimizer=optimizer, generator=generator)
 
 
+def _unwrap(model) -> torch.nn.Module:
+    """The network inside a ``DistributedDataParallel`` wrapper."""
+    return model.module if isinstance(model, DistributedDataParallel) else model
+
+
 def _route_kwargs(model, fused_gather: bool, fused_sa: bool) -> dict:
     """The fused training routes as forward keywords: the PointNet++
     network takes them; another network has none to take."""
+    model = _unwrap(model)
     if isinstance(model, PointNet2CloudCondition):
         return dict(fused_gather=fused_gather, fused_sa=fused_sa)
     if fused_gather or fused_sa:
@@ -75,7 +86,7 @@ def _route_kwargs(model, fused_gather: bool, fused_sa: bool) -> dict:
 
 
 def _recording(model, record_stats: bool):
-    return collect_neighbor_stats(model) if record_stats else contextlib.nullcontext()
+    return collect_neighbor_stats(_unwrap(model)) if record_stats else contextlib.nullcontext()
 
 
 def _apply(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
@@ -115,19 +126,22 @@ def make_completion_loss(model, schedule: DiffusionSchedule, *, fused_gather: bo
 def make_completion_train_step(model, schedule: DiffusionSchedule, *,
                                record_stats: bool = False, fused_gather: bool = False,
                                fused_sa: bool = False) -> Callable:
-    """DDPM epsilon-MSE step: step(state, x0, condition, label) ->
-    (state, loss), or (state, loss, stats) with ``record_stats``, with
-    t ~ U[0, T) and z ~ N(0, 1) drawn from ``state.generator``."""
+    """DDPM epsilon-MSE step: step(state, x0, condition, label, t=None,
+    z=None) -> (state, loss), or (state, loss, stats) with
+    ``record_stats``, with t ~ U[0, T) and z ~ N(0, 1) drawn from
+    ``state.generator`` unless they are passed in."""
     device = next(model.parameters()).device
     sched = schedule.to(device)
     loss_fn = make_completion_loss(model, sched, fused_gather=fused_gather,
                                    fused_sa=fused_sa, record_stats=record_stats)
 
-    def step(state: TrainState, x0, condition, label):
+    def step(state: TrainState, x0, condition, label, t=None, z=None):
         B = x0.shape[0]
-        t = torch.randint(0, sched.T, (B,), generator=state.generator, device=x0.device)
-        z = torch.randn(x0.shape, generator=state.generator, device=x0.device,
-                        dtype=x0.dtype)
+        if t is None:
+            t = torch.randint(0, sched.T, (B,), generator=state.generator, device=x0.device)
+        if z is None:
+            z = torch.randn(x0.shape, generator=state.generator, device=x0.device,
+                            dtype=x0.dtype)
         return _finish(state, loss_fn(x0, condition, label, t, z), record_stats)
 
     return step
@@ -217,7 +231,29 @@ def make_refine_train_step(
     return step
 
 
-def jit_step_for_mesh(*args, **kwargs):
-    """The JAX package's multi-device train step (data-parallel batch,
-    sharded parameters).  Not ported yet."""
-    raise NotImplementedError("multi-device training is not ported yet")
+def jit_step_for_mesh(make_step: Callable, mesh, state: TrainState, *args, **kwargs):
+    """The data-parallel train step: ``make_step`` (``make_completion_train_step``
+    or ``make_refine_train_step``, with ``*args`` / ``**kwargs``) built on
+    ``state.model`` wrapped in ``DistributedDataParallel``.  Each process
+    passes its rank's rows of the global batch; the backward averages the
+    gradients over the processes, so every process's Adam takes the same
+    update and the parameters stay equal, and the returned loss is the
+    processes' mean (the global batch's loss when the rank batches are
+    equal).  Every parameter must get a gradient in each step, as the
+    PointNet++ network's do with or without the fused routes.  Without an
+    initialised process group it is ``make_step``'s own step.  Returns (step, state); the state
+    keeps the bare model, so checkpoints keep their keys."""
+    if not mesh.distributed:
+        return make_step(state.model, *args, **kwargs), state
+    dev = mesh.device
+    ddp = DistributedDataParallel(
+        state.model, device_ids=[dev.index] if dev.type == "cuda" else None)
+    inner = make_step(ddp, *args, **kwargs)
+
+    def step(state: TrainState, *a, **kw):
+        out = inner(state, *a, **kw)
+        loss = out[1].clone()
+        dist.all_reduce(loss)
+        return (out[0], loss / mesh.world) + tuple(out[2:])
+
+    return step, state

@@ -1,6 +1,7 @@
 from .device import resolve_device
 from .logging import TensorBoardLogger
 from .meters import AverageMeter
+from .profiling import StepTimer, summarize_trace, trace
 from .neighbor_stats import (
     NeighborStatsAccumulator,
     count_stats,
@@ -19,6 +20,7 @@ from .weights import (
 __all__ = [
     "AverageMeter",
     "NeighborStatsAccumulator",
+    "StepTimer",
     "TensorBoardLogger",
     "adam_state_to_flax",
     "count_stats",
@@ -30,4 +32,6 @@ __all__ = [
     "resolve_device",
     "sa_ladder_neighbor_stats",
     "state_dict_to_flax",
+    "summarize_trace",
+    "trace",
 ]

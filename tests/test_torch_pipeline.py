@@ -24,6 +24,7 @@ from point_diffusion_refinement_tpu.config import tiny_pointnet_config
 from point_diffusion_refinement_tpu.data import write_mvp_style_h5
 from point_diffusion_refinement_tpu.sample import pipeline as jpipe
 from point_diffusion_refinement_tpu_torch.models import PointNet2CloudCondition
+from point_diffusion_refinement_tpu_torch.parallel import make_mesh
 from point_diffusion_refinement_tpu_torch.sample import pipeline as ppipe
 from point_diffusion_refinement_tpu_torch.train import create_train_state
 from point_diffusion_refinement_tpu_torch.utils.weights import state_dict_to_flax
@@ -210,5 +211,5 @@ def test_missing_checkpoint_and_mesh_raise(data_dir, tmp_path):
     for it in ("max", "best", 3):
         with pytest.raises(FileNotFoundError):
             ppipe.run_generation(cfg, ckpt_iter=it, device="cpu")
-    with pytest.raises(NotImplementedError):
-        ppipe.run_generation(cfg, mesh=object(), device="cpu")
+    with pytest.raises(FileNotFoundError):  # the one-process mesh reads the same checkpoints
+        ppipe.run_generation(cfg, mesh=make_mesh(device="cpu"))

@@ -35,6 +35,7 @@ from point_diffusion_refinement_tpu_torch import train as ptrain
 from point_diffusion_refinement_tpu_torch.data import synthetic_dataset
 from point_diffusion_refinement_tpu_torch.diffusion import calc_diffusion_hyperparams, q_sample
 from point_diffusion_refinement_tpu_torch.models import PointNet2CloudCondition
+from point_diffusion_refinement_tpu_torch.parallel import make_mesh
 from point_diffusion_refinement_tpu_torch.train.loop import train
 from point_diffusion_refinement_tpu_torch.utils.weights import (
     adam_state_to_flax,
@@ -464,11 +465,12 @@ def test_unported_options_raise(tmp_path):
     port = PointNet2CloudCondition.from_config(tiny_pointnet_config(), device="cpu", seed=0)
     sched = calc_diffusion_hyperparams(T, 1e-4, 0.02)
     # the neighbour statistics are ported (tests/test_torch_neighbor_stats.py):
-    # the steps build; the multi-device step is not
+    # the steps build; the multi-device step is ported (tests/test_torch_parallel.py)
+    # but for the mesh's model axis
     assert callable(ptrain.make_completion_train_step(port, sched, record_stats=True))
     assert callable(ptrain.make_refine_train_step(port, record_stats=True))
-    with pytest.raises(NotImplementedError):
-        ptrain.jit_step_for_mesh()
+    with pytest.raises(ValueError):
+        make_mesh(model_parallel=2, device="cpu")
     cfg = _config("completion", str(tmp_path))
     cfg["mvp_dataset_config"]["data_dir"] = str(tmp_path / "no_data")
     with pytest.raises(FileNotFoundError):  # the h5 dataset is read, and is missing
