@@ -196,11 +196,35 @@
    DDPM steps at B = DEMO_BATCH, then ``trace`` + ``summarize_trace`` over
    three: the top 10 device ops; fails if no device row is returned in
    three trace windows.
+18. The mesh's ``model`` axis and the FLOP count, after phase 17.  (a)
+   The same MODEL_AXIS_STEPS B=TRAIN_BATCH DDPM steps (``ddpm`` config in
+   bf16 at full width, fused training routes on) once in this process and
+   once through ``train(mesh=)`` in two spawned processes on the one card
+   (gloo on CUDA tensors, ``tcp://127.0.0.1`` on a free port, a (1, 2) mesh,
+   half the rows a rank), from the same weights, rows and draws (the
+   reference takes each rank's shard in ``train()``'s shuffled order, and t
+   and z from a generator seeded rank + 1, as the ranks draw them; this
+   process frees its cached memory before they start).  Holds the first
+   loss within TRAIN_PLAIN_LOSS_REL_TOL, the second loss and the gathered
+   parameters after the last step (relative L2) within RESUME_REL_TOL, the
+   losses equal on both ranks, the tensors each rank stores sharded equal to
+   the port's rule (104 of 837 at this config) with their shapes halved, the
+   launches of #1, #2, #4, #8 and B non-zero on each rank, and rank 0's
+   last checkpoint loaded into one process equal to the gathered
+   parameters; prints each rank's bytes of parameters and Adam moments
+   beside the one process's, its peak memory, and both step times (two
+   processes share one card: no speed record).  (b) ``dot_flops`` of one
+   B=4 denoise step with the variants off and with ``fused_attention`` on,
+   whose ``model + pallas`` must be equal, and of one B=TRAIN_BATCH DDPM
+   training step with the fused routes: model GFLOP and MFU (FLOPs over
+   the step's host-clock ms and 989 TFLOP/s).  ``python3 chip_smoke.py
+   --model-axis-cards 4`` runs (a) alone across four cards instead, NCCL, a
+   card a rank, a (2, 2) mesh, against one process on card 0.
 15. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
    (``launches``: the sum over the driven paths, the ``ddpm_avg_max`` step,
    the two pipelines, the two training runs, the file-driven pipeline,
-   the five runs of phase 16 and the demo of phase 17, each counted from
-   zero;
+   the five runs of phase 16, the demo of phase 17 and the two ranks of
+   phase 18 (a), each counted from zero;
    ``launches_by_path``
    splits it; the FPS rows add ``latency_floor_ms``, the sweep's per-pick
    time at its smallest N times the row's npoint - 1, beside the roofline
@@ -3122,12 +3146,343 @@ def two_stage(dev, workdir: str) -> dict:
     return {"two_stage_demo": counts}
 
 
+# ---- phase 18: the mesh's model axis and the FLOP count -----------------
+
+MODEL_AXIS_RANKS = 2  # on the one card
+MODEL_AXIS_PARALLEL = 2  # ranks a model row
+MODEL_AXIS_STEPS = 2
+MODEL_AXIS_TIMEOUT_S = 600  # all the processes, start to end
+
+
+def model_axis_config(root: str, batch: int) -> dict:
+    """The ``ddpm`` experiment at full width in bf16, ``batch`` rows a
+    process, no in-loop eval, a checkpoint an epoch."""
+    from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
+
+    cfg = EXPERIMENTS["ddpm"]()
+    cfg["train_config"].update(root_directory=root, n_epochs=1, epochs_per_ckpt=1,
+                               iters_per_logging=1, shuffle_seed=0)
+    cfg["mvp_dataset_config"].update(batch_size=batch, num_samples_tested=0)
+    return cfg
+
+
+def model_axis_rank(rank: int, port: int, workdir: str, world: int, backend: str) -> None:
+    """Phase 18 (a), one of ``world`` processes: a ``backend`` group (gloo
+    on CUDA tensors on the one card; NCCL a card a rank), the
+    (world / MODEL_AXIS_PARALLEL, MODEL_AXIS_PARALLEL) mesh,
+    MODEL_AXIS_STEPS DDPM steps through ``train(mesh=)`` at TRAIN_BATCH //
+    world rows a rank; what it stores, its losses, step seconds and
+    launches, and (rank 0) the gathered parameters go to
+    ``model_axis_rank_<r>.pt``."""
+    import torch.distributed as dist
+
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.data import ArrayDataset
+    from point_diffusion_refinement_tpu_torch.parallel import (
+        full_state_dict,
+        initialize_distributed,
+        make_mesh,
+        sharding_of,
+    )
+    from point_diffusion_refinement_tpu_torch.train.loop import train
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(rank % torch.cuda.device_count())
+    initialize_distributed(backend=backend, init_method=f"tcp://127.0.0.1:{port}",
+                           world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(model_parallel=MODEL_AXIS_PARALLEL)
+        with np.load(os.path.join(workdir, "model_axis_data.npz")) as f:
+            ds = ArrayDataset(**{k: f[k] for k in ("complete", "partial", "label")})
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        res = train(model_axis_config(os.path.join(workdir, "model_axis"),
+                                      TRAIN_BATCH // world),
+                    max_steps=MODEL_AXIS_STEPS, dataset_override=ds, fused_gather=True,
+                    fused_sa=True, mesh=mesh)
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        model, state = res["model"], res["state"]
+        out = {
+            "mesh": (mesh.shape, mesh.model_index, str(mesh.device), dist.get_backend()),
+            "losses": res["losses"], "step_seconds": res["step_seconds"], "counts": counts,
+            "dims": dict(sharding_of(model).dims),
+            "stored": {n: tuple(p.shape) for n, p in model.named_parameters()},
+            "bytes": state_bytes(model, state.optimizer),
+            "peak_GiB": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "output_directory": res["output_directory"],
+        }
+        full = {k: v.detach().cpu() for k, v in full_state_dict(model).items()}
+        if rank == 0:
+            out["params"] = full
+        torch.save(out, os.path.join(workdir, f"model_axis_rank_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def state_bytes(model, optimizer) -> int:
+    """Bytes of a model's parameters and its optimizer's moments."""
+    return (sum(p.numel() * p.element_size() for p in model.parameters())
+            + sum(v.numel() * v.element_size() for s in optimizer.state.values()
+                  for v in s.values() if v.dim() > 0))
+
+
+def params_rel_l2(a: dict, b: dict) -> float:
+    num = sum(float((a[k].double() - b[k].double()).pow(2).sum()) for k in b) ** 0.5
+    den = sum(float(b[k].double().pow(2).sum()) for k in b) ** 0.5
+    return num / den
+
+
+def model_axis_reference(dev, ds, schedule, pc, world: int):
+    """Phase 18 (a)'s reference: the same MODEL_AXIS_STEPS steps in this one
+    process at TRAIN_BATCH from the same weights, on the rows and draws the
+    ``world`` ranks take (each rank's shard of ``ds`` in ``train()``'s
+    shuffled order, t and z from a generator seeded rank + 1)."""
+    from point_diffusion_refinement_tpu_torch import train as tr
+    from point_diffusion_refinement_tpu_torch.data import iterate_batches
+    from point_diffusion_refinement_tpu_torch.parallel import Mesh, shard_dataset
+    from point_diffusion_refinement_tpu_torch.train.loop import build_model
+
+    half = TRAIN_BATCH // world
+    ranks = []
+    for r in range(world):
+        shard = shard_dataset(ds, Mesh(r, world, torch.device("cpu")), pad=True)
+        batches = iterate_batches(shard, half, shuffle=True, drop_last=True, seed=0)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(r + 1)
+        ranks.append(([next(batches) for _ in range(MODEL_AXIS_STEPS)], gen))
+    model = build_model(pc, device=dev, seed=0)
+    state = tr.create_train_state(model, seed=1)
+    step = tr.make_completion_train_step(model, schedule, fused_gather=True, fused_sa=True)
+    sched = schedule.to(dev)
+    losses, step_ms = [], []
+    for k in range(MODEL_AXIS_STEPS):
+        t, z = [], []
+        for _, gen in ranks:  # a rank's step draws t, then z
+            t.append(torch.randint(0, sched.T, (half,), generator=gen, device=dev))
+            z.append(torch.randn((half, 2048, 3), generator=gen, device=dev))
+        batch = {key: torch.from_numpy(np.concatenate(
+            [np.asarray(b[k][key]) for b, _ in ranks])).to(dev)
+            for key in ("complete", "partial", "label")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, batch["complete"], batch["partial"], batch["label"].long(),
+                           t=torch.cat(t), z=torch.cat(z))
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return losses, step_ms, params, state_bytes(model, state.optimizer)
+
+
+def model_axis(dev, workdir: str) -> dict:
+    """Phase 18: (a) the sharded DDPM step on two processes of the one card
+    against one process; (b) the FLOP count."""
+    counts, ds = sharded_training(dev, workdir, MODEL_AXIS_RANKS, "gloo")
+    flop_count(dev, ds)
+    return {"model axis": counts}
+
+
+def model_axis_network():
+    """Phase 18's network config and DDPM schedule (the ``ddpm`` experiment)."""
+    from point_diffusion_refinement_tpu_torch.diffusion import calc_diffusion_hyperparams
+
+    cfg = model_axis_config("", TRAIN_BATCH)
+    dc = cfg["diffusion_config"]
+    return cfg["pointnet_config"], calc_diffusion_hyperparams(dc["T"], dc["beta_0"],
+                                                              dc["beta_T"])
+
+
+def sharded_training(dev, workdir: str, world: int, backend: str):
+    """Phase 18 (a): MODEL_AXIS_STEPS DDPM steps through ``train(mesh=)``
+    in ``world`` processes on a (world / 2, 2) mesh against the same steps
+    in this process.  Returns the ranks' summed launch counts and the
+    dataset."""
+    import gc
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from point_diffusion_refinement_tpu_torch import train as tr
+    from point_diffusion_refinement_tpu_torch.data import ArrayDataset
+    from point_diffusion_refinement_tpu_torch.parallel import Mesh, param_sharding_rule
+    from point_diffusion_refinement_tpu_torch.train.loop import build_model
+
+    pc, schedule = model_axis_network()
+    arrays = training_arrays(2 * TRAIN_BATCH, 2048, seed=50)
+    ds = ArrayDataset(**{k: arrays[k] for k in ("complete", "partial", "label")})
+    np.savez(os.path.join(workdir, "model_axis_data.npz"), **ds.arrays)
+    ref_losses, ref_ms, ref_params, ref_bytes = model_axis_reference(dev, ds, schedule, pc,
+                                                                     world)
+    print(f"model axis one process: {MODEL_AXIS_STEPS} steps at B={TRAIN_BATCH} "
+          f"losses={ref_losses} step_ms={[round(v, 1) for v in ref_ms]} "
+          f"param_and_moment_bytes={ref_bytes}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks take the card's memory now
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = mp.start_processes(model_axis_rank, args=(port, workdir, world, backend),
+                               nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + MODEL_AXIS_TIMEOUT_S
+    while not procs.join(timeout=5):
+        if time.monotonic() > deadline:
+            for p in procs.processes:
+                p.kill()
+            raise AssertionError("model axis: the processes did not finish in time")
+    wall = time.perf_counter() - t0
+    ranks = [torch.load(os.path.join(workdir, f"model_axis_rank_{r}.pt"), weights_only=False)
+             for r in range(world)]
+
+    rule = param_sharding_rule(Mesh(0, world, dev, MODEL_AXIS_PARALLEL))
+    want = {n: rule(n, tuple(v.shape)) for n, v in ref_params.items()}
+    want = {n: d for n, d in want.items() if d is not None}
+    sharded_params = sum(ref_params[n].numel() for n in want)
+    total_params = sum(v.numel() for v in ref_params.values())
+    print(f"model axis: {world} processes (wall {wall:.1f} s with start-up) mesh="
+          f"{[r['mesh'] for r in ranks]}; rule shards {len(want)} of {len(ref_params)} "
+          f"tensors, {sharded_params} of {total_params} parameters "
+          f"({sharded_params / total_params:.3f})", flush=True)
+    for r, res in enumerate(ranks):
+        shapes_ok = all(
+            res["stored"][n] == tuple(s // MODEL_AXIS_PARALLEL if i == want.get(n) else s
+                                      for i, s in enumerate(v.shape))
+            for n, v in ref_params.items())
+        kernels_ok = all(res["counts"][k] > 0 for k in TRAIN_PATH_KERNELS)
+        print(f"model axis rank {r}: sharded={len(res['dims'])} shapes_ok={shapes_ok} "
+              f"losses={res['losses']} step_ms="
+              f"{[round(s * 1e3, 1) for s in res['step_seconds']]} "
+              f"param_and_moment_bytes={res['bytes']} "
+              f"bytes_vs_one_process={res['bytes'] / ref_bytes:.4f} "
+              f"peak_memory_GiB={res['peak_GiB']:.2f} launches="
+              f"{ {k: v for k, v in res['counts'].items() if v} }", flush=True)
+        if res["dims"] != want or not shapes_ok:
+            raise AssertionError(f"model axis rank {r}: the stored tensors are not the rule's")
+        if not kernels_ok:
+            raise AssertionError(f"model axis rank {r}: a kernel of the training path was "
+                                 "not launched")
+    losses = ranks[0]["losses"]
+    loss1 = abs(losses[0] - ref_losses[0]) / abs(ref_losses[0])
+    loss2 = abs(losses[1] - ref_losses[1]) / abs(ref_losses[1])
+    rel = params_rel_l2(ranks[0]["params"], ref_params)
+    print(f"model axis vs one process: first_loss_rel={loss1:.3g} (tol "
+          f"{TRAIN_PLAIN_LOSS_REL_TOL}) second_loss_rel={loss2:.3g} params_rel_l2_after_"
+          f"{MODEL_AXIS_STEPS}={rel:.3g} (tol {RESUME_REL_TOL}); losses equal on the ranks: "
+          f"{all(r['losses'] == losses for r in ranks)}", flush=True)
+    if not (loss1 <= TRAIN_PLAIN_LOSS_REL_TOL and loss2 <= RESUME_REL_TOL
+            and rel <= RESUME_REL_TOL and all(r["losses"] == losses for r in ranks)):
+        raise AssertionError("model axis: the sharded steps disagree with one process")
+
+    model = build_model(pc, device=dev, seed=5)
+    state = tr.create_train_state(model)
+    tr.load_checkpoint(ranks[0]["output_directory"], MODEL_AXIS_STEPS, state)
+    equal = all(torch.equal(v.cpu(), ranks[0]["params"][k])
+                for k, v in model.state_dict().items())
+    print(f"model axis checkpoint: pointnet_ckpt_{MODEL_AXIS_STEPS} loads in one process, "
+          f"equal to the gathered parameters: {equal}", flush=True)
+    if not equal:
+        raise AssertionError("model axis: the checkpoint does not hold the gathered state")
+    counts = {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+    return counts, ds
+
+
+def flop_count(dev, ds) -> None:
+    """Phase 18 (b): ``dot_flops`` of one B=4 denoise step with the
+    variants off and with ``fused_attention`` on (``model + pallas`` must be
+    the same), and of one B=TRAIN_BATCH DDPM training step with the fused
+    routes; model GFLOP and MFU against each step's host-clock time."""
+    from point_diffusion_refinement_tpu_torch import train as tr
+    from point_diffusion_refinement_tpu_torch.train.loop import build_model
+    from point_diffusion_refinement_tpu_torch.utils.flops import H100_BF16_PEAK_FLOPS, dot_flops
+
+    pc, schedule = model_axis_network()
+
+    def host_ms(fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    model = build_model(pc, device=dev, seed=0)
+    rng = np.random.default_rng(18)
+    B = 4
+    cond = conditions(rng, B, dev)
+    label = torch.zeros(B, dtype=torch.int64, device=dev)
+    x = torch.from_numpy(rng.standard_normal((B, 2048, 3)).astype(np.float32)).to(dev)
+    ts = torch.full((B,), 500.0, device=dev)
+    with torch.no_grad():
+        cf = model.encode_condition(cond)
+        steps = {name: (lambda r=routes: model.denoise(x, ts, label, cf, fused=True, **r))
+                 for name, routes in (("off", {}), ("fused_attention", {"fused_attention": True}))}
+        counted = {name: dot_flops(fn) for name, fn in steps.items()}
+        ms = {name: host_ms(fn, 10) for name, fn in steps.items()}
+    off, on = counted["off"], counted["fused_attention"]
+    for name, c in counted.items():
+        print(f"flops denoise step B={B} {name}: model_gflops={c['model'] / 1e9:.4f} "
+              f"pallas_gflops={c['pallas'] / 1e9:.4f} gather={c['gather']} "
+              f"step_ms={ms[name]:.2f} mfu={(c['model'] + c['pallas']) / (ms[name] * 1e-3 * H100_BF16_PEAK_FLOPS):.6f}",
+              flush=True)
+    if not (on["pallas"] > 0 and on["model"] + on["pallas"] == off["model"]):
+        raise AssertionError("flops: model + pallas with fused_attention differs from model "
+                             "without it")
+    del cf, steps
+
+    state = tr.create_train_state(model, seed=1)
+    step = tr.make_completion_train_step(model, schedule, fused_gather=True, fused_sa=True)
+    x0, c, lab = (torch.from_numpy(ds.arrays[k][:TRAIN_BATCH]).to(dev)
+                  for k in ("complete", "partial", "label"))
+    lab = lab.long()
+    train_flops = dot_flops(step, state, x0, c, lab)
+    train_ms = host_ms(lambda: step(state, x0, c, lab), 2)
+    print(f"flops ddpm train step B={TRAIN_BATCH} (fused routes): model_gflops="
+          f"{train_flops['model'] / 1e9:.4f} pallas_gflops={train_flops['pallas'] / 1e9:.4f} "
+          f"step_ms={train_ms:.1f} mfu="
+          f"{train_flops['model'] / (train_ms * 1e-3 * H100_BF16_PEAK_FLOPS):.6f} "
+          f"(peak {H100_BF16_PEAK_FLOPS:.3g} FLOP/s bf16 dense)", flush=True)
+    if not train_flops["model"] > 0:
+        raise AssertionError("flops: the training step counted no product")
+
+
+def model_axis_across_cards(cards: int) -> int:
+    """``--model-axis-cards N``: phase 18 (a) alone on N cards, NCCL, a card
+    a rank, a (N / 2, 2) mesh, against one process on card 0."""
+    from point_diffusion_refinement_tpu_torch.ops import kernels
+
+    if torch.cuda.device_count() < cards or cards % MODEL_AXIS_PARALLEL:
+        print(f"chip_smoke: {cards} cards asked, {torch.cuda.device_count()} present",
+              file=sys.stderr)
+        return 2
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
+    print(f"build: {kernels.build()}", flush=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        counts, _ = sharded_training(torch.device("cuda", 0), workdir, cards, "nccl")
+        print(f"model axis across {cards} cards: {time.perf_counter() - t0:.1f} s, "
+              f"launches={ {k: v for k, v in counts.items() if v} }", flush=True)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    print(smi.stdout.strip())
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--model-axis-cards"]:
+        return model_axis_across_cards(int(sys.argv[2]))
 
     from point_diffusion_refinement_tpu_torch import ops
     from point_diffusion_refinement_tpu_torch.config import DEFAULT_POINTNET_CONFIG
@@ -3269,6 +3624,8 @@ def main() -> int:
         path_counts.update(model_options(dev, workdir, rng))
         at("17 two-stage demo")
         path_counts.update(two_stage(dev, workdir))
+        at("18 model axis")
+        path_counts.update(model_axis(dev, workdir))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

@@ -6,8 +6,9 @@
 Counterpart of the JAX package's ``cli/train_cli.py``.  Runs on the GPU
 unless ``--device cpu`` is given; ``--fused_gather`` and ``--fused_sa`` turn
 on the network's fused training routes (off by default).  Under ``torchrun``
-each process trains data-parallel on its card (``parallel.mesh_from_environment``;
-gloo with ``--device cpu``).
+each process trains on its card (``parallel.mesh_from_environment``; gloo
+with ``--device cpu``): data-parallel, or with ``--model_parallel m`` on a
+(world / m, m) mesh whose model rows store the large tensors as slices.
 """
 
 from __future__ import annotations
@@ -29,10 +30,12 @@ def main(argv=None):
                    help="radius groupings through the fused ball query + gather")
     p.add_argument("--fused_sa", action="store_true",
                    help="eligible set-abstraction levels through the fused ball group")
+    p.add_argument("--model_parallel", type=int, default=1,
+                   help="ranks a model row under torchrun (it must divide the world)")
     args = p.parse_args(argv)
     result = train(load_config(args.config), max_steps=args.max_steps, device=args.device,
                    fused_gather=args.fused_gather, fused_sa=args.fused_sa,
-                   mesh=mesh_from_environment(args.device))
+                   mesh=mesh_from_environment(args.device, args.model_parallel))
     print(f"training finished at iteration {result['n_iter']}, "
           f"avg loss {result['final_loss']:.6f}")
     return result

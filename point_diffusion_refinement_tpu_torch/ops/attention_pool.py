@@ -37,6 +37,7 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.flops import record_pallas_macs
 from . import kernels
 
 BF16 = torch.bfloat16
@@ -430,6 +431,18 @@ def attention_finish_h(part, p: PreparedWeights, inter_c: int, M: int, K: int):
 
 
 # ---- the function ---------------------------------------------------------
+def attention_pool_kernel_macs(B: int, M: int, K: int, Ck: int, Cv: int, c2: int,
+                               inter_c: int, c_out: int) -> int:
+    """The multiply-adds of the products the unfused pool
+    (``models/attention.py::AttentionPool``) computes with ``matmul`` over
+    its (M, K) slots and the sweeps compute in their bodies: the key Dense,
+    the key half of ``Dense_2``, the scores' ``Dense_3`` and the values'
+    ``Dense_4``.  The query path's two products are ``torch.matmul`` on both
+    routes, and the sweeps' recomputation of k and h is not model work: a
+    model FLOP counts once.  ``utils/flops.py`` tallies it."""
+    return B * M * K * (Ck * c2 + c2 * inter_c + inter_c * c_out + Cv * c_out)
+
+
 def _rows(grouped, gfo):
     B, M, K, Ck = grouped.shape
     g2 = grouped.to(BF16).reshape(B, M * K, Ck).contiguous()
@@ -457,8 +470,12 @@ def _pool_kernels(feat, grouped, gfo, counts, p: PreparedWeights, c1, c2, inter_
                   K) -> torch.Tensor:
     """Three sweeps and two finishing kernels; the q path's two products in
     ``torch.matmul`` (the JAX package leaves them to XLA): seven launches
-    when the inputs are bf16 and the counts int32 or absent."""
-    M = grouped.shape[1]
+    when the inputs are bf16 and the counts int32 or absent.  Records the
+    products the sweeps take over from the unfused pool for the FLOP count
+    (``utils/flops.py``), which cannot see a kernel's body."""
+    B, M, _, Ck = grouped.shape
+    record_pallas_macs(attention_pool_kernel_macs(B, M, K, Ck, gfo.shape[-1], c2, inter_c,
+                                                  c_out))
     g2, gfo2 = _rows(grouped, gfo)
     part1 = _stats_launch(g2, gfo2, p.key, p.value, K)
     mm = torch.matmul(feat.to(BF16), p.w0)

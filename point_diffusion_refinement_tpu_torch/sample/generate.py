@@ -3,8 +3,9 @@
 Counterpart of the JAX package's ``sample/generate.py``:
 ``make_coarse_sampler`` (ancestral DDPM with t-slices and the warm start,
 or FastDPM over a precomputed plan), ``make_refiner`` and ``unaugment``.
-The JAX sampler's ``segment_size`` and ``mesh`` options (long device
-programs on a TPU, multi-chip sharding) have no counterpart here.
+The JAX sampler's ``segment_size`` option (long device programs on a TPU)
+has no counterpart here; its ``mesh`` option (the batch's rows split over
+the devices) is ``sample/pipeline.py::run_generation(mesh=)``'s.
 """
 
 from __future__ import annotations

@@ -29,7 +29,7 @@ import torch
 from ..config.loader import load_config
 from ..diffusion import calc_diffusion_hyperparams, make_fast_sampling_plan
 from ..models.pointwise_net import PointwiseNet
-from ..parallel.mesh import shard_dataset
+from ..parallel.mesh import full_parameters, shard_dataset
 from ..parallel.multihost import all_gather_host_arrays, barrier
 from ..train.checkpoints import CKPT_PREFIX, STATE_FILE, find_max_epoch, maybe_resume
 from ..train.step import TrainState, create_train_state
@@ -132,10 +132,14 @@ def run_generation(
     generated clouds where they are saved or ``keep_generated`` is set.
 
     ``mesh`` (``parallel.make_mesh()``) generates on ``mesh.device``, which
-    replaces ``device``; each process takes its rank's contiguous shard of
-    the phase (a ``dataset_override`` is split by the same rule), and at
-    world > 1 saves under ``rank_<i>`` and returns the metrics of every
-    rank.
+    replaces ``device``; each of the mesh's ``world`` processes, whatever
+    its shape (data x model), takes its rank's contiguous shard of the
+    phase, ceil(n / world) rows a rank in rank order (a ``dataset_override``
+    is split by the same rule), and at world > 1 saves under ``rank_<i>``
+    and returns the metrics of every rank.  The parameters are held whole
+    on every rank: a ``state_override`` sharded over the mesh's ``model``
+    axis is gathered for the duration, and a checkpoint is read whole.  So
+    the merged clouds are the ones one process writes.
     """
     from ..data import iterate_batches
     from ..train.loop import make_dataset  # train.loop imports sample
@@ -188,70 +192,73 @@ def run_generation(
     scale = ts_cfg.get("scale", 1)
     bs = batch_size or ts_cfg.get("eval_batch_size", 32)
     results = []
-    for trial in range(num_trials):
-        if dataset_override is not None:
-            dataset = shard_dataset(dataset_override, mesh, pad=False)
-        else:
-            ds_cfg = dict(ts_cfg)
-            if augment_data_during_generation:
-                # augment, and hand back M_inv / translation to undo it
-                ds_cfg["return_augmentation_params"] = True
-                ds_cfg["augment_data_during_generation"] = True
-            if use_a_precomputed_XT:
-                ds_cfg["load_pre_computed_XT"] = True
-                ds_cfg["T_step"] = T_step
-                if XT_folder is not None:
-                    ds_cfg["XT_folder"] = XT_folder
-            dataset = make_dataset(ds_cfg, phase, rank, world, eval_subset=num_samples_tested)
+    # generation holds the parameters whole: a model sharded over the mesh's
+    # model axis is gathered for the trials (a collective of its model row)
+    with full_parameters(model):
+        for trial in range(num_trials):
+            if dataset_override is not None:
+                dataset = shard_dataset(dataset_override, mesh, pad=False)
+            else:
+                ds_cfg = dict(ts_cfg)
+                if augment_data_during_generation:
+                    # augment, and hand back M_inv / translation to undo it
+                    ds_cfg["return_augmentation_params"] = True
+                    ds_cfg["augment_data_during_generation"] = True
+                if use_a_precomputed_XT:
+                    ds_cfg["load_pre_computed_XT"] = True
+                    ds_cfg["T_step"] = T_step
+                    if XT_folder is not None:
+                        ds_cfg["XT_folder"] = XT_folder
+                dataset = make_dataset(ds_cfg, phase, rank, world, eval_subset=num_samples_tested)
 
-        if refine_task:
-            def gen_fn(batch):
-                coarse = batch["generated"] if "generated" in batch else batch["complete"]
-                return refiner(torch.as_tensor(np.asarray(coarse, np.float32)),
-                               tensor(batch, "partial"), tensor(batch, "label", torch.int64),
-                               output_scale_factor)
-        else:
-            gen = torch.Generator(device=dev)
-            gen.manual_seed(1000 + trial)
+            if refine_task:
+                def gen_fn(batch):
+                    coarse = batch["generated"] if "generated" in batch else batch["complete"]
+                    return refiner(torch.as_tensor(np.asarray(coarse, np.float32)),
+                                   tensor(batch, "partial"), tensor(batch, "label", torch.int64),
+                                   output_scale_factor)
+            else:
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(1000 + trial)
 
-            def gen_fn(batch):
-                XT = tensor(batch, "XT") if use_a_precomputed_XT and "XT" in batch else None
-                return sampler(tensor(batch, "partial"), tensor(batch, "label", torch.int64),
-                               generator=gen, XT=XT)
+                def gen_fn(batch):
+                    XT = tensor(batch, "XT") if use_a_precomputed_XT and "XT" in batch else None
+                    return sampler(tensor(batch, "partial"), tensor(batch, "label", torch.int64),
+                                   generator=gen, XT=XT)
 
-        save_dir = None
-        if save_generated:
-            save_dir = generation_save_dir(
-                config, it, fast_sampling=fast_sampling,
-                fast_sampling_config=fast_sampling_config,
-                trial_index=trial + 1 if num_trials > 1 else None,
-                phase=phase, base_dir=base_save_dir)
-            if world > 1:
-                save_dir = os.path.join(save_dir, f"rank_{rank}")
-            os.makedirs(save_dir, exist_ok=True)
-        res = evaluate(
-            gen_fn, iterate_batches(dataset, bs, shuffle=False), scale=scale,
-            save_generated_samples=save_generated, save_dir=save_dir,
-            keep_generated=keep_generated,
-            unaugment_results=augment_data_during_generation, compute_emd=compute_emd)
-        if save_dir is not None:
-            with open(os.path.join(save_dir, "eval_result.pkl"), "wb") as f:
-                pickle.dump({"avg_cd": res.avg_cd, "avg_emd": res.avg_emd,
-                             "metrics": res.metrics, "labels": res.labels}, f)
-        if world > 1:
-            # every rank holds its shard's metrics: gather them, so the
-            # averages (and any decision taken on them) agree on all ranks
-            res.metrics = {k: all_gather_host_arrays(v) for k, v in res.metrics.items()}
-            res.labels = all_gather_host_arrays(res.labels)
-            res.avg_cd = float(np.mean(res.metrics["cd_distance"]))
-            res.avg_emd = float(np.mean(res.metrics["emd_distance"]))
+            save_dir = None
+            if save_generated:
+                save_dir = generation_save_dir(
+                    config, it, fast_sampling=fast_sampling,
+                    fast_sampling_config=fast_sampling_config,
+                    trial_index=trial + 1 if num_trials > 1 else None,
+                    phase=phase, base_dir=base_save_dir)
+                if world > 1:
+                    save_dir = os.path.join(save_dir, f"rank_{rank}")
+                os.makedirs(save_dir, exist_ok=True)
+            res = evaluate(
+                gen_fn, iterate_batches(dataset, bs, shuffle=False), scale=scale,
+                save_generated_samples=save_generated, save_dir=save_dir,
+                keep_generated=keep_generated,
+                unaugment_results=augment_data_during_generation, compute_emd=compute_emd)
             if save_dir is not None:
-                barrier("pdr_generation_trial")
-                if rank == 0:
-                    gather_generated_results(os.path.dirname(save_dir), world)
-        results.append(res)
-        print(f"trial {trial}: avg CD {res.avg_cd:.8f} avg EMD {res.avg_emd:.8f} "
-              f"({res.total_generation_time:.1f}s generation)", flush=True)
+                with open(os.path.join(save_dir, "eval_result.pkl"), "wb") as f:
+                    pickle.dump({"avg_cd": res.avg_cd, "avg_emd": res.avg_emd,
+                                 "metrics": res.metrics, "labels": res.labels}, f)
+            if world > 1:
+                # every rank holds its shard's metrics: gather them, so the
+                # averages (and any decision taken on them) agree on all ranks
+                res.metrics = {k: all_gather_host_arrays(v) for k, v in res.metrics.items()}
+                res.labels = all_gather_host_arrays(res.labels)
+                res.avg_cd = float(np.mean(res.metrics["cd_distance"]))
+                res.avg_emd = float(np.mean(res.metrics["emd_distance"]))
+                if save_dir is not None:
+                    barrier("pdr_generation_trial")
+                    if rank == 0:
+                        gather_generated_results(os.path.dirname(save_dir), world)
+            results.append(res)
+            print(f"trial {trial}: avg CD {res.avg_cd:.8f} avg EMD {res.avg_emd:.8f} "
+                  f"({res.total_generation_time:.1f}s generation)", flush=True)
     return results
 
 

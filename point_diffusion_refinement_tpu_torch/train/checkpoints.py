@@ -8,6 +8,13 @@ optimizer ``state_dict``, generator state, step) and ``meta.json`` (iter,
 training_time_seconds).  ``find_max_epoch`` selects 'max' / 'all' / 'best',
 where 'best' reads the gathered eval pickle and picks the lowest-CD
 iteration.
+
+A checkpoint always holds the one-process keys and shapes.  In a process
+group every rank saves and rank 0 writes: a model sharded over the mesh's
+``model`` axis (``parallel.shard_params``) is gathered whole to be saved, a
+collective.  A loaded checkpoint is sliced to what each rank stores: one
+process resumes a sharded run's checkpoint, and a sharded run resumes one
+process's.
 """
 
 from __future__ import annotations
@@ -21,6 +28,13 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import (
+    full_optimizer_state_dict,
+    full_state_dict,
+    shard_optimizer_state_dict,
+    shard_state_dict,
+)
+from ..parallel.multihost import process_index
 from .step import TrainState
 
 CKPT_PREFIX = "pointnet_ckpt"
@@ -33,18 +47,20 @@ def _ckpt_dir(path: str, it: int) -> str:
 
 def save_checkpoint(path: str, it: int, state: TrainState,
                     training_time_seconds: float = 0.0) -> str:
-    """Write a checkpoint at iteration ``it``; returns its directory."""
+    """Write a checkpoint at iteration ``it``; returns its directory.  Every
+    rank of a process group calls it (a sharded model is gathered first) and
+    rank 0 alone writes."""
     target = _ckpt_dir(path, it)
+    blob = {
+        "model_state_dict": full_state_dict(state.model),
+        "optimizer_state_dict": full_optimizer_state_dict(state.model, state.optimizer),
+        "generator_state": state.generator.get_state(),
+        "step": int(state.step),
+    }
+    if process_index() != 0:
+        return target
     os.makedirs(target, exist_ok=True)
-    torch.save(
-        {
-            "model_state_dict": state.model.state_dict(),
-            "optimizer_state_dict": state.optimizer.state_dict(),
-            "generator_state": state.generator.get_state(),
-            "step": int(state.step),
-        },
-        os.path.join(target, STATE_FILE),
-    )
+    torch.save(blob, os.path.join(target, STATE_FILE))
     with open(os.path.join(target, "meta.json"), "w") as f:
         json.dump({"iter": it, "training_time_seconds": training_time_seconds}, f)
     return target
@@ -83,14 +99,17 @@ def find_max_epoch(path: str, mode: str = "max", eval_result_path: Optional[str]
 
 def load_checkpoint(path: str, it: int, state: TrainState):
     """Restore the checkpoint of iteration ``it`` into ``state`` in place
-    (parameters, Adam moments, generator, step).  Returns (state,
+    (parameters, Adam moments, generator, step), sliced to what each rank
+    stores where the model is sharded.  Returns (state,
     training_time_seconds)."""
     target = _ckpt_dir(path, it)
     device = next(state.model.parameters()).device
     blob = torch.load(os.path.join(target, STATE_FILE), map_location=device,
                       weights_only=True)
-    state.model.load_state_dict(blob["model_state_dict"], strict=True)
-    state.optimizer.load_state_dict(blob["optimizer_state_dict"])
+    state.model.load_state_dict(shard_state_dict(state.model, blob["model_state_dict"]),
+                                strict=True)
+    state.optimizer.load_state_dict(shard_optimizer_state_dict(
+        state.model, state.optimizer, blob["optimizer_state_dict"]))
     state.generator.set_state(blob["generator_state"].cpu())
     state.step = int(blob["step"])
     secs = 0.0

@@ -20,12 +20,16 @@ As in the JAX package, the in-loop eval of the completion task needs the
 PointNet++ network (``make_coarse_sampler`` raises for another one).
 
 With ``mesh=`` (``parallel.make_mesh()`` in each of the processes of an
-initialised process group) it trains data-parallel, one process a device:
+initialised process group) it trains over the processes, one a device:
 each process takes its rank's shard of the dataset, seeds its draws with
-``rank + 1`` and steps through ``DistributedDataParallel``; the in-loop eval
-writes a pickle a rank, gathers the metrics over the processes and
-broadcasts rank 0's test CD, so every rank takes the same best-checkpoint
-decision; rank 0 alone writes checkpoints and the scalar log.
+``rank + 1`` and steps through ``jit_step_for_mesh``, data-parallel
+(``DistributedDataParallel``) or, on a mesh with a ``model`` axis, with its
+large tensors and their Adam moments stored as slices; the in-loop eval
+holds the parameters whole (``parallel.full_parameters``), writes a pickle a
+rank, gathers the metrics over the processes and broadcasts rank 0's test
+CD, so every rank takes the same best-checkpoint decision; every rank
+saves a checkpoint (a sharded model is gathered) and rank 0 alone writes it
+and the scalar log.
 """
 
 from __future__ import annotations
@@ -45,7 +49,7 @@ from ..config.loader import load_config
 from ..data import ArrayDataset, MVPDataset, MVPDatasetConfig, iterate_batches, synthetic_dataset
 from ..diffusion import calc_diffusion_hyperparams, make_fast_sampling_plan
 from ..models import PointNet2CloudCondition, PointwiseNet, PVCNN2Completion
-from ..parallel.mesh import Mesh, shard_dataset
+from ..parallel.mesh import Mesh, full_parameters, shard_dataset
 from ..parallel.multihost import all_gather_host_arrays, broadcast_scalar
 from ..sample import evaluate, make_coarse_sampler, make_refiner
 from ..utils.device import DeviceLike, resolve_device
@@ -215,10 +219,13 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
     ``step_seconds`` hold each step's host time from the assembly of its
     batch to its loss on the host (checkpoints and evals excluded).
 
-    ``mesh`` (``parallel.make_mesh()``) trains data-parallel over the
-    processes of the initialised process group on ``mesh.device``, which
-    replaces ``device``; the dataset overrides are sharded by rank like
-    the h5 dataset.  Without a process group it is the one-process run."""
+    ``mesh`` (``parallel.make_mesh()``) trains over the processes of the
+    initialised process group on ``mesh.device``, which replaces
+    ``device``; the dataset overrides are sharded by rank like the h5
+    dataset, over all the processes whatever the mesh's shape.  On a mesh
+    with a ``model`` axis the returned model and state hold this rank's
+    slices (``parallel.full_state_dict`` gathers them).  Without a process
+    group it is the one-process run."""
     train_config = config["train_config"]
     pointnet_config = config["pointnet_config"]
     diffusion_config = config["diffusion_config"]
@@ -442,19 +449,20 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
 
             if n_iter > 0 and (n_iter + 1) % iters_per_ckpt == 0:
                 num_ckpts += 1
+                if rank == 0 and last_saved is not None and only_best:
+                    shutil.rmtree(last_saved, ignore_errors=True)
+                last_saved = save_checkpoint(
+                    output_directory, n_iter, state,
+                    training_time_seconds=time.time() - time0)
                 if rank == 0:
-                    if last_saved is not None and only_best:
-                        shutil.rmtree(last_saved, ignore_errors=True)
-                    last_saved = save_checkpoint(
-                        output_directory, n_iter, state,
-                        training_time_seconds=time.time() - time0)
                     print(f"checkpoint saved at iteration {n_iter}", flush=True)
                     if stats_acc is not None and stats_acc.forwards:
                         stats_acc.report()
 
                 if (num_samples_tested > 0 and n_iter >= eval_start_iter
                         and num_ckpts % eval_per_ckpt == 0):
-                    avg_cd, avg_emd = run_eval(n_iter, osf_at(n_iter))
+                    with full_parameters(model):
+                        avg_cd, avg_emd = run_eval(n_iter, osf_at(n_iter))
                     eval_records["iter"].append(n_iter)
                     eval_records["avg_cd"].append(avg_cd)
                     eval_records["avg_emd"].append(avg_emd)
@@ -479,9 +487,8 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
                 break
             t_batch = time.perf_counter()
 
-    if rank == 0:
-        save_checkpoint(output_directory, n_iter, state,
-                        training_time_seconds=time.time() - time0)
+    save_checkpoint(output_directory, n_iter, state,
+                    training_time_seconds=time.time() - time0)
     tb.close()
     return {
         "state": state,

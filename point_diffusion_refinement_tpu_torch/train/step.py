@@ -19,16 +19,17 @@ neighbour-count histograms the forward recorded
 ``neighbor_stats`` collection.  No step passes a dropout draw, so the
 networks' dropout stays off, as in the JAX package.
 
-``jit_step_for_mesh`` is the data-parallel step over processes: the step
-maker's step on the model wrapped in ``DistributedDataParallel``, one rank's
-rows of the global batch a process.
+``jit_step_for_mesh`` is the step over the processes of a mesh, one rank's
+rows of the global batch a process: the step maker's step on the model
+wrapped in ``DistributedDataParallel``, or, with a ``model`` axis, on the
+model whose large tensors each rank stores as slices (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -40,6 +41,16 @@ from ..models.condition_net import PointNet2CloudCondition
 from ..models.modules import collect_neighbor_stats
 from ..models.upsample import point_upsample
 from ..ops.chamfer import calc_cd
+from ..parallel.mesh import (
+    DATA_AXIS,
+    MODEL_AXIS,
+    all_reduce_flat,
+    gather_shards,
+    reduce_scatter_shards,
+    shard_optimizer_state_dict,
+    shard_params,
+    sharding_of,
+)
 
 
 @dataclasses.dataclass
@@ -69,8 +80,10 @@ def create_train_state(model: torch.nn.Module, seed: int = 0,
 
 
 def _unwrap(model) -> torch.nn.Module:
-    """The network inside a ``DistributedDataParallel`` wrapper."""
-    return model.module if isinstance(model, DistributedDataParallel) else model
+    """The network inside a ``DistributedDataParallel`` or ``_ShardedForward``
+    wrapper."""
+    return model.module if isinstance(model, (DistributedDataParallel, _ShardedForward)) \
+        else model
 
 
 def _route_kwargs(model, fused_gather: bool, fused_sa: bool) -> dict:
@@ -231,24 +244,102 @@ def make_refine_train_step(
     return step
 
 
+class _ShardedForward(torch.nn.Module):
+    """The network of a train step under the mesh's ``model`` axis.  Its
+    forward all-gathers the sharded tensors over the model row into whole
+    leaf tensors and runs the network on them (``torch.func.functional_call``),
+    so the backward leaves this rank's whole gradients on those leaves.
+    ``reduce_gradients``, run just before the optimizer steps, makes them and
+    the replicated tensors' gradients the global batch's mean gradient of
+    what this rank stores, in a fixed order of collectives."""
+
+    def __init__(self, model: torch.nn.Module, mesh):
+        super().__init__()
+        self.module = model
+        self.mesh = mesh
+        self._whole: Dict[str, torch.Tensor] = {}
+
+    def forward(self, *args, **kwargs):
+        dims = sharding_of(self.module).dims
+        params = dict(self.module.named_parameters())
+        whole = gather_shards([params[n].detach() for n in dims], list(dims.values()),
+                              self.mesh)
+        self._whole = {n: w.requires_grad_() for n, w in zip(dims, whole)}
+        return torch.func.functional_call(self.module, self._whole, args, kwargs)
+
+    def reduce_gradients(self) -> None:
+        mesh = self.mesh
+        dims = sharding_of(self.module).dims
+        params = dict(self.module.named_parameters())
+        whole = [w.grad if w.grad is not None else torch.zeros_like(w)
+                 for w in (self._whole[n] for n in dims)]
+        # a slice: summed over the model row, then over the data column
+        sliced = reduce_scatter_shards(whole, list(dims.values()), mesh)
+        if mesh.shape[DATA_AXIS] > 1:
+            all_reduce_flat(sliced, mesh.data_group)
+        for n, g in zip(dims, sliced):
+            params[n].grad = g
+        # a replicated tensor: summed over the world, not only the data
+        # column, so that every rank steps it alike (kernel B's float32
+        # atomics make one gradient differ in its last bits between ranks)
+        replicated = [p for n, p in params.items() if n not in dims]
+        for p in replicated:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        all_reduce_flat([p.grad for p in replicated])
+        for p in params.values():
+            p.grad.div_(mesh.world)
+        self._whole = {}
+
+
+def _shard_train_state(state: TrainState, mesh) -> None:
+    """Store the model's sharded tensors as this rank's slices and rebuild
+    the optimizer over what the rank now holds: the same hyperparameters,
+    and this rank's slice of any moments it had (a resumed state carries
+    over)."""
+    whole = state.optimizer.state_dict()
+    shard_params(state.model, mesh)
+    opt = type(state.optimizer)(state.model.parameters(), **state.optimizer.defaults)
+    opt.load_state_dict(shard_optimizer_state_dict(state.model, opt, whole))
+    state.optimizer = opt
+
+
 def jit_step_for_mesh(make_step: Callable, mesh, state: TrainState, *args, **kwargs):
-    """The data-parallel train step: ``make_step`` (``make_completion_train_step``
-    or ``make_refine_train_step``, with ``*args`` / ``**kwargs``) built on
-    ``state.model`` wrapped in ``DistributedDataParallel``.  Each process
-    passes its rank's rows of the global batch; the backward averages the
-    gradients over the processes, so every process's Adam takes the same
-    update and the parameters stay equal, and the returned loss is the
+    """The train step over the processes of ``mesh``: ``make_step``
+    (``make_completion_train_step`` or ``make_refine_train_step``, with
+    ``*args`` / ``**kwargs``) built on ``state.model``.  Each process passes
+    its rank's rows of the global batch, and the step takes the update of
+    the global batch's mean gradient, so the returned loss is the
     processes' mean (the global batch's loss when the rank batches are
-    equal).  Every parameter must get a gradient in each step, as the
-    PointNet++ network's do with or without the fused routes.  Without an
-    initialised process group it is ``make_step``'s own step.  Returns (step, state); the state
-    keeps the bare model, so checkpoints keep their keys."""
+    equal).
+
+    With ``mesh.shape["model"]`` = 1 the model is wrapped in
+    ``DistributedDataParallel``, whose backward averages the gradients;
+    every parameter must get a gradient in each step, as the PointNet++
+    network's do with or without the fused routes.  With a ``model`` axis,
+    ``state`` is sharded in place first (``parallel.shard_params``: each
+    rank stores its slice of every tensor the JAX rule shards, and the
+    optimizer is rebuilt over the slices with its moments sliced alike); a
+    step all-gathers the slices for the forward, and before Adam it
+    reduce-scatters their gradients over the model row, sums them over the
+    data column and sums the replicated tensors' gradients over the world.
+    Adam is elementwise, so a slice's update is the one-process update of
+    the same gradient.
+
+    Without an initialised process group it is ``make_step``'s own step.
+    Returns (step, state); the state keeps the bare model, so checkpoints
+    keep their keys (``train/checkpoints.py`` gathers a sharded one)."""
     if not mesh.distributed:
         return make_step(state.model, *args, **kwargs), state
-    dev = mesh.device
-    ddp = DistributedDataParallel(
-        state.model, device_ids=[dev.index] if dev.type == "cuda" else None)
-    inner = make_step(ddp, *args, **kwargs)
+    if mesh.shape[MODEL_AXIS] > 1:
+        net = _ShardedForward(state.model, mesh)
+        _shard_train_state(state, mesh)
+        state.optimizer.register_step_pre_hook(lambda *_: net.reduce_gradients())
+    else:
+        dev = mesh.device
+        net = DistributedDataParallel(
+            state.model, device_ids=[dev.index] if dev.type == "cuda" else None)
+    inner = make_step(net, *args, **kwargs)
 
     def step(state: TrainState, *a, **kw):
         out = inner(state, *a, **kw)

@@ -465,8 +465,9 @@ def test_unported_options_raise(tmp_path):
     port = PointNet2CloudCondition.from_config(tiny_pointnet_config(), device="cpu", seed=0)
     sched = calc_diffusion_hyperparams(T, 1e-4, 0.02)
     # the neighbour statistics are ported (tests/test_torch_neighbor_stats.py):
-    # the steps build; the multi-device step is ported (tests/test_torch_parallel.py)
-    # but for the mesh's model axis
+    # the steps build; the multi-device step is ported (tests/test_torch_parallel.py,
+    # and the mesh's model axis in tests/test_torch_mesh_model.py): one process
+    # does not divide into model rows of 2
     assert callable(ptrain.make_completion_train_step(port, sched, record_stats=True))
     assert callable(ptrain.make_refine_train_step(port, record_stats=True))
     with pytest.raises(ValueError):
