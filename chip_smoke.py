@@ -220,11 +220,32 @@
    the step's host-clock ms and 989 TFLOP/s).  ``python3 chip_smoke.py
    --model-axis-cards 4`` runs (a) alone across four cards instead, NCCL, a
    card a rank, a (2, 2) mesh, against one process on card 0.
+19. Compiled generation, after phase 13 on its model (the JAX package
+   jits its samplers and refiner; here a captured CUDA graph of a reverse
+   step, ``utils/graphs.py``): (a) STEPS ancestral steps at B=4 through
+   ``make_coarse_sampler(segment_size=GRAPH_SEGMENT)`` (segments of 4, 4
+   and 2) with t-slices at GRAPH_SLICES, then eagerly from the same
+   generator seed: x0 and each slice within the JAX package's variants
+   bound relative to the eager run's magnitude (0 expected), every
+   kernel's launch count equal and those of the coarse path non-zero;
+   (b) the same with ``fused_attention`` and ``fused_knn`` on, so the
+   attention sweeps and ``knn_group`` replay inside the graph; (c) for
+   both, the step ms of each kind from the host clock around STEPS
+   synchronised reverse steps, the device-busy share of STEPS reverse
+   steps each way (the profiler's CUDA activity over the host clock), and
+   the capture's ms and pool bytes; (d) FastDPM-50 at B=4
+   graphed whole against eager: equal as in (a), ms a batch; (e) the
+   ``upsample_16384`` x8 refine forward at B=32 through ``CapturedFunction``
+   against eager: the displacement's difference within REFINE_REL_TOL,
+   equal launch counts, ms a batch.  Phase 17's coarse generation runs
+   through the graphed ``run_generation``; it prints its seconds and ms a
+   step beside the eager demo CLI's record in ``PERF.md``.
 15. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
    (``launches``: the sum over the driven paths, the ``ddpm_avg_max`` step,
    the two pipelines, the two training runs, the file-driven pipeline,
    the five runs of phase 16, the demo of phase 17 and the two ranks of
-   phase 18 (a), each counted from zero;
+   phase 18 (a) and the four graphed runs of phase 19, each counted from
+   zero;
    ``launches_by_path``
    splits it; the FPS rows add ``latency_floor_ms``, the sweep's per-pick
    time at its smallest N times the row's npoint - 1, beside the roofline
@@ -3121,6 +3142,15 @@ def two_stage(dev, workdir: str) -> dict:
           f"refined_beats_coarse={summary['refined_beats_coarse']} (reported, not a check)",
           flush=True)
     print(f"two-stage demo launches: { {k: v for k, v in counts.items() if v} }", flush=True)
+    # coarse generation runs through run_generation's captured reverse step:
+    # the test clouds and one train-set trial, batches of DEMO_BATCH, DEMO_T
+    # steps each
+    steps = DEMO_T * sum(-(-n // DEMO_BATCH) for n in (summary["num_test"],
+                                                       summary["num_train"]))
+    coarse_s = summary["stage_seconds"]["coarse_generation"]
+    print(f"two-stage demo coarse generation (graphed): seconds={coarse_s} steps={steps} "
+          f"ms_a_step={coarse_s / steps * 1e3:.2f} (the demo CLI at the TPU settings, eager: "
+          f"847.1 s, ~72 ms a step; PERF.md section 5)", flush=True)
     values = [summary[k] for k in ("coarse_cd_t_2048", "refined_cd_t_4096",
                                    "ddpm_loss_first10", "ddpm_loss_last10")]
     if not (np.isfinite(values).all() and np.isfinite(losses).all()
@@ -3475,6 +3505,248 @@ def model_axis_across_cards(cards: int) -> int:
     return 0
 
 
+# ---- phase 19: compiled generation (captured CUDA graphs) -----------------
+GRAPH_SEGMENT = 4  # STEPS = 10 reverse steps in segments of 4, 4 and 2
+GRAPH_SLICES = (7, 2)  # the t-slices recorded in (a) and (b)
+GRAPH_REPS = 2  # timed calls of each kind, in turns (eager, graphed, graphed, eager)
+
+
+def graph_diff(what: str, got: torch.Tensor, ref: torch.Tensor) -> None:
+    """Max and mean |got - ref|, relative to the largest and the mean |ref|,
+    against the JAX package's variants bound (0 is expected: a replay runs
+    the eager run's kernels on the same inputs)."""
+    d = (got.float() - ref.float()).abs()
+    rel_max = float(d.max()) / max(float(ref.float().abs().max()), 1e-30)
+    rel_mean = float(d.mean()) / max(float(ref.float().abs().mean()), 1e-30)
+    print(f"{what} graphed vs eager: max={float(d.max()):.3g} mean={float(d.mean()):.3g} "
+          f"rel_max={rel_max:.3g} (tol {VARIANT_MAX_TOL}) rel_mean={rel_mean:.3g} "
+          f"(tol {VARIANT_MEAN_TOL})", flush=True)
+    if not (rel_max <= VARIANT_MAX_TOL and rel_mean <= VARIANT_MEAN_TOL):
+        raise AssertionError(f"{what}: the graphed run disagrees with the eager run")
+
+
+def same_launches(what: str, graphed: dict, eager: dict, path) -> None:
+    """The graphed run's launch counts equal the eager run's, and every
+    kernel of ``path`` was launched."""
+    print(f"{what} launches: graphed={ {k: v for k, v in graphed.items() if v} } "
+          f"equal to eager: {graphed == eager}", flush=True)
+    if graphed != eager:
+        raise AssertionError(f"{what}: launch counts differ from the eager run's {eager}")
+    missing = [k for k in path if graphed[k] <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels {missing} were not launched")
+
+
+def graph_stats(what: str, graphs) -> None:
+    for st in graphs.stats():
+        print(f"{what} graph: capture_ms={st['capture_ms']:.1f} "
+              f"pool_bytes={st['pool_bytes']} launches_a_replay={st['launches']}", flush=True)
+
+
+def timed_turns(calls: dict, reps: int = GRAPH_REPS) -> dict:
+    """{name: [host ms of each call]} over ``calls`` (name -> fn), each call
+    ending in a synchronise, in turns: the order, then reversed, ``reps``
+    rounds in all."""
+    out = {name: [] for name in calls}
+    order = list(calls)
+    for r in range(reps):
+        for name in (order if r % 2 == 0 else order[::-1]):
+            t0 = time.perf_counter()
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def device_busy(what: str, fn) -> None:
+    """The device-busy share of one call of ``fn``: the profiler's device
+    time (CUDA activity alone, which is cheap to collect) over the host
+    clock around the synchronised call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == DeviceType.CUDA) / 1e3
+    print(f"profile: {what}, wall_ms={wall_ms:.2f} (profiled) device_ms={dev_ms:.2f} "
+          f"device_busy={dev_ms / wall_ms:.3f}", flush=True)
+
+
+def graphed_ancestral(model, cond, label, dev, tag: str, **routes) -> dict:
+    """Phase 19 (a)/(b) and (c): STEPS ancestral steps through
+    ``make_coarse_sampler(segment_size=GRAPH_SEGMENT)`` with t-slices, then
+    eagerly from the same generator seed: x0, every slice and every launch
+    count must agree.  Then steady-state step ms of both, a device-busy
+    window of each, and the capture's ms and pool bytes.  Returns the
+    graphed run's launch counts."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.diffusion import calc_diffusion_hyperparams, ddpm
+    from point_diffusion_refinement_tpu_torch.sample import make_coarse_sampler
+
+    schedule = calc_diffusion_hyperparams(STEPS, 1e-4, 0.02)
+    kinds = {
+        "eager": make_coarse_sampler(model, schedule, 2048, t_slices=GRAPH_SLICES, **routes),
+        "graphed": make_coarse_sampler(model, schedule, 2048, t_slices=GRAPH_SLICES,
+                                       segment_size=GRAPH_SEGMENT, **routes),
+    }
+    gen = torch.Generator(device=dev)
+    runs = {}
+    for name in ("graphed", "eager"):
+        gen.manual_seed(19)
+        ops.reset_launch_counts()
+        x0, slices = kinds[name](cond, label, generator=gen)
+        torch.cuda.synchronize()
+        runs[name] = (x0, slices, ops.launch_counts())
+    (gx, gs, gc), (ex, es, ec) = runs["graphed"], runs["eager"]
+    if tuple(gx.shape) != (cond.shape[0], 2048, 3) or not bool(torch.isfinite(gx).all()):
+        raise AssertionError(f"{tag}: the graphed x0 is not a finite (B, 2048, 3) cloud")
+    graph_diff(f"{tag} x0", gx, ex)
+    for t in GRAPH_SLICES:
+        graph_diff(f"{tag} slice t={t}", gs[t], es[t])
+    same_launches(tag, gc, ec, COARSE_PATH_KERNELS
+                  + (VARIANT_PATH_KERNELS if routes.get("fused_attention") else ()))
+    graph_stats(tag, kinds["graphed"].graphs)
+
+    # STEPS reverse steps alone, eager and replayed: host ms around
+    # synchronised work, then the device-busy share of a window of each
+    ts, coefs = ddpm.reverse_inputs(schedule, STEPS - 1, cond.shape[0], dev)
+    with torch.no_grad():
+        cf = model.encode_condition(cond)
+    x = torch.randn(cond.shape[0], 2048, 3, generator=gen, device=dev)
+    z = torch.randn(x.shape, generator=gen, device=dev)
+    graph = kinds["graphed"].graphs
+
+    def denoise(x_, ts_):
+        return model.denoise(x_, ts_, label, cf, fused=True, **routes)
+
+    steps = {"eager": lambda: [ddpm.reverse_step(denoise, x, ts[i], coefs[i], z)
+                               for i in range(STEPS)],
+             "graphed": lambda: [graph(x, ts[i], coefs[i], z, (label, cf))
+                                 for i in range(STEPS)]}
+    with torch.no_grad():
+        times = timed_turns(steps)
+    print(f"{tag} step ms (host clock, {STEPS} steps a call): " + "; ".join(
+        f"{name} mean={np.mean(v) / STEPS:.2f} min={min(v) / STEPS:.2f}"
+        for name, v in times.items()), flush=True)
+    for name, fn in steps.items():
+        device_busy(f"{tag} {name}, {STEPS} reverse steps", fn)
+    if graph.num_graphs != 1:
+        raise AssertionError(f"{tag}: {graph.num_graphs} graphs of one step shape")
+    graph.release()
+    return gc
+
+
+def compiled_generation(model, cond, label, dev, rng) -> dict:
+    """Phase 19: the JAX package's compiled generation as captured CUDA
+    graphs, against eager generation, on the main path's model and B=4
+    condition: (a) ancestral, (b) with the variants on, (c) their step ms,
+    (d) FastDPM-50, (e) the x8 refine forward at B=32.  Every graph is
+    released before the next part."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
+    from point_diffusion_refinement_tpu_torch.diffusion import (
+        calc_diffusion_hyperparams,
+        make_fast_sampling_plan,
+    )
+    from point_diffusion_refinement_tpu_torch.models.upsample import point_upsample
+    from point_diffusion_refinement_tpu_torch.sample import make_coarse_sampler
+    from point_diffusion_refinement_tpu_torch.utils.graphs import CapturedFunction
+
+    t0 = time.perf_counter()
+
+    def took(part: str) -> None:
+        print(f"phase 19 {part}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    counts = {"graphed_ancestral": graphed_ancestral(model, cond, label, dev, "ancestral")}
+    took("(a)")
+    counts["graphed_ancestral_variants"] = graphed_ancestral(
+        model, cond, label, dev, "ancestral variants", fused_attention=True, fused_knn=True)
+    took("(b)")
+    torch.cuda.empty_cache()
+
+    # (d) FastDPM-50 at B=4
+    dc = EXPERIMENTS["refine_fast50"]()["diffusion_config"]
+    T, b0, bT = int(dc["T"]), float(dc["beta_0"]), float(dc["beta_T"])
+    schedule = calc_diffusion_hyperparams(T, b0, bT)
+    plan = make_fast_sampling_plan(schedule, T, b0, bT, length=FAST_STEPS,
+                                   sampling_method="var", noise_schedule="quadratic",
+                                   kappa=0.5)
+    kinds = {"eager": make_coarse_sampler(model, schedule, 2048, fast_plan=plan),
+             "graphed": make_coarse_sampler(model, schedule, 2048, fast_plan=plan,
+                                            segment_size=plan.S)}
+    gen = torch.Generator(device=dev)
+    runs = {}
+    for name in ("graphed", "eager"):
+        gen.manual_seed(20)
+        ops.reset_launch_counts()
+        t1 = time.perf_counter()
+        out = kinds[name](cond, label, generator=gen)
+        torch.cuda.synchronize()
+        runs[name] = (out, ops.launch_counts(), (time.perf_counter() - t1) * 1e3)
+    graph_diff("fastdpm50", runs["graphed"][0], runs["eager"][0])
+    same_launches("fastdpm50", runs["graphed"][1], runs["eager"][1], COARSE_PATH_KERNELS)
+    counts["graphed_fastdpm50"] = runs["graphed"][1]
+    graph_stats("fastdpm50", kinds["graphed"].graphs)
+    # the eager run above is steady (the model ran eagerly before); the
+    # graphed one held the warm-up and the capture, so time two more
+    times = timed_turns({"graphed": lambda: kinds["graphed"](cond, label, generator=gen)})
+    print(f"fastdpm50 B=4 ms a batch (host clock): eager {runs['eager'][2]:.1f}; graphed "
+          f"mean={np.mean(times['graphed']):.1f} min={min(times['graphed']):.1f} (first call, "
+          f"with its warm-up and capture: {runs['graphed'][2]:.1f})", flush=True)
+    kinds["graphed"].graphs.release()
+    del kinds, runs
+    torch.cuda.empty_cache()
+    took("(d)")
+
+    # (e) the x8 refine forward at B=32
+    B = 32
+    rmodel, refine, osf = upsample_refiner(seed=2)
+    graphed = CapturedFunction(refine)
+    coarse = torch.from_numpy(rng.uniform(-0.5, 0.5, (B, 2048, 3)).astype(np.float32)).to(dev)
+    rcond = conditions(rng, B, dev)
+    rlabel = torch.from_numpy(rng.integers(0, 16, (B,))).to(dev)
+    # the refined cloud with a zero displacement: what the network adds is
+    # the difference from it
+    pc = EXPERIMENTS["upsample_16384"]()["pointnet_config"]
+    factor = int(pc["point_upsample_factor"])
+    centre = bool(pc["include_displacement_center_to_final_output"])
+    zero = torch.zeros(B, 2048, 3 * (factor if centre else factor + 1), device=dev)
+    base, _ = point_upsample(coarse, zero, factor, centre, osf)
+    ops.reset_launch_counts()
+    eager_out = refine(coarse, rcond, rlabel, osf)
+    torch.cuda.synchronize()
+    eager_counts = ops.launch_counts()
+    graphed(coarse, rcond, rlabel, osf)  # warm-up
+    ops.reset_launch_counts()
+    graphed_out = graphed(coarse, rcond, rlabel, osf)  # capture and replay
+    torch.cuda.synchronize()
+    counts["graphed_refine"] = ops.launch_counts()
+    rel = float((graphed_out - eager_out).norm() / (eager_out - base).norm())
+    print(f"refine x8 B=32 graphed vs eager: displacement rel_err={rel:.3g} "
+          f"(tol {REFINE_REL_TOL}) out={tuple(graphed_out.shape)}", flush=True)
+    if not rel <= REFINE_REL_TOL:
+        raise AssertionError("refine x8: the graphed forward disagrees with the eager one")
+    same_launches("refine x8", counts["graphed_refine"], eager_counts,
+                  ("fps", "ball_query", "knn"))
+    graph_stats("refine x8", graphed)
+    calls = {"eager": lambda: refine(coarse, rcond, rlabel, osf),
+             "graphed": lambda: graphed(coarse, rcond, rlabel, osf)}
+    times = timed_turns(calls, reps=4)
+    print(f"refine x8 B={B} ms a batch (host clock): " + "; ".join(
+        f"{name} mean={np.mean(v):.2f} min={min(v):.2f}" for name, v in times.items()),
+        flush=True)
+    graphed.release()
+    del graphed, rmodel, refine
+    torch.cuda.empty_cache()
+    took("(e)")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3604,6 +3876,9 @@ def main() -> int:
         model, cf, x, ts, label, rng, dev)
     rows += variant_rows
     refine_variants(rng, dev)
+
+    at("19 compiled generation")
+    path_counts.update(compiled_generation(model, cond, label, dev, rng))
     del model, cf, cf_p, sampler, short
 
     at("10 training kernels")

@@ -1,5 +1,10 @@
-from .ddpm import q_sample, sampling, training_loss
-from .fastdpm import FastSamplingPlan, fast_sampling, make_fast_sampling_plan
+from .ddpm import make_segmented_sampler, q_sample, sampling, training_loss
+from .fastdpm import (
+    FastSamplingPlan,
+    fast_sampling,
+    make_fast_sampling_plan,
+    make_segmented_fast_sampler,
+)
 from .schedule import DiffusionSchedule, calc_diffusion_hyperparams, calc_t_emb
 
 __all__ = [
@@ -9,6 +14,8 @@ __all__ = [
     "calc_t_emb",
     "fast_sampling",
     "make_fast_sampling_plan",
+    "make_segmented_fast_sampler",
+    "make_segmented_sampler",
     "q_sample",
     "sampling",
     "training_loss",

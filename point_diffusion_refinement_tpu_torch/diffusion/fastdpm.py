@@ -6,17 +6,20 @@ via a Stirling log-Gamma approximation) run on the host in float64 numpy,
 copied from the JAX package; they yield per-step affine coefficients
 (scale, eps coefficient, sigma) and the fractional timestep tau fed to the
 network.  ``fast_sampling`` is a Python loop of S denoiser calls over that
-plan.
+plan; ``make_segmented_fast_sampler`` replays the same step as a captured
+CUDA graph (``utils/graphs.py``), the counterpart of the JAX package's
+jitted sampler.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.graphs import CapturedFunction
 from .ddpm import DenoiseFn
 from .schedule import DiffusionSchedule
 
@@ -176,6 +179,47 @@ def make_fast_sampling_plan(
     return _plan_from_gamma(np.asarray(taus, dtype=np.float64), np.asarray(gamma), kappa)
 
 
+def fast_inputs(plan: FastSamplingPlan, B: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The per-step inputs of the plan's S steps: ts (S, B), row i = tau_i,
+    and coefs (S, 3) of [scale_i, c_i, sigma_i].  A captured step reads its
+    coefficients from these rows."""
+    p = FastSamplingPlan(*(t.to(device) for t in dataclasses.astuple(plan)))
+    ts = p.tau[:, None].expand(-1, B).contiguous()
+    return ts, torch.stack([p.scale, p.c, p.sigma], dim=1)
+
+
+def fast_step(denoise_fn: DenoiseFn, x: torch.Tensor, ts: torch.Tensor, coefs: torch.Tensor,
+              z: torch.Tensor) -> torch.Tensor:
+    """One generalized-DDIM step, x * scale + c * eps + sigma * z, with
+    ``ts`` and ``coefs`` a row of ``fast_inputs``."""
+    eps = denoise_fn(x, ts)
+    return x * coefs[0] + coefs[1] * eps + coefs[2] * z
+
+
+def _fast_reverse(step, shape, plan: FastSamplingPlan, *, device, generator, x_T, noise,
+                  segment_size: Optional[int]) -> torch.Tensor:
+    """The loop around ``step(x, ts, coefs, z) -> x`` in chunks of
+    ``segment_size`` steps (all in one without).  Draws x_T, then one z a
+    step, from ``generator`` where they are not given."""
+    shape = tuple(shape)
+    if x_T is None:
+        x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+    else:
+        x = x_T.to(device=device, dtype=torch.float32)
+    if noise is not None and tuple(noise.shape) != (plan.S,) + shape:
+        raise ValueError(f"noise must be {(plan.S,) + shape}, got {tuple(noise.shape)}")
+    ts_rows, coef_rows = fast_inputs(plan, shape[0], device)
+    seg = segment_size or plan.S
+    for first in range(0, plan.S, seg):
+        for i in range(first, min(first + seg, plan.S)):
+            if noise is not None:
+                z = noise[i].to(device=device, dtype=torch.float32)
+            else:
+                z = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
+            x = step(x, ts_rows[i], coef_rows[i], z)
+    return x.clone()
+
+
 def fast_sampling(
     denoise_fn: DenoiseFn,
     shape: Sequence[int],
@@ -201,21 +245,39 @@ def fast_sampling(
     Returns:
       x_0 of ``shape``, float32.
     """
-    shape = tuple(shape)
-    B = shape[0]
-    p = FastSamplingPlan(*(t.to(device) for t in dataclasses.astuple(plan)))
-    if x_T is None:
-        x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-    else:
-        x = x_T.to(device=device, dtype=torch.float32)
-    if noise is not None and tuple(noise.shape) != (plan.S,) + shape:
-        raise ValueError(f"noise must be {(plan.S,) + shape}, got {tuple(noise.shape)}")
-    for i in range(plan.S):
-        ts = p.tau[i].expand(B)
-        eps = denoise_fn(x, ts)
-        if noise is not None:
-            z = noise[i].to(device=device, dtype=torch.float32)
-        else:
-            z = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-        x = x * p.scale[i] + p.c[i] * eps + p.sigma[i] * z
-    return x
+    def step(x, ts, coefs, z):
+        return fast_step(denoise_fn, x, ts, coefs, z)
+
+    return _fast_reverse(step, shape, plan, device=device, generator=generator, x_T=x_T,
+                         noise=noise, segment_size=None)
+
+
+def make_segmented_fast_sampler(denoise_apply: Callable, plan: FastSamplingPlan,
+                                segment_size: int):
+    """FastDPM as a captured step, the counterpart of the JAX package's
+    ``jax.jit`` of its FastDPM sampler: ``fast_sampling``'s math and draws,
+    with one step (the denoiser and the update) captured as a CUDA graph on
+    the card and replayed for the plan's S steps in chunks of
+    ``segment_size``; the plan's coefficients, t, z and ``batch_ctx`` are
+    inputs of the graph (see ``ddpm.make_segmented_sampler``).
+
+    Returns fn(batch_ctx, shape, *, device, generator=None, x_T=None,
+    noise=None) -> x0; its ``graphs`` attribute is the step's
+    ``CapturedFunction``."""
+    if segment_size < 1:
+        raise ValueError(f"segment_size must be at least 1, got {segment_size}")
+
+    def one_step(x, ts, coefs, z, batch_ctx):
+        return fast_step(lambda x_, ts_: denoise_apply(batch_ctx, x_, ts_), x, ts, coefs, z)
+
+    graphs = CapturedFunction(one_step, clone_outputs=False)
+
+    def sampler(batch_ctx, shape, *, device, generator=None, x_T=None, noise=None):
+        def step(x, ts, coefs, z):
+            return graphs(x, ts, coefs, z, batch_ctx)
+
+        return _fast_reverse(step, shape, plan, device=device, generator=generator, x_T=x_T,
+                             noise=noise, segment_size=segment_size)
+
+    sampler.graphs = graphs
+    return sampler

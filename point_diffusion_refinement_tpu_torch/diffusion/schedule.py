@@ -51,9 +51,9 @@ def calc_t_emb(ts: torch.Tensor, t_emb_dim: int) -> torch.Tensor:
     [sin(t * w), cos(t * w)] with w_i = 10000^{-i/(h-1)}."""
     assert t_emb_dim % 2 == 0
     half = t_emb_dim // 2
+    # a float32 scalar on the host: an operand of the device op, not a copy
+    # to the device (which a captured CUDA graph cannot hold)
     step = torch.tensor(-math.log(10000.0) / (half - 1), dtype=torch.float32)
-    freq = torch.exp(
-        torch.arange(half, dtype=torch.float32, device=ts.device) * step.to(ts.device)
-    )
+    freq = torch.exp(torch.arange(half, dtype=torch.float32, device=ts.device) * step)
     arg = ts.to(torch.float32)[:, None] * freq[None, :]
     return torch.cat([torch.sin(arg), torch.cos(arg)], dim=1)

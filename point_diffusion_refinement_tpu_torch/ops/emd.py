@@ -1,13 +1,13 @@
 """Approximate Earth Mover's Distance (auction / epsilon-scaling matching).
 
-Counterpart of the JAX package's ``ops/emd.py::earth_mover_distance`` (plain
-XLA there, plain PyTorch here): 10 epsilon-scaling rounds (level = -4^j for
-j = 7..-1, then 0) of softmax-weighted bipartite mass assignment between
-clouds of n and m points, with the initial masses set by integer division
-as in the original CUDA kernel; the cost is sum(match * squared distance)
-/ max(n, m).  Above 2^26 float32 elements of (B, n, m) plane the rounds run
-row-tiled, recomputing each chunk's distance plane, so the whole plane is
-never held.
+Counterpart of the JAX package's ``ops/emd.py``: ``earth_mover_distance``
+and ``approx_match`` (plain XLA there, plain PyTorch here): 10
+epsilon-scaling rounds (level = -4^j for j = 7..-1, then 0) of
+softmax-weighted bipartite mass assignment between clouds of n and m
+points, with the initial masses set by integer division as in the original
+CUDA kernel; the cost is sum(match * squared distance) / max(n, m).
+Above 2^26 float32 elements of (B, n, m) plane the rounds run row-tiled,
+recomputing each chunk's distance plane, so the whole plane is never held.
 
 Gradients: when an input requires grad, the forward keeps the thin per-round
 mass ratios ((10, B, n) and (10, B, m) floats) and the backward accumulates
@@ -176,6 +176,24 @@ class _EarthMoverDistance(torch.autograd.Function):
         g1 = 2.0 * scale * (xyz1 * row[..., None] - mx2)
         g2 = 2.0 * scale * (xyz2 * col[..., None] - mx1)
         return g1, g2
+
+
+def approx_match(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:
+    """The full (B, m, n) match matrix of the auction, in the reference
+    layout: match[b, l, k] is the mass between xyz2[b, l] and xyz1[b, k]
+    (xyz1 (B, n, 3), xyz2 (B, m, 3)).  Accumulated round by round from the
+    rounds' mass ratios, so one (B, n, m) plane is held at a time beside
+    the distances."""
+    xyz1 = xyz1.to(torch.float32)
+    xyz2 = xyz2.to(torch.float32)
+    n, m = xyz1.shape[1], xyz2.shape[1]
+    d = pairwise_sqdist(xyz1, xyz2)  # (B, n, m)
+    ratios: List[Tuple[torch.Tensor, torch.Tensor]] = []
+    _auction_rounds(d, n, m, ratios)
+    match = torch.zeros_like(d)
+    for level, (ratio_l, ratio_r) in zip(LEVELS, ratios):
+        match = match + ratio_l[:, :, None] * torch.exp(level * d) * ratio_r[:, None, :]
+    return match.transpose(1, 2)
 
 
 def earth_mover_distance(xyz1: torch.Tensor, xyz2: torch.Tensor) -> torch.Tensor:

@@ -3,9 +3,14 @@
 Counterpart of the JAX package's ``sample/generate.py``:
 ``make_coarse_sampler`` (ancestral DDPM with t-slices and the warm start,
 or FastDPM over a precomputed plan), ``make_refiner`` and ``unaugment``.
-The JAX sampler's ``segment_size`` option (long device programs on a TPU)
-has no counterpart here; its ``mesh`` option (the batch's rows split over
-the devices) is ``sample/pipeline.py::run_generation(mesh=)``'s.
+The JAX package compiles generation with ``jax.jit``; here the counterpart
+of a compiled program is a captured CUDA graph (``utils/graphs.py``):
+``make_coarse_sampler(segment_size=S)`` replays one captured reverse step
+in chunks of S steps (``diffusion/ddpm.py::make_segmented_sampler``, and its
+FastDPM twin), and ``CapturedFunction(make_refiner(...))`` is the compiled
+refiner.  Without ``segment_size`` the sampler runs eagerly, as the JAX
+function does un-jitted.  The JAX sampler's ``mesh`` option (the batch's
+rows split over the devices) is ``sample/pipeline.py::run_generation(mesh=)``'s.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ def make_coarse_sampler(
     fast_plan: Optional[fastdpm.FastSamplingPlan] = None,
     t_slices: Optional[Sequence[int]] = None,
     warm_start_step: Optional[int] = None,
+    segment_size: Optional[int] = None,
     fused_attention: bool = False,
     fused_knn: bool = False,
     packed: bool = False,
@@ -43,6 +49,17 @@ def make_coarse_sampler(
     ancestral, warm-started from ``XT`` at ``warm_start_step`` when ``XT``
     is given.
 
+    With ``segment_size`` the reverse steps run as one captured CUDA graph
+    of a step, replayed in chunks of ``segment_size`` steps
+    (``ddpm.make_segmented_sampler``, ``fastdpm.make_segmented_fast_sampler``;
+    a size of at least the number of steps is the whole program in one
+    chunk); the label and the condition features are inputs of the graph,
+    so one capture serves every batch of a shape.  The result is the eager
+    sampler's for the same ``x_T`` and ``noise`` or the same generator.
+    The sampler's ``graphs`` attribute (None without ``segment_size``) holds
+    the captured step: ``sampler.graphs.release()`` frees it, and must come
+    before the model's parameter tensors are replaced (``utils/graphs.py``).
+
     ``fused_attention``, ``fused_knn`` and ``packed`` turn on the opt-in
     inference routes of ``denoise`` (the fused attention-pool kernel, the
     fused kNN group, merged first-layer products); all off by default.
@@ -52,6 +69,17 @@ def make_coarse_sampler(
         raise ValueError(f"{type(model).__name__} has no encode_condition: the coarse "
                          "sampler needs the pointnet++ network")
     routes = dict(fused_attention=fused_attention, fused_knn=fused_knn, packed=packed)
+
+    def denoise_apply(batch_ctx, x, ts):
+        label, cond = batch_ctx
+        return model.denoise(x, ts, label, cond, fused=True, **routes)
+
+    segmented = None
+    if segment_size is not None and fast_plan is not None:
+        segmented = fastdpm.make_segmented_fast_sampler(denoise_apply, fast_plan, segment_size)
+    elif segment_size is not None:
+        segmented = ddpm.make_segmented_sampler(denoise_apply, schedule, segment_size,
+                                                t_slices=t_slices)
 
     def sampler(condition: torch.Tensor, label: torch.Tensor,
                 generator: Optional[torch.Generator] = None,
@@ -64,9 +92,16 @@ def make_coarse_sampler(
         shape = (condition.shape[0], num_points, 3)
         with torch.no_grad():
             cond = model.encode_condition(condition)
+            if segmented is not None and fast_plan is not None:
+                return segmented((label, cond), shape, device=device, generator=generator,
+                                 x_T=x_T, noise=noise)
+            if segmented is not None:
+                return segmented((label, cond), shape, device=device, generator=generator,
+                                 x_T=x_T, noise=noise, XT=XT,
+                                 warm_start_step=warm_start_step if XT is not None else None)
 
             def denoise_fn(x, ts):
-                return model.denoise(x, ts, label, cond, fused=True, **routes)
+                return denoise_apply((label, cond), x, ts)
 
             if fast_plan is not None:
                 return fastdpm.fast_sampling(
@@ -79,6 +114,7 @@ def make_coarse_sampler(
                 warm_start_step=warm_start_step if XT is not None else None,
             )
 
+    sampler.graphs = segmented.graphs if segmented is not None else None
     return sampler
 
 

@@ -7,13 +7,15 @@ a phase, and per trial generates every cloud (the reverse process for the
 DDPM, one refine forward a batch for the refinement task), evaluates it and
 writes the clouds (where ``h5py`` imports) and ``eval_result.pkl`` under
 ``generation_save_dir``, the layout the refine config's
-``generated_sample_path`` reads back.  The JAX package's
-``segment_size`` bounds one XLA execution and has no counterpart in eager
-PyTorch.  With ``mesh=`` each process of the process group generates its
-rank's shard of the phase into ``<save_dir>/rank_<i>``; the metrics are
-gathered over the processes, so every rank returns the same averages, and
-after a barrier rank 0 merges the rank directories
-(``gather_generated_results``).
+``generated_sample_path`` reads back.  Generation runs compiled, as the
+JAX package's jitted programs do: the ancestral sampler as a captured CUDA
+graph of one reverse step replayed in chunks of ``segment_size`` steps
+(200 by default, as there), FastDPM and the refiner as captured whole
+programs (``utils/graphs.py``).  With ``mesh=`` each process of the
+process group generates its rank's shard of the phase into
+``<save_dir>/rank_<i>``; the metrics are gathered over the processes, so
+every rank returns the same averages, and after a barrier rank 0 merges the
+rank directories (``gather_generated_results``).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from ..parallel.multihost import all_gather_host_arrays, barrier
 from ..train.checkpoints import CKPT_PREFIX, STATE_FILE, find_max_epoch, maybe_resume
 from ..train.step import TrainState, create_train_state
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.graphs import CapturedFunction
 from .evaluate import evaluate
 from .generate import make_coarse_sampler, make_refiner
 
@@ -115,6 +118,7 @@ def run_generation(
     use_a_precomputed_XT: bool = False,
     T_step: int = 100,
     XT_folder: Optional[str] = None,
+    segment_size: Optional[int] = 200,
     mesh=None,
     device: DeviceLike = None,
     fused_attention: bool = False,
@@ -130,6 +134,13 @@ def run_generation(
     ``fused_knn`` and ``packed`` turn on the opt-in inference routes of the
     sampler and the refiner (all off by default).  The results hold the
     generated clouds where they are saved or ``keep_generated`` is set.
+
+    On the card generation runs as captured CUDA graphs: the ancestral
+    reverse step replayed in chunks of ``segment_size`` steps (None: the
+    whole schedule in one chunk, as the JAX package jits it whole), the
+    FastDPM step over the whole plan, the refiner's whole forward.  The
+    graphs are captured inside the scope that holds the parameters whole
+    and released at its end.  The clouds are those of eager generation.
 
     ``mesh`` (``parallel.make_mesh()``) generates on ``mesh.device``, which
     replaces ``device``; each of the mesh's ``world`` processes, whatever
@@ -176,15 +187,20 @@ def run_generation(
         )
 
     if refine_task:
-        refiner = make_refiner(
+        # the counterpart of the JAX package's jax.jit(make_refiner(...))
+        refiner = CapturedFunction(make_refiner(
             model, int(pointnet_config.get("point_upsample_factor", 1)),
             bool(pointnet_config.get("include_displacement_center_to_final_output", False)),
-            **routes)
+            **routes))
+        graphs = refiner
     else:
+        # FastDPM plans are short: their whole plan is one chunk
+        seg = plan.S if plan is not None else (segment_size or schedule.T)
         sampler = make_coarse_sampler(
             model, schedule, num_points=ts_cfg.get("npoints", 2048), fast_plan=plan,
             t_slices=t_slices, warm_start_step=T_step if use_a_precomputed_XT else None,
-            **routes)
+            segment_size=seg, **routes)
+        graphs = sampler.graphs
 
     def tensor(batch, key, dtype=torch.float32):
         return torch.as_tensor(np.asarray(batch[key])).to(device=dev, dtype=dtype)
@@ -194,7 +210,8 @@ def run_generation(
     results = []
     # generation holds the parameters whole: a model sharded over the mesh's
     # model axis is gathered for the trials (a collective of its model row)
-    with full_parameters(model):
+    # (the graphs, captured in this scope, are released at its end)
+    with full_parameters(model), graphs:
         for trial in range(num_trials):
             if dataset_override is not None:
                 dataset = shard_dataset(dataset_override, mesh, pad=False)
@@ -214,7 +231,7 @@ def run_generation(
             if refine_task:
                 def gen_fn(batch):
                     coarse = batch["generated"] if "generated" in batch else batch["complete"]
-                    return refiner(torch.as_tensor(np.asarray(coarse, np.float32)),
+                    return refiner(torch.as_tensor(np.asarray(coarse, np.float32)).to(dev),
                                    tensor(batch, "partial"), tensor(batch, "label", torch.int64),
                                    output_scale_factor)
             else:

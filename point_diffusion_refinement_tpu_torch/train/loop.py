@@ -53,6 +53,7 @@ from ..parallel.mesh import Mesh, full_parameters, shard_dataset
 from ..parallel.multihost import all_gather_host_arrays, broadcast_scalar
 from ..sample import evaluate, make_coarse_sampler, make_refiner
 from ..utils.device import DeviceLike, resolve_device
+from ..utils.graphs import CapturedFunction
 from ..utils.logging import TensorBoardLogger
 from ..utils.meters import AverageMeter
 from ..utils.neighbor_stats import NeighborStatsAccumulator, model_neighbor_stats
@@ -187,8 +188,9 @@ def make_eval_sampler(model, schedule, diffusion_config: dict, num_points: int,
                       eval_T: int):
     """Sampler for the in-loop eval.  ``eval_sampling_steps`` (eval_T) > 0
     runs a FastDPM VAR plan of that length (var / quadratic / kappa 0.5)
-    instead of the full ancestral schedule.  Returns (sampler_fn,
-    steps_per_sample)."""
+    instead of the full ancestral schedule.  The sampler replays a captured
+    reverse step (``segment_size`` of ``make_coarse_sampler``; its
+    ``graphs`` hold it).  Returns (sampler_fn, steps_per_sample)."""
     fast_plan = None
     if 0 < eval_T < schedule.T:
         fast_plan = make_fast_sampling_plan(
@@ -196,9 +198,12 @@ def make_eval_sampler(model, schedule, diffusion_config: dict, num_points: int,
             diffusion_config["beta_T"], length=eval_T, sampling_method="var",
             noise_schedule="quadratic", kappa=0.5,
         )
-    sampler = make_coarse_sampler(model, schedule, num_points=num_points,
-                                  fast_plan=fast_plan)
     n_steps = int(fast_plan.tau.shape[0]) if fast_plan is not None else int(schedule.T)
+    # compiled as in the JAX package: long ancestral schedules in segments of
+    # 200 steps, short or FastDPM ones as one program
+    seg = 200 if (fast_plan is None and schedule.T > 200) else n_steps
+    sampler = make_coarse_sampler(model, schedule, num_points=num_points,
+                                  fast_plan=fast_plan, segment_size=seg)
     return sampler, n_steps
 
 
@@ -355,12 +360,14 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
             def gen_fn(batch):
                 return sampler(_to_device(batch, "partial", dev),
                                _to_device(batch, "label", dev, torch.int64), generator=gen)
+            graphs = sampler.graphs
         else:
-            refiner = make_refiner(model, upsample, include_center)
+            # compiled, as the JAX loop jits its refiner
+            refiner = graphs = CapturedFunction(make_refiner(model, upsample, include_center))
 
             def gen_fn(batch):
                 coarse = batch.get("generated", batch["complete"])
-                return refiner(torch.as_tensor(np.asarray(coarse, np.float32)),
+                return refiner(torch.as_tensor(np.asarray(coarse, np.float32)).to(dev),
                                _to_device(batch, "partial", dev),
                                _to_device(batch, "label", dev, torch.int64), osf_now)
 
@@ -387,24 +394,26 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
             return (float(np.mean(metrics["cd_distance"])),
                     float(np.mean(metrics["emd_distance"])), metrics)
 
-        avg_cd, avg_emd, metrics = eval_split("test", "")
-        tb.add_scalar("CD-Loss", avg_cd, n_iter_now)
-        tb.add_scalar("EMD-Loss", avg_emd, n_iter_now)
-        if rank == 0:
-            # one pickle per iteration, gathered from disk: a resumed run
-            # keeps the evaluations from before the resume
-            save_eval_result(eval_dir, n_iter_now, avg_cd, avg_emd, metrics)
-            gather_eval_results(eval_dir)
-        if test_trainset_during_eval:
-            tr_cd, tr_emd, _ = eval_split("test_trainset", "_trainset")
-            tb.add_scalar("Trainset CD-Loss", tr_cd, n_iter_now)
-            tb.add_scalar("Trainset EMD-Loss", tr_emd, n_iter_now)
-            print(f"eval @ iter {n_iter_now}: Trainset CD {tr_cd:.8f} EMD {tr_emd:.8f}",
-                  flush=True)
-        # rank 0's gathered value decides on every rank
-        avg_cd = broadcast_scalar(avg_cd)
-        print(f"eval @ iter {n_iter_now}: CD {avg_cd:.8f} EMD {avg_emd:.8f}", flush=True)
-        return avg_cd, avg_emd
+        # the graphs are captured under the caller's full_parameters scope
+        with graphs:
+            avg_cd, avg_emd, metrics = eval_split("test", "")
+            tb.add_scalar("CD-Loss", avg_cd, n_iter_now)
+            tb.add_scalar("EMD-Loss", avg_emd, n_iter_now)
+            if rank == 0:
+                # one pickle per iteration, gathered from disk: a resumed run
+                # keeps the evaluations from before the resume
+                save_eval_result(eval_dir, n_iter_now, avg_cd, avg_emd, metrics)
+                gather_eval_results(eval_dir)
+            if test_trainset_during_eval:
+                tr_cd, tr_emd, _ = eval_split("test_trainset", "_trainset")
+                tb.add_scalar("Trainset CD-Loss", tr_cd, n_iter_now)
+                tb.add_scalar("Trainset EMD-Loss", tr_emd, n_iter_now)
+                print(f"eval @ iter {n_iter_now}: Trainset CD {tr_cd:.8f} EMD {tr_emd:.8f}",
+                      flush=True)
+            # rank 0's gathered value decides on every rank
+            avg_cd = broadcast_scalar(avg_cd)
+            print(f"eval @ iter {n_iter_now}: CD {avg_cd:.8f} EMD {avg_emd:.8f}", flush=True)
+            return avg_cd, avg_emd
 
     loss_meter = AverageMeter()
     losses = []

@@ -68,8 +68,10 @@ def pallas_flops_tally():
 
 def dot_flops(fn: Callable, *args, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` once and return {'model': flops,
-    'gather': 0.0, 'pallas': flops}.  Apply it to one step: what ``fn``
-    runs is what is counted."""
+    'gather': 0.0, 'pallas': flops}.  Apply it to one eager step: what
+    ``fn`` runs is what is counted, and a replay of a captured CUDA graph
+    (``utils/graphs.py``) dispatches no PyTorch op and runs no kernel
+    wrapper, so neither the counter nor the tally sees it."""
     with pallas_flops_tally() as tally, FlopCounterMode(display=False) as counter:
         fn(*args, **kwargs)
     return {"model": float(counter.get_total_flops()), "gather": 0.0,
