@@ -240,12 +240,41 @@
    equal launch counts, ms a batch.  Phase 17's coarse generation runs
    through the graphed ``run_generation``; it prints its seconds and ms a
    step beside the eager demo CLI's record in ``PERF.md``.
+20. Compiled training, after phase 12 (the JAX package jits its train
+   step; here one captured CUDA graph a step signature: forward, loss,
+   ``backward()`` through #2/#8/B and the fused capturable Adam,
+   ``compiled=True``): the ``ddpm`` step at B=TRAIN_BATCH with the fused
+   routes on, then off, and the ``upsample_16384`` x8 refine step with the
+   fused routes on and its output scale ramping 0.01 -> 0.001 over the
+   steps.  Each from one state (after an eager step, so the moments exist;
+   restored in place before each run) and the same draws, eager and
+   compiled.  The first step twice each way (the first replay follows the
+   capture, the second replays the same graph): the replays' losses equal
+   to the eager step's bit for bit, their gradients within
+   GRAPH_GRAD_REL_TOL of the eager ones (of the norm, and every entry of
+   the largest), every pair's readings printed, and two planted faults run
+   eagerly (half the batch; the next step's draws or output scale) beyond
+   that bound and beyond LOSS_TRAJ_RTOL.  Adam's update on each step's own
+   gradients bit-equal to an eager step of the same Adam from the state
+   before it, with every step count advanced by one, at the first two
+   replays and the last of the run (and at the eager steps alike); a
+   planted fault (the step count one off) must differ.  Then
+   COMPILED_STEPS steps each way: the losses within LOSS_TRAJ_RTOL, the
+   parameters after them within 2 * lr * steps, the launch counts equal
+   and one graph; prints the losses, the host ms of every step (ending in
+   ``float(loss)``, as ``train()`` does), the peak allocated and reserved
+   memory, a BUSY_STEPS device-busy window each way, and the capture's ms
+   and pool bytes.  Each graph is released before the next; the phase
+   fails after the three steps if a check failed.  Phases 11, 12, 14, 16
+   and 17 train through ``train()``, which replays the compiled step on
+   the card; phase 16 also times the PVD and pointwise steps compiled
+   beside eager (the step makers' ``compiled=False``).
 15. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
    (``launches``: the sum over the driven paths, the ``ddpm_avg_max`` step,
    the two pipelines, the two training runs, the file-driven pipeline,
    the five runs of phase 16, the demo of phase 17 and the two ranks of
-   phase 18 (a) and the four graphed runs of phase 19, each counted from
-   zero;
+   phase 18 (a), the four graphed runs of phase 19 and the three compiled
+   runs of phase 20, each counted from zero;
    ``launches_by_path``
    splits it; the FPS rows add ``latency_floor_ms``, the sweep's per-pick
    time at its smallest N times the row's npoint - 1, beside the roofline
@@ -293,9 +322,19 @@ SCATTER_REL_TOL = 1e-5
 # scale, so a bound relative to the largest sum fails at random
 SCATTER_ABS_REL_TOL = 1e-5
 SCATTER_ABS_FLOOR = 1e-12
+# a training step's gradients replayed from a captured graph against the
+# eager step's, relative to the gradient's norm and to its largest entry.
+# On the H100 the x8 refine step's first-step gradients take one of two
+# values run to run, eager and replayed alike (a float32 sum whose order
+# changes: eager against eager and one replay against the next of the same
+# graph 1.46e-4 of the norm, 2.03e-4 of the largest entry, the other pairs
+# equal); the DDPM steps were equal.  The planted faults of phase 20 (half
+# the batch, the next step's draws or output scale) read 0.081 or more.
+GRAPH_GRAD_REL_TOL = 1e-3
 TRAIN_BATCH = 32  # the JAX package's training benchmark batch
 TRAIN_STEPS = 4  # steps of each training run
 TIMED_STEPS = 2  # steps of each timed block (routes on, off, off, on)
+POINTWISE_TIMED_STEPS = 20  # a pointwise step is ~25 ms
 # the file-driven pipeline (phase 14): train items, clouds evaluated in the
 # loop and generated from the test set, train_cli steps (at B = TRAIN_BATCH:
 # one checkpoint with its in-loop eval at the end of the first epoch, then
@@ -2678,6 +2717,22 @@ def pvd_training(dev, workdir: str):
     ms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
     print(f"pvd train step: B={B} step_ms={ms:.1f} ({B / ms * 1e3:.1f} samples/s)", flush=True)
     profile_window(f"pvd train steps at B={B}", run, 1, grad=True, kernels="a pvd train step")
+    model.zero_grad(set_to_none=True)
+    compiled = tr.make_completion_train_step(model, schedule, compiled=True)
+    run = lambda: compiled(state, x0, cond, label)  # noqa: E731
+    run()  # the warm-up
+    run()  # the capture and a replay
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        run()
+    torch.cuda.synchronize()
+    cms = (time.perf_counter() - t0) * 1e3 / TIMED_STEPS
+    print(f"pvd train step compiled: B={B} step_ms={cms:.1f} ({B / cms * 1e3:.1f} samples/s) "
+          f"against eager {ms:.1f}", flush=True)
+    graph_stats("pvd train step", compiled.graphs)
+    compiled.graphs.release()
+    del compiled, run
 
     with torch.no_grad():
         refined = make_refiner(model)(coarse, cond, label, 0.001)
@@ -2691,8 +2746,11 @@ def pvd_training(dev, workdir: str):
 
 def pointwise_training(dev, workdir: str, arrays):
     """Phase 16b: PointwiseNet at its defaults through ``train()`` at
-    B = TRAIN_BATCH on phase 16a's data; it runs no kernel."""
+    B = TRAIN_BATCH on phase 16a's data; it runs no kernel.  Then its step
+    eager and compiled from the step maker, timed alike, as the PVD step
+    is."""
     from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch import train as tr
     from point_diffusion_refinement_tpu_torch.data import ArrayDataset
     from point_diffusion_refinement_tpu_torch.train.loop import build_model, train
 
@@ -2705,9 +2763,8 @@ def pointwise_training(dev, workdir: str, arrays):
     losses = result["losses"]
     step_ms = [round(s * 1e3, 1) for s in result["step_seconds"]]
     print(f"pointwise train: {TRAIN_STEPS} steps at B={TRAIN_BATCH} losses="
-          f"{[round(v, 5) for v in losses]} step_ms={step_ms} (host, from batch to loss; "
-          f"median after the first {float(np.median(step_ms[1:])):.1f}) launches={counts}",
-          flush=True)
+          f"{[round(v, 5) for v in losses]} step_ms={step_ms} (host, from batch to loss; the "
+          f"first a warm-up, the second the capture) launches={counts}", flush=True)
     if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"pointwise train: losses are not {TRAIN_STEPS} finite values")
     cond_w = arrays["partial"].shape[-1]
@@ -2715,6 +2772,26 @@ def pointwise_training(dev, workdir: str, arrays):
                        build_model(pc, device=dev, seed=0, condition_features=cond_w))
     print(f"pointwise train: every parameter finite and moved, but {dead} tensors with an "
           f"all-zero gradient", flush=True)
+
+    model = build_model(pc, device=dev, seed=0, condition_features=cond_w)
+    state = tr.create_train_state(model, seed=1)
+    batch = tuple(torch.from_numpy(arrays[k][:TRAIN_BATCH]).to(dev)
+                  for k in ("complete", "partial", "label"))
+    ms = {}
+    for compiled in (False, True):
+        step = tr.make_completion_train_step(model, option_schedule(), compiled=compiled)
+        step(state, *batch)  # the warm-up
+        step(state, *batch)  # compiled: the capture and a replay
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(POINTWISE_TIMED_STEPS):
+            float(step(state, *batch)[1])  # a step ends on the host, as in train()
+        ms[compiled] = (time.perf_counter() - t0) * 1e3 / POINTWISE_TIMED_STEPS
+        if compiled:
+            graph_stats("pointwise train step", step.graphs)
+            step.graphs.release()
+    print(f"pointwise train step: B={TRAIN_BATCH} compiled step_ms={ms[True]:.2f} against "
+          f"eager {ms[False]:.2f}", flush=True)
     return counts
 
 
@@ -3558,14 +3635,15 @@ def timed_turns(calls: dict, reps: int = GRAPH_REPS) -> dict:
     return out
 
 
-def device_busy(what: str, fn) -> None:
+def device_busy(what: str, fn, grad: bool = False) -> None:
     """The device-busy share of one call of ``fn``: the profiler's device
     time (CUDA activity alone, which is cheap to collect) over the host
-    clock around the synchronised call."""
+    clock around the synchronised call; ``grad`` keeps autograd on, for
+    training steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with torch.set_grad_enabled(grad), profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -3747,6 +3825,326 @@ def compiled_generation(model, cond, label, dev, rng) -> dict:
     return counts
 
 
+# ---- phase 20: compiled training (captured CUDA graphs) -------------------
+COMPILED_STEPS = 10  # steps of each kind from one state
+BUSY_STEPS = 3  # steps of each device-busy window
+# the losses of COMPILED_STEPS steps each way from one state, relative: on
+# the H100 equal in every run; the planted faults' first losses 1.6e-3 or
+# more off
+LOSS_TRAJ_RTOL = 1e-4
+
+
+def snapshot_state(state):
+    """Copies of what a step changes: the parameters and the optimizer's
+    state."""
+    import copy
+
+    return ([p.detach().clone() for p in state.model.parameters()],
+            copy.deepcopy(state.optimizer.state_dict()))
+
+
+def restore_state(state, snap) -> None:
+    """``snap`` copied back into the tensors the state holds, which a
+    captured step reads where they are."""
+    import copy
+
+    from point_diffusion_refinement_tpu_torch.utils.weights import load_optimizer_state
+
+    params, osd = snap
+    with torch.no_grad():
+        for p, v in zip(state.model.parameters(), params):
+            p.copy_(v)
+    load_optimizer_state(state.optimizer, copy.deepcopy(osd))
+
+
+def adam_check(state, before, step_shift: int = 0):
+    """One step of the state's Adam run eagerly from ``before``
+    (``snapshot_state``; its step counts shifted by ``step_shift``, a
+    planted fault) on copies of the parameters, with the gradients the step
+    left in ``.grad`` (a replay's: the graph's pool), against the state's
+    parameters and moments now.  Returns whether they are bit-equal, and
+    whether every step count advanced by exactly one.  (On the H100
+    PyTorch's fused Adam departs from Adam's float64 formula by more than
+    the float32 rounding of its sums, eager or replayed alike, so the
+    reference is its own eager step.)"""
+    import copy
+    import warnings
+
+    params, osd = before
+    osd = copy.deepcopy(osd)
+    for st in osd["state"].values():
+        st["step"] = st["step"] + step_shift
+    live = list(state.model.parameters())
+    copies = [p0.clone() for p0 in params]
+    for c, p in zip(copies, live):
+        c.grad = p.grad.detach().clone()
+    opt = type(state.optimizer)(copies, **state.optimizer.defaults)
+    opt.load_state_dict(copy.deepcopy(osd))  # the step updates what it loads
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        opt.step()
+    equal, advanced = True, True
+    for i, (p, c) in enumerate(zip(live, copies)):
+        s1, sc = state.optimizer.state[p], opt.state[c]
+        equal &= torch.equal(p, c) and all(torch.equal(s1[k], sc[k])
+                                           for k in ("exp_avg", "exp_avg_sq"))
+        advanced &= float(s1["step"]) == float(osd["state"][i]["step"]) + 1
+    return equal, advanced
+
+
+def worst_grad_err(got: dict, ref: dict):
+    """The largest |got - ref| over the gradient tensors relative to the
+    largest |ref| of the tree (the error of a float32 sum taken in another
+    order grows with its terms, not with its value, and a tensor whose
+    gradient is a cancelling sum, such as a bias before a GroupNorm, is
+    rounding noise on both sides), and its tensor."""
+    top = max(float(b.abs().max()) for b in ref.values())
+    worst, name = 0.0, ""
+    for k, b in ref.items():
+        err = float((got[k] - b).abs().max()) / top
+        if err > worst:
+            worst, name = err, k
+    return worst, name
+
+
+def compiled_vs_eager(tag: str, state, make_step, inputs, faults, path, lr: float):
+    """Phase 20 for one step: ``make_step(compiled=)``'s eager and compiled
+    steps from one state (taken after an eager step, so the moments exist)
+    and the same inputs (``inputs(i)`` -> the step's arguments after the
+    state, draws included).  Readings: the first step's loss and gradients
+    twice each way (the first replay follows the capture; the second
+    replays the same graph), against each other and against planted faults
+    (``faults``: name -> arguments, each a wrong step run eagerly); Adam's
+    update on each step's own gradients (``adam_check``) at the first, the
+    second and the last replay, and at eager steps alike; COMPILED_STEPS
+    steps each way with the host clock around every step (ending in
+    ``float(loss)``, as ``train()`` ends a step), their losses, launch
+    counts, parameters and peak memory; a device-busy window of each kind;
+    the graph's capture ms and pool bytes.  Returns the compiled run's
+    launch counts and the failed checks."""
+    import gc
+
+    from point_diffusion_refinement_tpu_torch import ops
+
+    model = state.model
+    steps = {"eager": make_step(compiled=False), "compiled": make_step(compiled=True)}
+    call = lambda kind, args: steps[kind](state, *args)  # noqa: E731
+    call("eager", inputs(COMPILED_STEPS))
+    torch.cuda.synchronize()
+    start = snapshot_state(state)
+    adam = {}
+
+    def first_step(kind, args, name):
+        restore_state(state, start)
+        loss = call(kind, args)[1]
+        torch.cuda.synchronize()
+        adam[name] = adam_check(state, start)
+        if name == "replay 1":  # a planted fault: the bias correction one step off
+            adam["planted fault (step count + 1) at replay 1"] = adam_check(
+                state, start, step_shift=1)
+        return loss.clone(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+    def run(kind):
+        restore_state(state, start)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        ms, losses = [], []
+        for i in range(COMPILED_STEPS):
+            if i == COMPILED_STEPS - 1:
+                before = snapshot_state(state)
+            t0 = time.perf_counter()
+            losses.append(float(call(kind, inputs(i))[1]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        out = dict(ms=ms, losses=losses, counts=ops.launch_counts(),
+                   params=[p.detach().clone() for p in model.parameters()],
+                   peak=torch.cuda.max_memory_allocated(),
+                   reserved=torch.cuda.max_memory_reserved())
+        adam[f"{kind} step {COMPILED_STEPS}"] = adam_check(state, before)
+        return out
+
+    first = {"eager 1": first_step("eager", inputs(0), "eager 1"),
+             "eager 2": first_step("eager", inputs(0), "eager 2")}
+    planted = {name: first_step("eager", args(), f"fault {name}")
+               for name, args in faults.items()}
+    runs = {"eager": run("eager")}
+    restore_state(state, start)
+    device_busy(f"{tag} eager, {BUSY_STEPS} steps",
+                lambda: [call("eager", inputs(i)) for i in range(BUSY_STEPS)], grad=True)
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    restore_state(state, start)
+    call("compiled", inputs(0))  # the warm-up: an eager step on a side stream
+    torch.cuda.synchronize()
+    first["replay 1"] = first_step("compiled", inputs(0), "replay 1")  # the capture, a replay
+    first["replay 2"] = first_step("compiled", inputs(0), "replay 2")
+    graphs = steps["compiled"].graphs
+    runs["compiled"] = run("compiled")
+    restore_state(state, start)
+    device_busy(f"{tag} compiled, {BUSY_STEPS} steps",
+                lambda: [call("compiled", inputs(i)) for i in range(BUSY_STEPS)], grad=True)
+
+    loss_e, g_e = first["eager 1"]
+
+    def reading(got, ref):
+        (loss, g), (loss_r, g_r) = got, ref
+        return dict(largest=worst_grad_err(g, g_r)[0], at=worst_grad_err(g, g_r)[1],
+                    norm=grad_difference(g, g_r)[0],
+                    loss_rel=abs(float(loss) - float(loss_r)) / abs(float(loss_r)),
+                    equal=all(torch.equal(g[k], g_r[k]) for k in g_r))
+
+    readings = {f"{k} vs {r}": reading(first[k], first[r]) for k, r in (
+        ("eager 2", "eager 1"), ("replay 1", "eager 1"), ("replay 2", "eager 1"),
+        ("replay 2", "replay 1"))}
+    faulted = {k: reading(v, first["eager 1"]) for k, v in planted.items()}
+    for k, r in {**readings, **{f"planted fault ({k}) vs eager 1": r
+                                for k, r in faulted.items()}}.items():
+        print(f"{tag} first step, {k}: loss_rel={r['loss_rel']:.3g} grads_equal={r['equal']} "
+              f"err_of_largest={r['largest']:.3g} at {r['at'] or '-'} "
+              f"err_of_norm={r['norm']:.3g}", flush=True)
+    sound = ("replay 1", "replay 2")
+    worst_sound = max(max(readings[f"{k} vs eager 1"]["largest"],
+                          readings[f"{k} vs eager 1"]["norm"]) for k in sound)
+    least_fault = min(min(r["largest"], r["norm"]) for r in faulted.values())
+    least_fault_loss = min(r["loss_rel"] for r in faulted.values())
+    print(f"{tag} gradient bound {GRAPH_GRAD_REL_TOL}: worst sound reading {worst_sound:.3g}, "
+          f"least planted fault {least_fault:.3g}; loss bound {LOSS_TRAJ_RTOL}: least planted "
+          f"fault {least_fault_loss:.3g}", flush=True)
+    print(f"{tag} Adam on the step's own gradients against an eager step of the same Adam "
+          f"(bit-equal; step counts advanced by one): " + "; ".join(
+              f"{k} {'equal' if eq else 'UNEQUAL'} {'advanced' if ok else 'NOT ADVANCED'}"
+              for k, (eq, ok) in adam.items()), flush=True)
+    traj = max(abs(a - b) / abs(b) for a, b in
+               zip(runs["compiled"]["losses"], runs["eager"]["losses"]))
+    moved = max(float((a - b).abs().max())
+                for a, b in zip(runs["compiled"]["params"], runs["eager"]["params"]))
+    print(f"{tag} {COMPILED_STEPS} steps: losses_max_rel={traj:.3g} (tol {LOSS_TRAJ_RTOL}) "
+          f"params_max_diff={moved:.3g} (tol {2 * lr * COMPILED_STEPS:.3g}); losses: " + "; ".join(
+              f"{k} {[float(f'{v:.9g}') for v in r['losses']]}" for k, r in runs.items()),
+          flush=True)
+    same_launches(tag, runs["compiled"]["counts"], runs["eager"]["counts"], path)
+    graph_stats(tag, graphs)
+    print(f"{tag} host ms a step over {COMPILED_STEPS} steps: " + "; ".join(
+        f"{k} mean={np.mean(r['ms']):.2f} median={np.median(r['ms']):.2f} "
+        f"min={min(r['ms']):.2f} peak_allocated_GiB={r['peak'] / 2 ** 30:.2f} "
+        f"peak_reserved_GiB={r['reserved'] / 2 ** 30:.2f}"
+        for k, r in runs.items()) + " (a replay allocates nothing: the graph's pool, "
+        "reserved at capture, holds its tensors)", flush=True)
+
+    checks = {
+        "one graph of one step signature": graphs.num_graphs == 1,
+        "the replayed first losses equal the eager one": all(
+            torch.equal(first[k][0], loss_e) for k in sound),
+        f"the replayed gradients within {GRAPH_GRAD_REL_TOL} of the eager ones":
+            worst_sound <= GRAPH_GRAD_REL_TOL,
+        f"every planted fault's gradients beyond {GRAPH_GRAD_REL_TOL}":
+            least_fault > GRAPH_GRAD_REL_TOL,
+        f"every planted fault's loss beyond {LOSS_TRAJ_RTOL}": least_fault_loss > LOSS_TRAJ_RTOL,
+        "Adam's update on every step's own gradients, and the step counts": all(
+            eq and ok for k, (eq, ok) in adam.items() if not k.startswith("planted")),
+        "the planted Adam fault seen": not any(
+            eq for k, (eq, _) in adam.items() if k.startswith("planted")),
+        f"the {COMPILED_STEPS} losses within {LOSS_TRAJ_RTOL}": traj <= LOSS_TRAJ_RTOL,
+        f"the parameters within {2 * lr * COMPILED_STEPS:.3g} after {COMPILED_STEPS} steps":
+            moved <= 2 * lr * COMPILED_STEPS,
+        "finite compiled losses": bool(np.isfinite(runs["compiled"]["losses"]).all()),
+    }
+    failed = [f"{tag}: {k}" for k, ok in checks.items() if not ok]
+    counts = runs["compiled"]["counts"]
+    graphs.release()
+    del steps, graphs, runs, first, planted, start
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, failed
+
+
+def half_batch(args):
+    """A step's arguments with every batch tensor cut to its first half."""
+    b = args[0].shape[0]
+    return tuple(a[: b // 2] if torch.is_tensor(a) and a.dim() and a.shape[0] == b else a
+                 for a in args)
+
+
+def compiled_training(dev) -> dict:
+    """Phase 20: the training step as one captured CUDA graph
+    (``compiled=True``) against the eager step at B=TRAIN_BATCH, full width:
+    the ``ddpm`` step with the fused routes on and off, and the
+    ``upsample_16384`` x8 refine step with the fused routes on under an
+    output scale that ramps over the steps (one graph).  Planted faults: a
+    dropped half batch, and the next step's draws (DDPM) or output scale
+    (refine).  Each graph is released before the next step's; the phase
+    fails after all three if any check failed."""
+    from point_diffusion_refinement_tpu_torch import train as tr
+    from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
+    from point_diffusion_refinement_tpu_torch.diffusion import calc_diffusion_hyperparams
+    from point_diffusion_refinement_tpu_torch.train.loop import build_model
+
+    counts, failed = {}, []
+    cfg = EXPERIMENTS["ddpm"]()
+    dc, pc = cfg["diffusion_config"], cfg["pointnet_config"]
+    lr = float(cfg["train_config"].get("learning_rate", 2e-4))
+    schedule = calc_diffusion_hyperparams(dc["T"], dc["beta_0"], dc["beta_T"])
+    arrays = training_arrays(TRAIN_BATCH, 2048, seed=40)
+    x0, cond, label = (torch.from_numpy(arrays[k]).to(dev)
+                       for k in ("complete", "partial", "label"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    draws = [(torch.randint(0, schedule.T, (TRAIN_BATCH,), generator=gen, device=dev),
+              torch.randn(x0.shape, generator=gen, device=dev))
+             for _ in range(COMPILED_STEPS + 1)]
+    ddpm_inputs = lambda i: (x0, cond, label, *draws[i])  # noqa: E731
+    for fused in (True, False):
+        model = build_model(pc, device=dev, seed=0)
+        state = tr.create_train_state(model, seed=1, learning_rate=lr)
+        tag = f"compiled ddpm train ({'fused routes' if fused else 'unfused'})"
+        counts[f"compiled_ddpm_train_{'fused' if fused else 'unfused'}"], bad = \
+            compiled_vs_eager(
+                tag, state,
+                lambda compiled: tr.make_completion_train_step(
+                    model, schedule, fused_gather=fused, fused_sa=fused, compiled=compiled),
+                ddpm_inputs,
+                {"half batch": lambda: half_batch(ddpm_inputs(0)),
+                 "next step's draws": lambda: (x0, cond, label, *draws[1])},
+                TRAIN_PATH_KERNELS if fused else ("fps", "knn", "ball_query"), lr)
+        failed += bad
+        del model, state
+    del draws
+
+    cfg = EXPERIMENTS["upsample_16384"]()
+    pc, rc = cfg["pointnet_config"], cfg["refine_config"]
+    pc["intermediate_refined_X_loss_weight"] = 1.0
+    lr = float(cfg["train_config"].get("learning_rate", 2e-4))
+    arrays = training_arrays(TRAIN_BATCH, 16384, seed=41)
+    batch = tuple(torch.from_numpy(arrays[k]).to(dev)
+                  for k in ("complete", "partial", "label", "generated"))
+    ramp = tr.QuantityScheduler(0, 1, 0.01, float(rc["output_scale_factor"]), COMPILED_STEPS)
+    osf = torch.zeros((), dtype=torch.float32, device=dev)
+    refine_inputs = lambda i: (*batch, osf.fill_(ramp.get_quantity(i % COMPILED_STEPS)))  # noqa: E731,E501
+    model = build_model(pc, device=dev, seed=0)
+    state = tr.create_train_state(model, seed=1, learning_rate=lr)
+    counts["compiled_refine_train"], bad = compiled_vs_eager(
+        "compiled refine train (x8, fused routes, output scale 0.01 -> 0.001)", state,
+        lambda compiled: tr.make_refine_train_step(
+            model, scale=1.0, cd_loss_type="cd_t",
+            point_upsample_factor=int(pc["point_upsample_factor"]),
+            include_displacement_center=bool(
+                pc["include_displacement_center_to_final_output"]),
+            intermediate_loss_weight=1.0, fused_gather=True, fused_sa=True,
+            compiled=compiled),
+        refine_inputs,
+        {"half batch": lambda: half_batch(refine_inputs(0)),
+         "next step's output scale": lambda: refine_inputs(1)},
+        TRAIN_PATH_KERNELS, lr)
+    failed += bad
+    if failed:
+        raise AssertionError("phase 20: " + "; ".join(failed))
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -3893,6 +4291,8 @@ def main() -> int:
         at("12 refine training")
         path_counts["refine_train"], kernel_ms["per_refine_train_step_ms"] = refine_training(
             dev, workdir)
+        at("20 compiled training")
+        path_counts.update(compiled_training(dev))
         at("14 file pipeline")
         path_counts["file_pipeline"] = file_pipeline(dev, workdir, direct)
         at("16 model options")

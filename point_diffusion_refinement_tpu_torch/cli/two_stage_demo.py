@@ -30,8 +30,9 @@ generated clouds (rescaled by 2 * scale, as the h5 dataset scales them) in
 the refine set's ``generated`` arrays, the clouds scaled and augmented as
 the h5 dataset would (``AugmentedArrays``), every train-set trial in the
 refine set at once.  The summary (the JAX demo's keys, the
-seconds of each stage, the DDPM loss over its first and last 10 steps and
-the card's name and power limit) is printed and written to
+seconds of each stage and where each training stage's seconds went, the
+DDPM loss over its first and last 10 steps and the card's name and power
+limit) is printed and written to
 ``<out_dir>/two_stage_demo.json``; ``run_demo`` returns it.
 """
 
@@ -235,6 +236,8 @@ def run_demo(steps_ddpm: int = 600, steps_refine: int = 300, T: int = 100,
         "total_wall_s": round(time.time() - t0, 1),
         "devices": torch.cuda.get_device_name(dev) if dev.type == "cuda" else str(dev),
         "stage_seconds": stages,
+        "train_seconds": {"ddpm": _train_split(res, stages["ddpm_train"]),
+                          "refine": _train_split(rres, stages["refine_train"])},
         "ddpm_loss_first10": float(np.mean(res["losses"][:10])),
         "ddpm_loss_last10": float(np.mean(res["losses"][-10:])),
         "card": card() if dev.type == "cuda" else None,
@@ -253,6 +256,22 @@ def run_demo(steps_ddpm: int = 600, steps_refine: int = 300, T: int = 100,
     if artifacts is not None:
         artifacts.update(out, coarse=coarse.generated, refined=refined.generated)
     return summary
+
+
+def _train_split(res: dict, stage_s: float) -> dict:
+    """A training stage's seconds by where they went: assembling the
+    batches, the first two steps (the compiled step's warm-up and capture),
+    the steps after them, and the stage outside the steps (model build,
+    checkpoints, in-loop evals); and the median step after the first two
+    without its batch, in ms."""
+    steps, batch = np.asarray(res["step_seconds"]), np.asarray(res["batch_seconds"])
+    later = (steps - batch)[2:]
+    return {"batch_assembly": round(float(batch.sum()), 2),
+            "first_two_steps": round(float(steps[:2].sum()), 2),
+            "later_steps": round(float(steps[2:].sum()), 2),
+            "outside_steps": round(stage_s - float(steps.sum()), 2),
+            "later_step_median_ms": round(float(np.median(later)) * 1e3, 2)
+            if len(later) else None}
 
 
 def _in_memory(ddpm_cfg, refine_cfg, steps_ddpm, steps_refine, num_shapes, batch_size,

@@ -85,7 +85,10 @@ def _sow_count_hist(mod: nn.Module, counts, nsample: int) -> None:
     if sink is None or counts is None or isinstance(counts, str):
         return
     c = counts.clamp(0, nsample).reshape(-1).to(torch.int64)
-    hist = torch.bincount(c, minlength=nsample + 1).to(torch.float32)
+    # bincount reads its bin count back to the host, which a captured
+    # training step cannot do; the bins are known
+    hist = torch.zeros(nsample + 1, dtype=torch.int64, device=c.device).index_add_(
+        0, c, torch.ones_like(c)).to(torch.float32)
     name = mod._stats_name
     sink[name] = sink[name] + hist if name in sink else hist
 

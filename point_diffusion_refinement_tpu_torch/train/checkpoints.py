@@ -35,6 +35,7 @@ from ..parallel.mesh import (
     shard_state_dict,
 )
 from ..parallel.multihost import process_index
+from ..utils.weights import load_optimizer_state
 from .step import TrainState
 
 CKPT_PREFIX = "pointnet_ckpt"
@@ -100,7 +101,10 @@ def find_max_epoch(path: str, mode: str = "max", eval_result_path: Optional[str]
 def load_checkpoint(path: str, it: int, state: TrainState):
     """Restore the checkpoint of iteration ``it`` into ``state`` in place
     (parameters, Adam moments, generator, step), sliced to what each rank
-    stores where the model is sharded.  Returns (state,
+    stores where the model is sharded.  The optimizer keeps its own flags
+    and tensors (``utils/weights.py::load_optimizer_state``): a checkpoint
+    of an unfused Adam resumes into the fused one, and a step captured
+    before the resume reads the restored moments.  Returns (state,
     training_time_seconds)."""
     target = _ckpt_dir(path, it)
     device = next(state.model.parameters()).device
@@ -108,7 +112,7 @@ def load_checkpoint(path: str, it: int, state: TrainState):
                       weights_only=True)
     state.model.load_state_dict(shard_state_dict(state.model, blob["model_state_dict"]),
                                 strict=True)
-    state.optimizer.load_state_dict(shard_optimizer_state_dict(
+    load_optimizer_state(state.optimizer, shard_optimizer_state_dict(
         state.model, state.optimizer, blob["optimizer_state_dict"]))
     state.generator.set_state(blob["generator_state"].cpu())
     state.step = int(blob["step"])

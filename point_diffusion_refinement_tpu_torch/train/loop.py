@@ -10,6 +10,12 @@ clouds in the loop through ``sample/evaluate.py`` and keeps the best
 checkpoint.  ``train_from_file``
 reads the config from a JSON file.
 
+The step is compiled, as the JAX loop jits its step: on the card each
+optimizer step replays one captured CUDA graph (``train/step.py``,
+``compiled=True``), captured on the second step after the resume; the
+refine output scale is a device tensor the graph reads, so a ramp replays
+the same graph.  On the CPU the same step runs eagerly.
+
 ``build_model`` builds any of the JAX package's three networks:
 ``pointnet++`` (the default), ``pvd`` (PVCNN2) and ``pointwise_net``, the
 last two from ``network_args``.  With ``record_neighbor_stats`` (PointNet++
@@ -222,7 +228,8 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
     epoch e a function of ``shuffle_seed + e``, so a resumed run repeats
     it; without it every epoch shuffles from fresh entropy.  The result's
     ``step_seconds`` hold each step's host time from the assembly of its
-    batch to its loss on the host (checkpoints and evals excluded).
+    batch to its loss on the host (checkpoints and evals excluded), and
+    ``batch_seconds`` the part of it up to the batch on the device.
 
     ``mesh`` (``parallel.make_mesh()``) trains over the processes of the
     initialised process group on ``mesh.device``, which replaces
@@ -319,7 +326,7 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
     if mesh is not None:
         step_fn, state = jit_step_for_mesh(make_step, mesh, state, **step_args)
     else:
-        step_fn = make_step(model, **step_args)
+        step_fn = make_step(model, compiled=True, **step_args)
 
     osf_scheduler = None
     output_scale_factor = refine_config.get("output_scale_factor", 0.001)
@@ -333,6 +340,9 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
     def osf_at(it: int) -> float:
         return osf_scheduler.get_quantity(it) if osf_scheduler is not None \
             else output_scale_factor
+
+    # the step's output scale: one device buffer, refilled each step
+    osf_buf = torch.zeros((), dtype=torch.float32, device=dev)
 
     # ---- eval-in-loop setup ----------------------------------------------
     eval_per_ckpt = int(train_config.get("eval_per_ckpt", 1))
@@ -423,7 +433,7 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
     last_saved_best = None
     num_ckpts = 0
 
-    step_seconds = []
+    step_seconds, batch_seconds = [], []
     while n_iter < n_iters:
         epoch = n_iter // loader_len
         seed = None if shuffle_seed is None else int(shuffle_seed) + epoch
@@ -437,11 +447,14 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
             condition = _to_device(batch, "partial", dev)
             label = _to_device(batch, "label", dev, torch.int64)
             if task == "completion":
+                batch_seconds.append(time.perf_counter() - t_batch)
                 out = step_fn(state, x0, condition, label)
             else:
                 generated = torch.as_tensor(np.asarray(
                     batch.get("generated", batch["complete"]), np.float32)).to(dev)
-                out = step_fn(state, x0, condition, label, generated, osf_at(n_iter))
+                batch_seconds.append(time.perf_counter() - t_batch)
+                out = step_fn(state, x0, condition, label, generated,
+                              osf_buf.fill_(osf_at(n_iter)))
             if record_stats:
                 state, loss, step_stats = out
                 stats_acc.update(step_stats)
@@ -507,6 +520,7 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
         "final_loss": loss_meter.avg,
         "losses": losses,
         "step_seconds": step_seconds,
+        "batch_seconds": batch_seconds,
         "n_iter": n_iter,
         "eval_records": eval_records,
         "best_cd": best_cd,

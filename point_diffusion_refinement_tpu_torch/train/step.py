@@ -3,10 +3,21 @@ denoising.
 
 Counterpart of the JAX package's ``train/step.py``.  One optimizer step is
 q-sample (or the refine input) + forward + loss + ``backward()`` + Adam
-update, run eagerly.  Each step maker is split into a pure loss function
-that takes its random draws (``t`` and ``z``, or the denoise task's noise) as
-tensors, so that two implementations can be fed the same draws, and a step
-that draws them from the state's generator.
+update.  Each step maker is split into a pure loss function that takes its
+random draws (``t`` and ``z``, or the denoise task's noise) as tensors, so
+that two implementations can be fed the same draws, and a step that draws
+them from the state's generator, eagerly and in a fixed order, and hands
+them with the batch to the update: loss, ``backward()`` and Adam, a
+function of tensors only.  With ``compiled=True`` the update is a captured
+CUDA graph (``utils/graphs.py::CapturedFunction``), one for each input
+signature, as the JAX package jits its step; on CPU tensors it runs
+eagerly.  The refine step's ``output_scale_factor`` is one of its tensors,
+so a ramping schedule replays one graph.  ``state.step`` counts on the
+host.
+
+The optimizer is one Adam for both routes and both devices: fused (a few
+launches a step where the per-tensor route makes many) and capturable (its
+step count on the parameters' device, which a graph needs).
 
 The two fused training routes of the network (``fused_gather``,
 ``fused_sa``; see ``models/modules.py``) are keyword arguments of the step
@@ -23,13 +34,15 @@ networks' dropout stays off, as in the JAX package.
 rows of the global batch a process: the step maker's step on the model
 wrapped in ``DistributedDataParallel``, or, with a ``model`` axis, on the
 model whose large tensors each rank stores as slices (``parallel/mesh.py``).
+That step is eager; on a mesh of one process it is the compiled step.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, Optional
+import warnings
+from typing import Callable, Dict, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -51,7 +64,7 @@ from ..parallel.mesh import (
     shard_params,
     sharding_of,
 )
-
+from ..utils.graphs import CapturedFunction
 
 @dataclasses.dataclass
 class TrainState:
@@ -67,12 +80,13 @@ class TrainState:
 def create_train_state(model: torch.nn.Module, seed: int = 0,
                        learning_rate: float = 2e-4) -> TrainState:
     """Adam with optax's defaults (beta 0.9/0.999, eps 1e-8 outside the
-    square root, no weight decay) over the model's float32 parameters, and a
-    generator on the model's device seeded with ``seed``."""
+    square root, no weight decay) over the model's float32 parameters, fused
+    and capturable, and a generator on the model's device seeded with
+    ``seed``."""
     device = next(model.parameters()).device
     optimizer = torch.optim.Adam(
         model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8,
-        weight_decay=0.0,
+        weight_decay=0.0, fused=True, capturable=True,
     )
     generator = torch.Generator(device=device)
     generator.manual_seed(int(seed))
@@ -102,21 +116,43 @@ def _recording(model, record_stats: bool):
     return collect_neighbor_stats(_unwrap(model)) if record_stats else contextlib.nullcontext()
 
 
-def _apply(state: TrainState, loss: torch.Tensor) -> torch.Tensor:
-    state.optimizer.zero_grad(set_to_none=True)
-    loss.backward()
-    state.optimizer.step()
-    state.step += 1
-    return loss.detach()
+def _make_update(loss_fn: Callable, record_stats: bool) -> Callable:
+    """update(optimizer, *inputs) -> loss, or (loss, stats): the loss
+    function at ``inputs``, ``backward()`` and one optimizer step.  The
+    gradients are set to None first, so that under capture the backward
+    allocates them in the graph's pool and every replay writes them anew."""
+
+    def update(optimizer: torch.optim.Optimizer, *inputs):
+        out = loss_fn(*inputs)
+        loss, stats = out if record_stats else (out, None)
+        optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        with warnings.catch_warnings():
+            # the Adam of create_train_state is capturable for the compiled
+            # step and makes the same update eagerly: PyTorch's advice
+            # against capturable=True outside a graph does not apply
+            warnings.filterwarnings(
+                "ignore", message="This instance was constructed with capturable=True")
+            optimizer.step()
+        return (loss.detach(), stats) if record_stats else loss.detach()
+
+    return update
 
 
-def _finish(state: TrainState, out, record_stats: bool):
-    """One optimizer step on the loss function's output: (state, loss), or
-    (state, loss, stats) with ``record_stats``."""
-    if record_stats:
-        loss, stats = out
-        return state, _apply(state, loss), stats
-    return state, _apply(state, out)
+def _stepper(update: Callable, record_stats: bool, compiled: bool) -> Callable:
+    """run(state, *inputs) -> (state, loss), or (state, loss, stats): the
+    update on ``state.optimizer``, eager or captured, and the host's step
+    count.  ``run.graphs`` is the ``CapturedFunction`` (None when eager)."""
+    graphs = CapturedFunction(update) if compiled else None
+    call = graphs if compiled else update
+
+    def run(state: TrainState, *inputs):
+        out = call(state.optimizer, *inputs)
+        state.step += 1
+        return (state,) + tuple(out) if record_stats else (state, out)
+
+    run.graphs = graphs
+    return run
 
 
 def make_completion_loss(model, schedule: DiffusionSchedule, *, fused_gather: bool = False,
@@ -138,15 +174,18 @@ def make_completion_loss(model, schedule: DiffusionSchedule, *, fused_gather: bo
 
 def make_completion_train_step(model, schedule: DiffusionSchedule, *,
                                record_stats: bool = False, fused_gather: bool = False,
-                               fused_sa: bool = False) -> Callable:
+                               fused_sa: bool = False, compiled: bool = False) -> Callable:
     """DDPM epsilon-MSE step: step(state, x0, condition, label, t=None,
     z=None) -> (state, loss), or (state, loss, stats) with
     ``record_stats``, with t ~ U[0, T) and z ~ N(0, 1) drawn from
-    ``state.generator`` unless they are passed in."""
+    ``state.generator`` unless they are passed in.  ``compiled`` captures
+    the update (x0, condition, label, t, z) -> loss; ``step.graphs`` holds
+    its graphs."""
     device = next(model.parameters()).device
     sched = schedule.to(device)
     loss_fn = make_completion_loss(model, sched, fused_gather=fused_gather,
                                    fused_sa=fused_sa, record_stats=record_stats)
+    run = _stepper(_make_update(loss_fn, record_stats), record_stats, compiled)
 
     def step(state: TrainState, x0, condition, label, t=None, z=None):
         B = x0.shape[0]
@@ -155,8 +194,9 @@ def make_completion_train_step(model, schedule: DiffusionSchedule, *,
         if z is None:
             z = torch.randn(x0.shape, generator=state.generator, device=x0.device,
                             dtype=x0.dtype)
-        return _finish(state, loss_fn(x0, condition, label, t, z), record_stats)
+        return run(state, x0, condition, label, t, z)
 
+    step.graphs = run.graphs
     return step
 
 
@@ -216,13 +256,19 @@ def make_refine_train_step(
     record_stats: bool = False,
     fused_gather: bool = False,
     fused_sa: bool = False,
+    compiled: bool = False,
 ) -> Callable:
     """Refinement / denoise step: step(state, x_gt, condition, label,
-    generated, output_scale_factor) -> (state, loss), or (state, loss,
-    stats) with ``record_stats``.  The per-step ``output_scale_factor`` is
-    an argument, so a schedule can ramp it.  For task='denoise' the input is
-    made inside the step as x_gt + N(0, noise_magnitude) from
-    ``state.generator``."""
+    generated, output_scale_factor, noise=None) -> (state, loss), or
+    (state, loss, stats) with ``record_stats``.  The per-step
+    ``output_scale_factor`` is an argument, so a schedule can ramp it: a 0-d
+    float32 tensor on the batch's device (a Python number is made one).  For
+    task='denoise' the input is x_gt + noise, with noise ~ N(0,
+    noise_magnitude) drawn from ``state.generator`` unless it is passed in;
+    another task reads no noise.
+    ``compiled`` captures the update (x_gt, condition, label, generated,
+    output_scale_factor, noise) -> loss; ``step.graphs`` holds its
+    graphs."""
     loss_fn = make_refine_loss(
         model, scale=scale, cd_loss_type=cd_loss_type,
         point_upsample_factor=point_upsample_factor,
@@ -231,16 +277,21 @@ def make_refine_train_step(
         fused_gather=fused_gather, fused_sa=fused_sa, record_stats=record_stats,
     )
 
+    run = _stepper(_make_update(loss_fn, record_stats), record_stats, compiled)
+
     def step(state: TrainState, x_gt, condition, label, generated,
-             output_scale_factor):
-        noise: Optional[torch.Tensor] = None
-        if task == "denoise":
+             output_scale_factor: Union[float, torch.Tensor],
+             noise: Optional[torch.Tensor] = None):
+        if task != "denoise":
+            noise = None
+        elif noise is None:
             noise = noise_magnitude * torch.randn(
                 x_gt.shape, generator=state.generator, device=x_gt.device,
                 dtype=x_gt.dtype)
-        out = loss_fn(x_gt, condition, label, generated, output_scale_factor, noise)
-        return _finish(state, out, record_stats)
+        osf = torch.as_tensor(output_scale_factor, dtype=torch.float32, device=x_gt.device)
+        return run(state, x_gt, condition, label, generated, osf, noise)
 
+    step.graphs = run.graphs
     return step
 
 
@@ -326,11 +377,15 @@ def jit_step_for_mesh(make_step: Callable, mesh, state: TrainState, *args, **kwa
     Adam is elementwise, so a slice's update is the one-process update of
     the same gradient.
 
-    Without an initialised process group it is ``make_step``'s own step.
-    Returns (step, state); the state keeps the bare model, so checkpoints
-    keep their keys (``train/checkpoints.py`` gathers a sharded one)."""
+    Without an initialised process group it is ``make_step``'s own step,
+    compiled, as the JAX package jits its step on a one-device mesh.  Over
+    a process group the step runs eagerly: DDP's gradient hooks and the
+    model axis's whole tensors, rebuilt on every forward, are not
+    captured.  Returns
+    (step, state); the state keeps the bare model, so checkpoints keep
+    their keys (``train/checkpoints.py`` gathers a sharded one)."""
     if not mesh.distributed:
-        return make_step(state.model, *args, **kwargs), state
+        return make_step(state.model, *args, compiled=True, **kwargs), state
     if mesh.shape[MODEL_AXIS] > 1:
         net = _ShardedForward(state.model, mesh)
         _shard_train_state(state, mesh)

@@ -68,7 +68,8 @@ def pallas_flops_tally():
 
 def dot_flops(fn: Callable, *args, **kwargs) -> dict:
     """Run ``fn(*args, **kwargs)`` once and return {'model': flops,
-    'gather': 0.0, 'pallas': flops}.  Apply it to one eager step: what
+    'gather': 0.0, 'pallas': flops}.  Apply it to one eager step (a train
+    step made with ``compiled=False``, the step makers' default): what
     ``fn`` runs is what is counted, and a replay of a captured CUDA graph
     (``utils/graphs.py``) dispatches no PyTorch op and runs no kernel
     wrapper, so neither the counter nor the tally sees it."""

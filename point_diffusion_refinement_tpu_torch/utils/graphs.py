@@ -1,4 +1,5 @@
-"""Captured CUDA graphs: the port's counterpart of ``jax.jit`` for generation.
+"""Captured CUDA graphs: the port's counterpart of ``jax.jit``, for
+generation and for the training step.
 
 ``CapturedFunction(fn)`` runs ``fn`` (a function of tensors, or of nested
 tuples, lists and dicts of them) as a ``torch.cuda.CUDAGraph``: one device
@@ -30,10 +31,27 @@ or ``.to(device)``, assigning ``param.data``, as ``parallel.full_parameters``
 does for a sharded model) leaves the graph reading freed memory: release
 the graphs first (``release()``), and capture inside the scope in which the
 parameters stay put.  The pools live as long as the ``CapturedFunction``
-that owns them (a sampler or a refiner holds one), or until ``release()``
-or the end of a ``with`` block on it.
+that owns them (a sampler, a refiner or a train step holds one), or until
+``release()`` or the end of a ``with`` block on it.
 ``fn`` must not write to its inputs, and must not synchronise with the host
 (no ``.item()``, no host copy of a device tensor): capture refuses both.
+
+Training (``train/step.py``, ``compiled=True``).  ``fn`` is one whole
+update: forward, loss, ``backward()`` and the optimizer's step, with grad
+mode on (part of the signature).  A non-tensor argument such as the
+optimizer is part of the signature too, compared by identity.  The warm-up
+call is a real eager step, so the optimizer's moments exist before the
+capture, and it settles the first-use choices (cuDNN's algorithms, a
+kernel's shared-memory attribute) outside it.  ``fn`` sets the gradients
+to None before its backward, so the captured backward allocates them in the
+graph's pool and every replay writes them anew; after a replay the
+parameters' ``.grad`` are those pool tensors.  The optimizer must be
+capturable (``torch.optim.Adam(capturable=True)``: its step count lives on
+the device), and its state must stay where the capture found it:
+``utils/weights.py::load_optimizer_state`` refills it in place.  The
+backward runs on the autograd engine's thread with the forward's stream as
+its current stream, so a hand-written kernel's backward launches on the
+capture stream like any other op.
 """
 
 from __future__ import annotations

@@ -17,7 +17,11 @@ PVCNN2 and pointwise networks carry across like the denoiser.
 The optimizer state carries across the same way: optax Adam's ``mu`` and
 ``nu`` are trees shaped like the parameters and map onto ``torch.optim.Adam``'s
 ``exp_avg`` and ``exp_avg_sq`` with the same key mapping and transposes, and
-its ``count`` is every parameter's ``step``.
+its ``count`` is every parameter's ``step``.  Loading optimizer state keeps
+what the optimizer was built with: its ``fused`` / ``capturable`` /
+``foreach`` flags, ``step`` on the parameters' device where those flags
+put it, and the state tensors it already holds, refilled in place, so a
+captured training step (``utils/graphs.py``) reads the loaded moments.
 
 The input is the parameter tree as nested mappings of numpy arrays (for
 example ``jax.tree_util.tree_map(np.asarray, variables)``); nothing here
@@ -103,24 +107,64 @@ def load_flax_params(model: torch.nn.Module, params: Mapping[str, Any]) -> None:
     model.load_state_dict(sd, strict=True)
 
 
+# what an optimizer is built with, which a loaded state dict's groups would replace
+_OWN_FLAGS = ("fused", "capturable", "foreach")
+
+
+def _restate(optimizer: torch.optim.Optimizer, p: torch.Tensor, group: dict,
+             held: Mapping[str, Any], values: Mapping[str, Any]) -> None:
+    """``optimizer.state[p] = values``, with ``step`` as float32 on ``p``'s
+    device where ``group`` is fused or capturable, and every tensor of
+    ``held`` (the state before) of the same shape, dtype and device refilled
+    in place instead of replaced."""
+    state = {}
+    for k, v in values.items():
+        if k == "step" and (group.get("fused") or group.get("capturable")):
+            v = v.to(dtype=torch.float32, device=p.device)
+        old = held.get(k)
+        same = (isinstance(old, torch.Tensor) and isinstance(v, torch.Tensor)
+                and (old.shape, old.dtype, old.device) == (v.shape, v.dtype, v.device))
+        state[k] = old.copy_(v) if same else v
+    optimizer.state[p] = state
+
+
+def load_optimizer_state(optimizer: torch.optim.Optimizer, state_dict: Mapping) -> None:
+    """``optimizer.load_state_dict(state_dict)`` that keeps the optimizer's
+    own ``fused`` / ``capturable`` / ``foreach`` flags (the state dict of an
+    unfused Adam would otherwise turn a fused one back into the per-tensor
+    route, its step on the host), puts ``step`` on the parameters' device
+    where those flags need it, and refills the state tensors it holds in
+    place."""
+    flags = [{k: g[k] for k in _OWN_FLAGS if k in g} for g in optimizer.param_groups]
+    held = {p: dict(s) for p, s in optimizer.state.items()}
+    optimizer.load_state_dict(state_dict)
+    for group, own in zip(optimizer.param_groups, flags):
+        group.update(own)
+        for p in group["params"]:
+            if p in optimizer.state:
+                _restate(optimizer, p, group, held.get(p, {}), optimizer.state[p])
+
+
 def load_adam_state(model: torch.nn.Module, optimizer: torch.optim.Adam,
                     mu: Mapping[str, Any], nu: Mapping[str, Any], count: int) -> None:
     """Copy optax Adam moments (``mu``, ``nu``: trees like the Flax
     parameters; ``count``: steps taken) into ``optimizer``'s state for
-    ``model``'s parameters, in place."""
+    ``model``'s parameters, in place (``step`` where the optimizer keeps
+    it, as ``load_optimizer_state`` puts it)."""
     exp_avg, exp_avg_sq = flax_to_state_dict(mu), flax_to_state_dict(nu)
     named = dict(model.named_parameters())
     if set(exp_avg) != set(named) or set(exp_avg_sq) != set(named):
         raise KeyError("optimizer moment trees and the model's parameters differ")
+    groups = {p: g for g in optimizer.param_groups for p in g["params"]}
     for name, p in named.items():
         if tuple(exp_avg[name].shape) != tuple(p.shape):
             raise ValueError(f"{name}: moment shape {tuple(exp_avg[name].shape)} vs "
                              f"parameter {tuple(p.shape)}")
-        optimizer.state[p] = {
+        _restate(optimizer, p, groups[p], optimizer.state.get(p, {}), {
             "step": torch.tensor(float(count)),
             "exp_avg": exp_avg[name].to(p.device),
             "exp_avg_sq": exp_avg_sq[name].to(p.device),
-        }
+        })
 
 
 def adam_state_to_flax(model: torch.nn.Module, optimizer: torch.optim.Adam

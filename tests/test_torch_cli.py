@@ -110,6 +110,7 @@ def test_cli_chain(tmp_path):
                              "--fused_gather", "--fused_sa"])
     assert result["n_iter"] == 3 and np.isfinite(result["losses"]).all()
     assert len(result["step_seconds"]) == 3
+    assert all(0 <= b <= t for b, t in zip(result["batch_seconds"], result["step_seconds"]))
     exp = os.path.join(root, local_experiment_path(ddpm))
     assert find_max_epoch(os.path.join(exp, "logs", "checkpoint"), "all") == [3, 2]
     # the in-loop eval at the checkpoint of iteration 2 evaluated a subset

@@ -218,11 +218,19 @@ def _tree_like(tree, rng, positive=False):
                    else rng.standard_normal(a.shape)).astype(np.float32) * 1e-2, tree)
 
 
-@pytest.mark.parametrize("steps", [1, 3])
-def test_adam_steps_match_optax(steps):
+@pytest.mark.parametrize("steps,optimizer", [
+    pytest.param(1, "create_train_state", id="1"),
+    pytest.param(3, "create_train_state", id="3"),
+    pytest.param(1, "per_tensor", id="1-per_tensor"),
+    pytest.param(3, "per_tensor", id="3-per_tensor"),
+])
+def test_adam_steps_match_optax(steps, optimizer):
     """(c) Adam from carried-across parameters and moments: the same
     gradients go to ``optax.adam`` and to the port's ``torch.optim.Adam``;
-    1e-6 of the parameter scale (float32 rounding of the update only)."""
+    1e-6 of the parameter scale (float32 rounding of the update only).  The
+    optimizer is the one ``create_train_state`` builds (fused, capturable:
+    its step count on the parameters' device), or the per-tensor Adam of
+    earlier trees, whose checkpoints resume into it."""
     cfg = tiny_pointnet_config()
     port = PointNet2CloudCondition.from_config(cfg, device="cpu", seed=3)
     params = jax.tree_util.tree_map(jnp.asarray, state_dict_to_flax(port.state_dict()))
@@ -234,6 +242,12 @@ def test_adam_steps_match_optax(steps):
         mu=jax.tree_util.tree_map(jnp.asarray, mu),
         nu=jax.tree_util.tree_map(jnp.asarray, nu)),) + tuple(opt_state[1:])
     state = ptrain.create_train_state(port, seed=0, learning_rate=2e-4)
+    if optimizer == "per_tensor":
+        state.optimizer = torch.optim.Adam(port.parameters(), lr=2e-4, betas=(0.9, 0.999),
+                                           eps=1e-8, weight_decay=0.0)
+    else:
+        group = state.optimizer.param_groups[0]
+        assert group["fused"] and group["capturable"]
     load_adam_state(port, state.optimizer, mu, nu, count)
     for _ in range(steps):
         grads = _tree_like(params, rng)

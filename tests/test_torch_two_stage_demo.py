@@ -52,6 +52,10 @@ def test_summary_keys_and_values(demo):
     assert jax_keys <= set(summary)
     assert set(summary["stage_seconds"]) == {"data", "ddpm_train", "coarse_generation",
                                              "refine_train", "refine_eval"}
+    for split in summary["train_seconds"].values():  # two steps: none after the first two
+        assert split["later_steps"] == 0 and split["later_step_median_ms"] is None
+        assert 0 <= split["batch_assembly"] <= split["first_two_steps"]
+        assert split["outside_steps"] >= -0.02  # stage seconds rounded to 0.01
     for k in ("coarse_cd_t_2048", "refined_cd_t_4096", "ddpm_final_loss",
               "ddpm_loss_first10", "ddpm_loss_last10"):
         assert np.isfinite(summary[k]), k
