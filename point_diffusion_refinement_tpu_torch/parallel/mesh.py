@@ -8,9 +8,11 @@ process (``parallel/multihost.py``), and the mesh lays the process group's
 index r // m and model index r % m, as JAX's ``reshape(n // m, m)`` places
 its devices.
 
-The ``data`` axis is data parallelism.  At ``m`` = 1 the train step wraps
-the model in ``DistributedDataParallel`` (``train/step.py::
-jit_step_for_mesh``), which all-reduces the gradients in the backward.
+The ``data`` axis is data parallelism.  At ``m`` = 1 the compiled train
+step (``train/step.py::jit_step_for_mesh``) sums the gradients over the
+world in one flat all-reduce (``all_reduce_flat``) between the backward and
+Adam, inside its captured graph; the eager step wraps the model in
+``DistributedDataParallel``, which all-reduces them in the backward.
 
 The ``model`` axis shards parameters, FSDP-style, under the JAX package's
 rule (``param_sharding_rule``): a tensor of rank >= 2 whose dimension that
@@ -79,7 +81,7 @@ class Mesh:
     @property
     def distributed(self) -> bool:
         """A process group is initialised (even at world 1): the train step
-        goes through ``DistributedDataParallel`` or the sharded step."""
+        reduces its gradients over the processes."""
         return is_initialized()
 
 
@@ -254,11 +256,13 @@ def all_reduce_flat(tensors: Sequence[torch.Tensor], group=None) -> None:
         return
     flat = _flat(tensors)
     dist.all_reduce(flat, group=group)
-    off = 0
+    parts, off = [], 0
     for t in tensors:
         n = t.numel()
-        t.copy_(flat[off:off + n].view_as(t))
+        parts.append(flat[off:off + n].view_as(t))
         off += n
+    # one multi-tensor copy back, not a copy a tensor
+    torch._foreach_copy_(list(tensors), parts)
 
 
 @contextlib.contextmanager

@@ -14,6 +14,7 @@ from .step import (
     make_completion_train_step,
     make_refine_loss,
     make_refine_train_step,
+    mesh_step_compiled,
 )
 
 __all__ = [
@@ -29,5 +30,6 @@ __all__ = [
     "make_refine_loss",
     "make_refine_train_step",
     "maybe_resume",
+    "mesh_step_compiled",
     "save_checkpoint",
 ]

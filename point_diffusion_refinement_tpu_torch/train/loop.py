@@ -14,7 +14,11 @@ The step is compiled, as the JAX loop jits its step: on the card each
 optimizer step replays one captured CUDA graph (``train/step.py``,
 ``compiled=True``), captured on the second step after the resume; the
 refine output scale is a device tensor the graph reads, so a ramp replays
-the same graph.  On the CPU the same step runs eagerly.
+the same graph.  On the CPU the same step runs eagerly.  Over a process
+group the step is compiled too, the gradients' reduction over the mesh
+and the loss's mean inside the graph (``jit_step_for_mesh``), but for
+processes that share a card over gloo, which step eagerly
+(``mesh_step_compiled``); ``train()`` prints which.
 
 ``build_model`` builds any of the JAX package's three networks:
 ``pointnet++`` (the default), ``pvd`` (PVCNN2) and ``pointwise_net``, the
@@ -28,9 +32,9 @@ PointNet++ network (``make_coarse_sampler`` raises for another one).
 With ``mesh=`` (``parallel.make_mesh()`` in each of the processes of an
 initialised process group) it trains over the processes, one a device:
 each process takes its rank's shard of the dataset, seeds its draws with
-``rank + 1`` and steps through ``jit_step_for_mesh``, data-parallel
-(``DistributedDataParallel``) or, on a mesh with a ``model`` axis, with its
-large tensors and their Adam moments stored as slices; the in-loop eval
+``rank + 1`` and steps through ``jit_step_for_mesh``, data-parallel or,
+on a mesh with a ``model`` axis, with its large tensors and their Adam
+moments stored as slices; the in-loop eval
 holds the parameters whole (``parallel.full_parameters``), writes a pickle a
 rank, gathers the metrics over the processes and broadcasts rank 0's test
 CD, so every rank takes the same best-checkpoint decision; every rank
@@ -70,6 +74,7 @@ from .step import (
     jit_step_for_mesh,
     make_completion_train_step,
     make_refine_train_step,
+    mesh_step_compiled,
 )
 
 
@@ -324,7 +329,13 @@ def train(config: dict, *, max_steps: Optional[int] = None, device: DeviceLike =
             task=task, **routes,
         )
     if mesh is not None:
-        step_fn, state = jit_step_for_mesh(make_step, mesh, state, **step_args)
+        compiled = mesh_step_compiled(mesh)
+        if rank == 0:
+            print(f"mesh step over {mesh.world} processes {mesh.shape}: "
+                  + ("compiled" if compiled else "eager (gloo on CUDA tensors: a CUDA graph "
+                     "cannot capture its collectives)"), flush=True)
+        step_fn, state = jit_step_for_mesh(make_step, mesh, state, compiled=compiled,
+                                           **step_args)
     else:
         step_fn = make_step(model, compiled=True, **step_args)
 

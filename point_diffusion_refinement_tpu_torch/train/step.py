@@ -31,10 +31,14 @@ neighbour-count histograms the forward recorded
 networks' dropout stays off, as in the JAX package.
 
 ``jit_step_for_mesh`` is the step over the processes of a mesh, one rank's
-rows of the global batch a process: the step maker's step on the model
-wrapped in ``DistributedDataParallel``, or, with a ``model`` axis, on the
-model whose large tensors each rank stores as slices (``parallel/mesh.py``).
-That step is eager; on a mesh of one process it is the compiled step.
+rows of the global batch a process, as the JAX package jits its step over
+the mesh: the step maker's step on the model wrapped in ``_MeshForward``,
+whose update reduces the gradients over the mesh before Adam and takes the
+loss's mean over the processes, all inside the one update that
+``compiled=True`` captures (NCCL's collectives replay inside the graph).
+With a ``model`` axis each rank stores the large tensors as slices
+(``parallel/mesh.py``).  The eager step over a data-only mesh is
+``DistributedDataParallel``'s, kept as the reference.
 """
 
 from __future__ import annotations
@@ -65,6 +69,7 @@ from ..parallel.mesh import (
     sharding_of,
 )
 from ..utils.graphs import CapturedFunction
+from ..utils.weights import load_optimizer_state
 
 @dataclasses.dataclass
 class TrainState:
@@ -94,9 +99,9 @@ def create_train_state(model: torch.nn.Module, seed: int = 0,
 
 
 def _unwrap(model) -> torch.nn.Module:
-    """The network inside a ``DistributedDataParallel`` or ``_ShardedForward``
+    """The network inside a ``DistributedDataParallel`` or ``_MeshForward``
     wrapper."""
-    return model.module if isinstance(model, (DistributedDataParallel, _ShardedForward)) \
+    return model.module if isinstance(model, (DistributedDataParallel, _MeshForward)) \
         else model
 
 
@@ -116,17 +121,26 @@ def _recording(model, record_stats: bool):
     return collect_neighbor_stats(_unwrap(model)) if record_stats else contextlib.nullcontext()
 
 
-def _make_update(loss_fn: Callable, record_stats: bool) -> Callable:
+def _make_update(model, loss_fn: Callable, record_stats: bool) -> Callable:
     """update(optimizer, *inputs) -> loss, or (loss, stats): the loss
     function at ``inputs``, ``backward()`` and one optimizer step.  The
     gradients are set to None first, so that under capture the backward
-    allocates them in the graph's pool and every replay writes them anew."""
+    allocates them in the graph's pool and every replay writes them anew.
+    Over a mesh (``model`` a ``_MeshForward`` or ``DistributedDataParallel``)
+    the gradients are reduced over the processes before the optimizer steps
+    (``_MeshForward.reduce_gradients``; DDP has done it in the backward) and
+    the returned loss is the processes' mean: both collectives are part of
+    the update, and of its graph."""
+    mesh_net = model if isinstance(model, _MeshForward) else None
+    over_mesh = mesh_net is not None or isinstance(model, DistributedDataParallel)
 
     def update(optimizer: torch.optim.Optimizer, *inputs):
         out = loss_fn(*inputs)
         loss, stats = out if record_stats else (out, None)
         optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        if mesh_net is not None:
+            mesh_net.reduce_gradients()
         with warnings.catch_warnings():
             # the Adam of create_train_state is capturable for the compiled
             # step and makes the same update eagerly: PyTorch's advice
@@ -134,7 +148,12 @@ def _make_update(loss_fn: Callable, record_stats: bool) -> Callable:
             warnings.filterwarnings(
                 "ignore", message="This instance was constructed with capturable=True")
             optimizer.step()
-        return (loss.detach(), stats) if record_stats else loss.detach()
+        loss = loss.detach()
+        if over_mesh:
+            loss = loss.clone()
+            dist.all_reduce(loss)
+            loss = loss / dist.get_world_size()
+        return (loss, stats) if record_stats else loss
 
     return update
 
@@ -185,7 +204,7 @@ def make_completion_train_step(model, schedule: DiffusionSchedule, *,
     sched = schedule.to(device)
     loss_fn = make_completion_loss(model, sched, fused_gather=fused_gather,
                                    fused_sa=fused_sa, record_stats=record_stats)
-    run = _stepper(_make_update(loss_fn, record_stats), record_stats, compiled)
+    run = _stepper(_make_update(model, loss_fn, record_stats), record_stats, compiled)
 
     def step(state: TrainState, x0, condition, label, t=None, z=None):
         B = x0.shape[0]
@@ -277,7 +296,7 @@ def make_refine_train_step(
         fused_gather=fused_gather, fused_sa=fused_sa, record_stats=record_stats,
     )
 
-    run = _stepper(_make_update(loss_fn, record_stats), record_stats, compiled)
+    run = _stepper(_make_update(model, loss_fn, record_stats), record_stats, compiled)
 
     def step(state: TrainState, x_gt, condition, label, generated,
              output_scale_factor: Union[float, torch.Tensor],
@@ -295,14 +314,23 @@ def make_refine_train_step(
     return step
 
 
-class _ShardedForward(torch.nn.Module):
-    """The network of a train step under the mesh's ``model`` axis.  Its
-    forward all-gathers the sharded tensors over the model row into whole
-    leaf tensors and runs the network on them (``torch.func.functional_call``),
-    so the backward leaves this rank's whole gradients on those leaves.
-    ``reduce_gradients``, run just before the optimizer steps, makes them and
-    the replicated tensors' gradients the global batch's mean gradient of
-    what this rank stores, in a fixed order of collectives."""
+class _MeshForward(torch.nn.Module):
+    """The network of a train step over a mesh, and the reduction of its
+    gradients, which the update runs between ``backward()`` and Adam
+    (``reduce_gradients``).  It makes them the global batch's mean gradient
+    of what this rank stores, in a fixed order of collectives.
+
+    Without a ``model`` axis nothing is sharded: the forward is the
+    network's own, and the reduction sums every gradient over the world in
+    one flat all-reduce and divides by the world, the psum that XLA puts
+    into the JAX package's jitted mesh step.  With one, the forward
+    all-gathers the sharded tensors over the model row into whole leaf
+    tensors and runs the network on them (``torch.func.functional_call``),
+    so the backward leaves this rank's whole gradients on those leaves; the
+    reduction reduce-scatters them over the model row, all-reduces the
+    slices over the data column and sums the replicated tensors' gradients
+    over the world.  Under capture the gathered leaves, the flat buffers
+    and the gradients are the graph's and replay at fixed addresses."""
 
     def __init__(self, model: torch.nn.Module, mesh):
         super().__init__()
@@ -310,8 +338,14 @@ class _ShardedForward(torch.nn.Module):
         self.mesh = mesh
         self._whole: Dict[str, torch.Tensor] = {}
 
+    def _dims(self) -> Dict[str, int]:
+        sharding = sharding_of(self.module)
+        return sharding.dims if sharding is not None else {}
+
     def forward(self, *args, **kwargs):
-        dims = sharding_of(self.module).dims
+        dims = self._dims()
+        if not dims:
+            return self.module(*args, **kwargs)
         params = dict(self.module.named_parameters())
         whole = gather_shards([params[n].detach() for n in dims], list(dims.values()),
                               self.mesh)
@@ -320,16 +354,17 @@ class _ShardedForward(torch.nn.Module):
 
     def reduce_gradients(self) -> None:
         mesh = self.mesh
-        dims = sharding_of(self.module).dims
+        dims = self._dims()
         params = dict(self.module.named_parameters())
-        whole = [w.grad if w.grad is not None else torch.zeros_like(w)
-                 for w in (self._whole[n] for n in dims)]
-        # a slice: summed over the model row, then over the data column
-        sliced = reduce_scatter_shards(whole, list(dims.values()), mesh)
-        if mesh.shape[DATA_AXIS] > 1:
-            all_reduce_flat(sliced, mesh.data_group)
-        for n, g in zip(dims, sliced):
-            params[n].grad = g
+        if dims:
+            whole = [w.grad if w.grad is not None else torch.zeros_like(w)
+                     for w in (self._whole[n] for n in dims)]
+            # a slice: summed over the model row, then over the data column
+            sliced = reduce_scatter_shards(whole, list(dims.values()), mesh)
+            if mesh.shape[DATA_AXIS] > 1:
+                all_reduce_flat(sliced, mesh.data_group)
+            for n, g in zip(dims, sliced):
+                params[n].grad = g
         # a replicated tensor: summed over the world, not only the data
         # column, so that every rank steps it alike (kernel B's float32
         # atomics make one gradient differ in its last bits between ranks)
@@ -338,24 +373,44 @@ class _ShardedForward(torch.nn.Module):
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         all_reduce_flat([p.grad for p in replicated])
-        for p in params.values():
-            p.grad.div_(mesh.world)
+        # one multi-tensor launch, not a division a gradient
+        torch._foreach_div_([p.grad for p in params.values()], float(mesh.world))
         self._whole = {}
 
 
 def _shard_train_state(state: TrainState, mesh) -> None:
     """Store the model's sharded tensors as this rank's slices and rebuild
-    the optimizer over what the rank now holds: the same hyperparameters,
-    and this rank's slice of any moments it had (a resumed state carries
-    over)."""
+    the optimizer over what the rank now holds: the same hyperparameters
+    and flags (fused, capturable), and this rank's slice of any moments it
+    had (a resumed state carries over), loaded as a resume loads them
+    (``load_optimizer_state``: the step counts on the device)."""
     whole = state.optimizer.state_dict()
     shard_params(state.model, mesh)
     opt = type(state.optimizer)(state.model.parameters(), **state.optimizer.defaults)
-    opt.load_state_dict(shard_optimizer_state_dict(state.model, opt, whole))
+    load_optimizer_state(opt, shard_optimizer_state_dict(state.model, opt, whole))
     state.optimizer = opt
 
 
-def jit_step_for_mesh(make_step: Callable, mesh, state: TrainState, *args, **kwargs):
+def mesh_step_compiled(mesh, compiled: Optional[bool] = None) -> bool:
+    """Whether ``jit_step_for_mesh`` takes the compiled step on ``mesh``:
+    ``compiled`` where it is given, and by default yes, but for one case.
+    Over a gloo process group on CUDA tensors (processes that share a
+    card) the step is eager, since a CUDA graph cannot capture gloo's
+    collectives, and ``compiled=True`` there raises ``ValueError``.  On
+    the CPU the compiled step runs its update eagerly
+    (``CapturedFunction``), with the same explicit reduction."""
+    if mesh.distributed and mesh.device.type == "cuda" and "nccl" not in dist.get_backend():
+        if compiled:
+            raise ValueError(
+                f"a compiled mesh step on CUDA tensors needs an NCCL process group: a CUDA "
+                f"graph cannot capture the collectives of {dist.get_backend()!r} (initialise "
+                "the group with backend='nccl', or pass compiled=False)")
+        return False
+    return True if compiled is None else bool(compiled)
+
+
+def jit_step_for_mesh(make_step: Callable, mesh, state: TrainState, *args,
+                      compiled: Optional[bool] = None, **kwargs):
     """The train step over the processes of ``mesh``: ``make_step``
     (``make_completion_train_step`` or ``make_refine_train_step``, with
     ``*args`` / ``**kwargs``) built on ``state.model``.  Each process passes
@@ -364,42 +419,36 @@ def jit_step_for_mesh(make_step: Callable, mesh, state: TrainState, *args, **kwa
     processes' mean (the global batch's loss when the rank batches are
     equal).
 
-    With ``mesh.shape["model"]`` = 1 the model is wrapped in
-    ``DistributedDataParallel``, whose backward averages the gradients;
-    every parameter must get a gradient in each step, as the PointNet++
-    network's do with or without the fused routes.  With a ``model`` axis,
-    ``state`` is sharded in place first (``parallel.shard_params``: each
-    rank stores its slice of every tensor the JAX rule shards, and the
-    optimizer is rebuilt over the slices with its moments sliced alike); a
-    step all-gathers the slices for the forward, and before Adam it
-    reduce-scatters their gradients over the model row, sums them over the
-    data column and sums the replicated tensors' gradients over the world.
-    Adam is elementwise, so a slice's update is the one-process update of
-    the same gradient.
+    With a ``model`` axis, ``state`` is sharded in place first
+    (``parallel.shard_params``: each rank stores its slice of every tensor
+    the JAX rule shards, and the optimizer is rebuilt over the slices with
+    its moments sliced alike).  Adam is elementwise, so a slice's update is
+    the one-process update of the same gradient.
 
-    Without an initialised process group it is ``make_step``'s own step,
-    compiled, as the JAX package jits its step on a one-device mesh.  Over
-    a process group the step runs eagerly: DDP's gradient hooks and the
-    model axis's whole tensors, rebuilt on every forward, are not
-    captured.  Returns
-    (step, state); the state keeps the bare model, so checkpoints keep
-    their keys (``train/checkpoints.py`` gathers a sharded one)."""
+    ``compiled`` (``mesh_step_compiled``: by default yes, but over gloo on
+    CUDA tensors) is the port's ``jax.jit(step, in_shardings=...,
+    out_shardings=...)``: one update of forward, loss, ``backward()``, the
+    gradients' reduction over the mesh (``_MeshForward``), the fused
+    capturable Adam and the loss's mean over the processes, which on the
+    card is one captured CUDA graph a step signature, NCCL's collectives
+    inside it; a capture that fails raises.  Eager
+    (``compiled=False``), a data-only mesh wraps the model in
+    ``DistributedDataParallel``, which averages the gradients in the
+    backward (every parameter must get a gradient in each step, as the
+    PointNet++ network's do with or without the fused routes), and a mesh
+    with a ``model`` axis runs the same ``_MeshForward`` step uncaptured.
+    Without an initialised process group it is ``make_step``'s own step.
+    Returns (step, state); the state keeps the bare model, so checkpoints
+    keep their keys (``train/checkpoints.py`` gathers a sharded one)."""
+    compiled = mesh_step_compiled(mesh, compiled)
     if not mesh.distributed:
-        return make_step(state.model, *args, compiled=True, **kwargs), state
+        return make_step(state.model, *args, compiled=compiled, **kwargs), state
     if mesh.shape[MODEL_AXIS] > 1:
-        net = _ShardedForward(state.model, mesh)
         _shard_train_state(state, mesh)
-        state.optimizer.register_step_pre_hook(lambda *_: net.reduce_gradients())
+    if compiled or mesh.shape[MODEL_AXIS] > 1:
+        net = _MeshForward(state.model, mesh)
     else:
         dev = mesh.device
         net = DistributedDataParallel(
             state.model, device_ids=[dev.index] if dev.type == "cuda" else None)
-    inner = make_step(net, *args, **kwargs)
-
-    def step(state: TrainState, *a, **kw):
-        out = inner(state, *a, **kw)
-        loss = out[1].clone()
-        dist.all_reduce(loss)
-        return (out[0], loss / mesh.world) + tuple(out[2:])
-
-    return step, state
+    return make_step(net, *args, compiled=compiled, **kwargs), state

@@ -51,7 +51,12 @@ the device), and its state must stay where the capture found it:
 ``utils/weights.py::load_optimizer_state`` refills it in place.  The
 backward runs on the autograd engine's thread with the forward's stream as
 its current stream, so a hand-written kernel's backward launches on the
-capture stream like any other op.
+capture stream like any other op.  Over an NCCL process group
+(``train/step.py::jit_step_for_mesh``) the update also holds the
+collectives of the gradients' reduction and of the loss's mean: the
+warm-up runs each of them eagerly, so every communicator the update uses
+exists before the capture, and every rank captures at the same call.
+gloo's collectives cannot be captured.
 """
 
 from __future__ import annotations

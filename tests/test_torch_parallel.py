@@ -6,8 +6,10 @@ CPU backend), whose results the tests below read:
 
 - the ragged ``all_gather_host_arrays`` of ``tests/test_multihost_smoke.py``
   (5 rows on rank 0, 3 on rank 1), ``broadcast_scalar`` and ``barrier``;
-- two DDPM steps through ``jit_step_for_mesh`` at tiny widths, each rank
-  taking half of a batch of 4 and the draws (t, z) of its rows.  DDP
+- two DDPM steps through ``jit_step_for_mesh(compiled=False)``, the eager
+  DDP step (``tests/test_torch_mesh_graph.py`` holds the compiled one), at
+  tiny widths, each rank taking half of a batch of 4 and the draws (t, z)
+  of its rows.  DDP
   averages the two halves' gradients, which is the whole batch's mean-loss
   gradient, so the first step equals a single-process step on the whole
   batch up to float32 summation order (rtol 1e-5): the loss, and the
@@ -156,7 +158,7 @@ def _worker(rank, port, out):
         step, state = jit_step_for_mesh(
             make_completion_train_step, mesh, state,
             schedule=calc_diffusion_hyperparams(T, 1e-4, 0.02), fused_gather=True,
-            fused_sa=True)
+            fused_sa=True, compiled=False)
         res["losses"], res["params"] = [], []
         for batch in _step_batches():
             x0, cond, label, t, z = map(torch.as_tensor, shard_batch(batch, mesh))
