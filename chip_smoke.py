@@ -71,11 +71,16 @@
    the level-0 feature-transfer shape and at a deep level with a wide table
    (idx and counts equal, gathered rows equal), at B=4 and at the training
    batch B=32, each queries-a-warp choice at both; the idx output of the
-   fused ball group against the ball-query kernel; the scatter-add
-   (``group_scatter_add``) against ``index_add_`` at the level-0 cotangent
-   shape in float32 and bfloat16, and at B=4 and B=32 in float32 and on a
-   bfloat16 channel slice of a wider row (as ``ball_group_train``'s
-   backward passes it), at each balls-a-thread choice; the three gradients
+   fused ball group against the ball-query kernel; the atomic scatter-add
+   B (``group_scatter_add(deterministic=False)``) against ``index_add_`` at
+   the level-0 cotangent shape in float32 and bfloat16, and at B=4 and
+   B=32 in float32 and on a bfloat16 channel slice of a wider row (as
+   ``ball_group_train``'s backward passes it), at each balls-a-thread
+   choice; the ordered scatter-add (``ordered_scatter_row``: the default of
+   every caller) at those shapes, with and without counts, and at
+   chamfer's re-gather in the x8 refine step, bit-equal run to run and to
+   the plain version on CPU copies, timed beside B and the deterministic
+   ``index_put_``; the three gradients
    of ``ball_group_train`` against autograd through the plain version in
    both empty-ball modes.  Both kernels' times are the profiler's device
    time a launch, with ``wrapper_ms`` beside them.
@@ -93,7 +98,8 @@
    and launches of the hand-written kernels in it.  Before those, every
    shape the fused ball query + gather and the scatter-add are launched at
    in one training step, with the launches and the device ms a launch of
-   each (spies on their wrappers, replayed under the profiler).
+   each (spies on their wrappers, replayed under the profiler), the
+   scatter-add's both through the ordered kernel and the atomic B.
 12. Refine training: the ``upsample_16384`` net, task ``refine_completion``,
    x8 upsampling, cd_t with the intermediate loss on and the output-scale
    schedule ticking, in-loop eval, the same checks; a run stopped at a
@@ -243,36 +249,44 @@
    step beside the eager demo CLI's record in ``PERF.md``.
 20. Compiled training, after phase 12 (the JAX package jits its train
    step; here one captured CUDA graph a step signature: forward, loss,
-   ``backward()`` through #2/#8/B and the fused capturable Adam,
-   ``compiled=True``): the ``ddpm`` step at B=TRAIN_BATCH with the fused
+   ``backward()`` through #2/#8 and the ordered scatter-add, and the fused
+   capturable Adam, ``compiled=True``): the ``ddpm`` step at B=TRAIN_BATCH
+   with the fused
    routes on, then off, and the ``upsample_16384`` x8 refine step with the
    fused routes on and its output scale ramping 0.01 -> 0.001 over the
    steps.  Each from one state (after an eager step, so the moments exist;
    restored in place before each run) and the same draws, eager and
    compiled.  The first step twice each way (the first replay follows the
    capture, the second replays the same graph): the replays' losses equal
-   to the eager step's bit for bit, their gradients within
-   GRAPH_GRAD_REL_TOL of the eager ones (of the norm, and every entry of
-   the largest), every pair's readings printed, and two planted faults run
+   to the eager step's bit for bit, their gradients bit-equal to the eager
+   ones and within GRAPH_GRAD_REL_TOL (of the norm, and every entry of the
+   largest), every pair's readings printed, and two planted faults run
    eagerly (half the batch; the next step's draws or output scale) beyond
    that bound and beyond LOSS_TRAJ_RTOL.  Adam's update on each step's own
    gradients bit-equal to an eager step of the same Adam from the state
    before it, with every step count advanced by one, at the first two
    replays and the last of the run (and at the eager steps alike); a
    planted fault (the step count one off) must differ.  Then
-   COMPILED_STEPS steps each way: the parameters after them within 2 * lr
-   * steps, the launch counts equal and one graph, the losses printed (two
-   runs of the DDPM step take one of two trajectories, eager against eager
-   too); COMPILED_STEPS replays more, each loss equal bit for bit to an
-   eager forward of the state the replay starts from; prints the losses,
-   the host ms of every step (ending in ``float(loss)``, as ``train()``
-   does), the peak allocated and reserved
+   COMPILED_STEPS steps twice each way: every loss, and the parameters,
+   Adam moments and step counts after them, bit-equal across the two eager
+   and the two compiled runs, the compiled losses within LOSS_TRAJ_RTOL of
+   the eager ones, the parameters within 2 * lr * steps, the launch counts
+   equal and one graph, the losses printed; COMPILED_STEPS replays more,
+   each loss equal bit for bit to an eager forward of the state the replay
+   starts from; prints the host ms of every step (ending in
+   ``float(loss)``, as ``train()`` does), the peak allocated and reserved
    memory, a BUSY_STEPS device-busy window each way, and the capture's ms
-   and pool bytes.  Each graph is released before the next; the phase
-   fails after the three steps if a check failed.  Phases 11, 12, 14, 16
-   and 17 train through ``train()``, which replays the compiled step on
-   the card; phase 16 also times the PVD and pointwise steps compiled
-   beside eager (the step makers' ``compiled=False``).
+   and pool bytes.  The three steps are ``training_setup``'s.  Then, on
+   the same setup, ``scatter_cost`` of the B=32 DDPM (fused routes) and x8
+   refine steps: the compiled step with the ordered scatter-add and with
+   the atomic kernel B (``scatter_kernel(deterministic=False)``) in turns
+   ordered, atomic, atomic, ordered, host ms and device ms a step each
+   turn; each kind launches only its kernel, the ordered turns' losses
+   bit-equal.  Each graph is released before the next; the phase fails
+   after the three steps if a check failed.  Phases 11, 12, 14, 16 and 17 train through
+   ``train()``, which replays the compiled step on the card; phase 16 also
+   times the PVD and pointwise steps compiled beside eager (the step
+   makers' ``compiled=False``).
 21. The compiled mesh step, after phase 20 (the JAX package jits its step
    over the mesh; here ``jit_step_for_mesh(compiled=True)`` over an NCCL
    process group of one, ``tcp://127.0.0.1`` on a free port: one captured
@@ -290,35 +304,60 @@
    the one-process compiled step's bit for bit, each replayed loss equals
    an eager forward of the state it starts from, its parameters after the
    steps are within 2 * lr * steps of both others, it holds one graph, and
-   its launch counts equal the DDP step's with #1, #2, #4, #8 and B
-   launched.  ``--model-axis-cards N``
+   its launch counts equal the DDP step's with #1, #2, #4, #8 and the
+   ordered scatter-add launched.  (b) Over the same group, the compiled
+   ``upsample_16384`` x8 refine step beside the one-process compiled step
+   (``training_setup("refine_x8")``, MESH_REFINE_STEPS steps after a
+   warm-up and a capture each): its first loss equal bit for bit (the
+   check), the later losses and the state at the end printed beside.
+   ``--model-axis-cards N``
    adds, across N cards, the compiled (N, 1) and (N / 2, 2) mesh steps
    against the eager ones and one process (``mesh_steps_across_cards``).
+22. The training step run to run, after phase 21 (the JAX package's
+   jitted step repeats bit for bit; every backward of a gather in the
+   port sums in a fixed order through the ordered scatter-add).  (a)
+   ``order_diagnosis``: for each DIAGNOSED configuration two eager steps
+   from one state on the same draws, every gradient compared bit for bit,
+   the unequal tensors printed by module, then the same pair under
+   ``torch.use_deterministic_algorithms(True, warn_only=True)`` (only
+   here) with what PyTorch flags; fails if a pair without the flag
+   differs.  (b) ``repeat_check`` of each REPEATED configuration
+   (``refine_x2``, ``refine_x4``, ``denoise``, new on the card, and
+   ``pvd``, ``pointwise``) at B=TRAIN_BATCH, full width, bf16 (PVD in
+   float32): two eager and two compiled runs of REPEAT_STEPS steps from
+   one state, every loss, the parameters, Adam moments and step counts at
+   the end, and the first step's gradients bit-equal across the four,
+   launches equal, host ms, device ms and busy share (a SHORT_BUSY_STEPS
+   window) each way; phase 20 ran the same on ``ddpm`` (both routes) and
+   x8 refine.  Then a table of the eight configurations; fails after all
+   parts if a check failed.
 15. Prints the card's name and power limit, a ``{"kernels": [...]}`` line
    (``launches``: the sum over the driven paths, the ``ddpm_avg_max`` step,
    the two pipelines, the two training runs, the file-driven pipeline,
    the five runs of phase 16, the demo of phase 17 and the two ranks of
    phase 18 (a), the four graphed runs of phase 19, the three compiled
-   runs of phase 20 and the compiled mesh step of phase 21, each counted
-   from zero;
+   runs of phase 20, the compiled mesh steps of phase 21 and the compiled
+   runs of phase 22 (b), each counted from zero; kernel B launches only
+   in phase 20's scatter-cost turns, ``atomic_scatter_steps``, as every
+   caller takes the ordered kernel;
    ``launches_by_path``
    splits it; the FPS rows add ``latency_floor_ms``, the sweep's per-pick
    time at its smallest N times the row's npoint - 1, beside the roofline
    ``bound_ms``; the rows of those five kernels add their device ms a
    denoise step, a pipeline and a training step; the #8 and B rows their
-   B=32 times and bounds), and last
+   B=32 times and bounds; the ordered scatter-add's row its B=32 and
+   chamfer times and bounds, the atomic B's and the deterministic
+   ``index_put_``'s beside them), and last
    ``{"ok": true, "device": {...}}``.
-
-TF32 is off for matmuls and convolutions throughout, so the float32 parts
-of the model and of the plain versions run in full float32.  Exits non-zero
-on any failure, without a result line; needs one card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
+import re
 import shutil
 import subprocess
 import sys
@@ -338,8 +377,9 @@ KNN_DIST_TOL = 0.0  # both compute the same separately rounded float32 sums
 STEPS = 10  # reverse steps of the main-path run: enough for a steady step time
 REFINE_REL_TOL = 1e-2  # kernels vs plain versions, one bf16 refine forward
 FAST_STEPS = 50  # FastDPM length of the refine_fast50 experiment
-# float32 sums of the same terms in another order (atomics; index_add_),
-# relative to the largest: the gradients of ball_group_train
+# float32 sums of the same terms in another order (kernel B's atomics, or
+# index_add_ on the card against the ordered kernel), relative to the
+# largest: the gradients of ball_group_train
 SCATTER_REL_TOL = 1e-5
 # ... relative to each element's own sum of its terms' magnitudes, the scale
 # of a reordered float32 sum's rounding error (every scatter-add check): a
@@ -349,14 +389,15 @@ SCATTER_REL_TOL = 1e-5
 SCATTER_ABS_REL_TOL = 1e-5
 SCATTER_ABS_FLOOR = 1e-12
 # a training step's gradients replayed from a captured graph against the
-# eager step's, relative to the gradient's norm and to its largest entry.
-# On the H100 the x8 refine step's first-step gradients take one of two
-# values run to run, eager and replayed alike (a float32 sum whose order
-# changes: eager against eager and one replay against the next of the same
-# graph 1.46e-4 of the norm, 2.03e-4 of the largest entry, the other pairs
-# equal); the DDPM steps were equal.  The planted faults of phase 20 (half
-# the batch, the next step's draws or output scale) read 0.081 or more.
-GRAPH_GRAD_REL_TOL = 1e-3
+# eager step's, relative to the gradient's norm and to its largest entry
+# (beside it, phase 20 holds them bit-equal).  Until PR 16 the x8 refine
+# step's first-step gradients took one of two values run to run on the
+# H100, eager and replayed alike (kernel B's float32 atomics: 1.46e-4 of
+# the norm, 2.03e-4 of the largest entry), and this bound was 1e-3; every
+# backward of a gather now sums in a fixed order.  The planted faults of
+# phase 20 (half the batch, the next step's draws or output scale) read
+# 0.081 or more.
+GRAPH_GRAD_REL_TOL = 1e-5
 TRAIN_BATCH = 32  # the JAX package's training benchmark batch
 TRAIN_STEPS = 4  # steps of each training run
 TIMED_STEPS = 2  # steps of each timed block (routes on, off, off, on)
@@ -380,8 +421,9 @@ ROUTE_GRAD_WORST_REL_TOL = 0.25
 # float32 sums in another order in the backward, amplified by bf16 roundings
 TRAIN_PLAIN_LOSS_REL_TOL = 1e-3
 TRAIN_PLAIN_GRAD_REL_TOL = 1e-2
-# a resumed run against the uninterrupted one: same state, same draws, but
-# the atomics of the backward land in another order
+# a resumed run against the uninterrupted one: same state, same draws (set
+# while kernel B's atomics summed the backward in an order that changed
+# from run to run)
 RESUME_REL_TOL = 1e-2
 
 # The attention sweeps repeat their plain versions' rounding points and add
@@ -426,7 +468,7 @@ DEMO_TESTED = 16
 DEMO_DDPM_STEPS = 40
 DEMO_REFINE_STEPS = 20
 DEMO_PATH_KERNELS = ("fps", "ball_group", "ball_query", "knn", "ball_query_group",
-                     "group_scatter_add")
+                     "group_scatter_ordered")
 VARIANTS = (
     ("off", {}),
     ("attention", dict(fused_attention=True)),
@@ -445,6 +487,7 @@ TPU_KERNELS = {
     "ball_query_group": "point_diffusion_refinement_tpu/ops/pallas_neighbors.py:287",
     # no Pallas kernel: the JAX backwards are one-hot einsums at these lines
     "group_scatter_add": "point_diffusion_refinement_tpu/models/grouping.py:51",
+    "group_scatter_ordered": "point_diffusion_refinement_tpu/models/grouping.py:51",
     "attention_stats": "point_diffusion_refinement_tpu/ops/pallas_attention.py:79",
     "attention_hstats": "point_diffusion_refinement_tpu/ops/pallas_attention.py:110",
     "attention_out": "point_diffusion_refinement_tpu/ops/pallas_attention.py:138",
@@ -458,17 +501,19 @@ LAUNCH_NAMES = {"fps_coords": "fps", "fps_idx": "fps_idx", "ball_group": "ball_g
                 "ball_query": "ball_query", "knn": "knn",
                 "ball_query_group": "ball_query_group",
                 "group_scatter_add": "group_scatter_add",
+                "group_scatter_ordered": "group_scatter_ordered",
                 "attention_stats": "attention_stats", "attention_hstats": "attention_hstats",
                 "attention_out": "attention_out",
                 "attention_finish_stats": "attention_finish_stats",
                 "attention_finish_h": "attention_finish_h", "knn_group": "knn_group"}
 # the kernels of a training step with both fused routes on (the fused
 # gather supersedes the ball-query kernel there)
-TRAIN_PATH_KERNELS = ("ball_query_group", "group_scatter_add", "ball_group", "fps", "knn")
+TRAIN_PATH_KERNELS = ("ball_query_group", "group_scatter_ordered", "ball_group", "fps", "knn")
 # the profiler's names of the kernels whose device time a denoise step, a
 # pipeline and a training step is reported (fps_reg_kernel<kCoords, threads,
 # per> and the workspace path's fps_global_kernel<kCoords>;
-# group_scatter_add_kernel<float> and <__nv_bfloat16>)
+# group_scatter_add_kernel<float> and <__nv_bfloat16>; the nine
+# scatter_ordered_* kernels of one group_scatter_ordered launch)
 PROFILED_KERNELS = {
     "fps": ("fps_reg_kernel<true", "fps_global_kernel<true"),
     "fps_idx": ("fps_reg_kernel<false", "fps_global_kernel<false"),
@@ -478,6 +523,7 @@ PROFILED_KERNELS = {
     "knn_group": ("knn_group_kernel",),
     "ball_query_group": ("ball_query_group_kernel",),
     "group_scatter_add": ("group_scatter_add_kernel",),
+    "group_scatter_ordered": ("scatter_ordered_",),
 }
 FPS_SWEEP_N = (1024, 2048, 3072, 4096, 12288)  # npoint 1024, B = 4
 # the kernels of ancestral coarse generation (phase 3); fps_idx serves
@@ -498,6 +544,7 @@ SOURCES = {
     "knn": "point_diffusion_refinement_tpu_torch/csrc/knn.cu",
     "ball_query_group": "point_diffusion_refinement_tpu_torch/csrc/ball_query_group.cu",
     "group_scatter_add": "point_diffusion_refinement_tpu_torch/csrc/group_scatter.cu",
+    "group_scatter_ordered": "point_diffusion_refinement_tpu_torch/csrc/group_scatter_ordered.cu",
     "attention_stats": "point_diffusion_refinement_tpu_torch/csrc/attention_pool.cu",
     "attention_hstats": "point_diffusion_refinement_tpu_torch/csrc/attention_pool.cu",
     "attention_out": "point_diffusion_refinement_tpu_torch/csrc/attention_pool.cu",
@@ -608,6 +655,45 @@ def device_ms(fn, name: str, iters: int = 30) -> float:
         print(f"profiler: {n} of {calls} device records of {name} in its window", flush=True)
     mid = n // 2
     return (us[mid] if n % 2 else 0.5 * (us[mid - 1] + us[mid])) / 1e3
+
+
+def window_device_ms(fn, calls: int = 30) -> float:
+    """Device ms a call of ``fn`` summed over every device activity it
+    starts (a wrapper that launches several kernels and a memset), from the
+    profiler over ``calls`` calls after a warm-up; CUDA events' mean a call
+    where the window holds no device record."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    if us == 0:
+        print("profiler: no device record in the window; CUDA events instead", flush=True)
+        return time_ms(fn, calls, warmup=1)
+    return us / 1e3 / calls
+
+
+def launch_breakdown(fn, calls: int = 10) -> str:
+    """The profiler's device ms a call of ``fn`` by kernel (and memset), over
+    ``calls`` calls after a warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [(re.sub(r"^(?:void )?(?:\(anonymous namespace\)::)?", "", e.key).split("(")[0],
+             e.self_device_time_total / 1e3 / calls)
+            for e in prof.key_averages() if e.self_device_time_total > 0]
+    return " ".join(f"{k}={v:.4f}" for k, v in sorted(rows, key=lambda kv: -kv[1]))
 
 
 def ball_query_row(sup, q, r: float, K: int, name: str) -> dict:
@@ -899,7 +985,8 @@ def check_fps_idx(dev, rng, pick_floor_ms: float):
 
 ROW_EXTRAS = ("latency_floor_ms", "wrapper_ms", "scan_ms", "mean_count", "ms_bf16_slice",
               "bound_ms_bf16_slice", "ms_b32", "wrapper_ms_b32", "bound_ms_b32",
-              "ms_bf16_slice_b32")
+              "ms_bf16_slice_b32", "library_ms_b32", "ms_chamfer", "bound_ms_chamfer",
+              "library_ms_chamfer", "atomic_ms", "atomic_ms_b32", "atomic_ms_chamfer")
 
 
 def print_row(r) -> None:
@@ -1896,7 +1983,7 @@ def check_training_kernels(dev, rng):
     for dtype in (torch.float32, torch.bfloat16):
         dg = torch.randn(B, M, K, C, device=dev).to(dtype)
         for counts in (None, cnt):
-            out = ops.group_scatter_add(dg, idx, N, counts)
+            out = ops.group_scatter_add(dg, idx, N, counts, deterministic=False)
             ref = ops.group_scatter_add_plain(dg, idx, N, counts)
             scale = ops.group_scatter_add_plain(dg.abs(), idx, N, counts)
             torch.cuda.synchronize()
@@ -1919,7 +2006,7 @@ def check_training_kernels(dev, rng):
         wide = torch.randn(b, M, K, C + 9, generator=gen, device=dev).to(torch.bfloat16)
         sl = wide[..., :C]
         for d in (dg, sl):
-            out = ops.group_scatter_add(d, ix, N)
+            out = ops.group_scatter_add(d, ix, N, deterministic=False)
             ref = ops.group_scatter_add_plain(d, ix, N)
             scale = ops.group_scatter_add_plain(d.abs(), ix, N)
             torch.cuda.synchronize()
@@ -1940,9 +2027,10 @@ def check_training_kernels(dev, rng):
                 cells.append(f"{n_b}{'*' if n_b == bpt else ''} ms={ms_c:.4f}")
             print(f"group_scatter_add FT0 B={b} {str(d.dtype).split('.')[-1]} ld={d.stride(2)} "
                   f"balls a thread: {'; '.join(cells)}", flush=True)
-        run = lambda: ops.group_scatter_add(dg, ix, N)
+        run = lambda: ops.group_scatter_add(dg, ix, N, deterministic=False)
         timed[b] = (device_ms(run, "group_scatter_add"), time_ms(run, 20),
-                 device_ms(lambda: ops.group_scatter_add(sl, ix, N), "group_scatter_add"),
+                 device_ms(lambda: ops.group_scatter_add(sl, ix, N, deterministic=False),
+                           "group_scatter_add"),
                  bound(nbytes(dg, ix) + b * N * C * 4, float(dg.numel())),
                  bound(nbytes(dg, ix) // 2 + b * N * C * 4 + ix.numel() * 2,
                        float(dg.numel()))[0])
@@ -1961,6 +2049,7 @@ def check_training_kernels(dev, rng):
                      ms_bf16_slice=ms_sl, bound_ms_bf16_slice=b_sl, ms_b32=ms32,
                      wrapper_ms_b32=wrapper_ms32,
                      bound_ms_b32=b_ms32, ms_bf16_slice_b32=ms_sl32))
+    rows.append(ordered_scatter_row(dev, gen, idx, cnt, idx32, N, M, K, C))
     del sup32, q32, table32, idx32
 
     # -- ball_group_train: gradients to features, support and queries against
@@ -1992,6 +2081,112 @@ def check_training_kernels(dev, rng):
     for row in rows:
         print_row(row)
     return rows
+
+
+def ordered_scatter_row(dev, gen, idx4, cnt4, idx32, N: int, M: int, K: int, C: int) -> dict:
+    """Phase 10: the ordered scatter-add (``group_scatter_add``'s default,
+    ``csrc/group_scatter_ordered.cu``) at the level-0 feature transfer's
+    cotangent (``idx4`` / ``cnt4`` of B=4, ``idx32`` of B=32: N rows, M
+    balls of K slots, C channels; float32, a bf16 slice of a wider row,
+    with and without ``counts``) and at chamfer's re-gather in the x8
+    refine step (B=32, the nearest of 16384 points among 16384 that are
+    eight jittered copies of a 2048-point cloud, K=1, C=3).  Each: two
+    launches bit-equal and equal to the plain version run on CPU copies,
+    bit for bit.  Times: the profiler's device ms of a call (every launch
+    of it), beside the atomic kernel B, the plain version on the card, and
+    ``index_put_(accumulate=True)`` under ``use_deterministic_algorithms``
+    (library_ms, the one PyTorch call that sums the same deterministically);
+    bound_ms: the bytes of dg, idx and the result at 3.35 TB/s (what the
+    function moves; the kernel's own inverse index is not counted)."""
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch.ops.chamfer import nn_sqdist
+
+    def agree(what, dg, ix, n_rows, counts=None):
+        out = ops.group_scatter_add(dg, ix, n_rows, counts)
+        again = ops.group_scatter_add(dg, ix, n_rows, counts)
+        ref = ops.group_scatter_add_plain(dg.cpu(), ix.cpu(), n_rows,
+                                          None if counts is None else counts.cpu())
+        torch.cuda.synchronize()
+        err = float((out.cpu() - ref).abs().max())
+        lists = torch.bincount((ix.long() + torch.arange(ix.shape[0], device=dev)[:, None, None]
+                                * n_rows).reshape(-1), minlength=ix.shape[0] * n_rows)
+        print(f"group_scatter_ordered {what}: two launches equal={torch.equal(out, again)} "
+              f"equal to plain on CPU copies={err == 0.0} max_abs_err={err:.3g} (longest "
+              f"list {int(lists.max())}, lists over 32: {int((lists > 32).sum())}, over "
+              f"8192: {int((lists > 8192).sum())})", flush=True)
+        if not (torch.equal(out, again) and err == 0.0):
+            raise AssertionError(f"group_scatter_ordered {what}: not bit-equal")
+        return out, err
+
+    def library_ms(dg, ix, n_rows, ordered_out):
+        B_ = dg.shape[0]
+        flat = (ix.long() + torch.arange(B_, device=dev)[:, None, None] * n_rows).reshape(-1)
+        vals = dg.reshape(-1, dg.shape[-1]).to(torch.float32).contiguous()
+        acc = torch.zeros(B_ * n_rows, dg.shape[-1], device=dev)
+        torch.use_deterministic_algorithms(True)
+        try:
+            ms = time_ms(lambda: acc.zero_().index_put_((flat,), vals, accumulate=True), 10)
+            equal = torch.equal(acc.view_as(ordered_out), ordered_out)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        return ms, equal
+
+    wide = torch.randn(4, M, K, C + 9, generator=gen, device=dev).to(torch.bfloat16)
+    dg = torch.randn(4, M, K, C, generator=gen, device=dev)
+    worst = 0.0
+    for what, d, counts in (("FT0 B=4 float32", dg, None), ("FT0 B=4 float32 counts", dg, cnt4),
+                            ("FT0 B=4 bf16 slice", wide[..., :C], None),
+                            ("FT0 B=4 bf16 slice counts", wide[..., 3:3 + C], cnt4)):
+        out, err = agree(what, d, idx4, N, counts)
+        worst = max(worst, err)
+    out4 = ops.group_scatter_add(dg, idx4, N)
+    row = dict(name="group_scatter_ordered", shape="dg (4,2048,32,35) f32 -> (4,3072,35)",
+               max_abs_err=worst)
+    run = lambda: ops.group_scatter_add(dg, idx4, N)  # noqa: E731
+    row["ms"], row["wrapper_ms"] = window_device_ms(run), time_ms(run, 20)
+    row["ms_bf16_slice"] = window_device_ms(lambda: ops.group_scatter_add(wide[..., :C], idx4, N))
+    row["atomic_ms"] = device_ms(lambda: ops.group_scatter_add(dg, idx4, N, deterministic=False),
+                                 "group_scatter_add")
+    row["plain_ms"] = time_ms(lambda: ops.group_scatter_add_plain(dg, idx4, N), 5)
+    row["library_ms"], lib_equal = library_ms(dg, idx4, N, out4)
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes(dg, idx4) + out4.numel() * 4, float(dg.numel()))
+    del wide, out4
+
+    dg = torch.randn(TRAIN_BATCH, M, K, C, generator=gen, device=dev)
+    out32, _ = agree("FT0 B=32 float32", dg, idx32, N)
+    run = lambda: ops.group_scatter_add(dg, idx32, N)  # noqa: E731
+    row["ms_b32"], row["wrapper_ms_b32"] = window_device_ms(run, 10), time_ms(run, 10)
+    row["atomic_ms_b32"] = device_ms(
+        lambda: ops.group_scatter_add(dg, idx32, N, deterministic=False), "group_scatter_add")
+    row["library_ms_b32"], lib32_equal = library_ms(dg, idx32, N, out32)
+    row["bound_ms_b32"] = bound(nbytes(dg, idx32) + out32.numel() * 4, float(dg.numel()))[0]
+    dg32 = dg
+    del out32
+
+    arrays = training_arrays(TRAIN_BATCH, 16384, seed=41)
+    gt = torch.from_numpy(arrays["complete"]).to(dev)
+    coarse = torch.from_numpy(arrays["generated"]).to(dev)
+    refined = coarse.repeat_interleave(8, dim=1)
+    refined = refined + 1e-3 * torch.randn(refined.shape, generator=gen, device=dev)
+    _, nn_idx = nn_sqdist(gt, refined)
+    ix = nn_idx[:, :, None].contiguous()
+    n_rows = refined.shape[1]
+    dg = torch.randn(TRAIN_BATCH, gt.shape[1], 1, 3, generator=gen, device=dev)
+    outc, _ = agree("chamfer (32,16384) into 16384, K=1, C=3", dg, ix, n_rows)
+    row["ms_chamfer"] = window_device_ms(lambda: ops.group_scatter_add(dg, ix, n_rows), 10)
+    row["atomic_ms_chamfer"] = device_ms(
+        lambda: ops.group_scatter_add(dg, ix, n_rows, deterministic=False), "group_scatter_add")
+    row["library_ms_chamfer"], libc_equal = library_ms(dg, ix, n_rows, outc)
+    row["bound_ms_chamfer"] = bound(nbytes(dg, ix) + outc.numel() * 4, float(dg.numel()))[0]
+    print(f"group_scatter_ordered: the deterministic index_put_ equal to it bit for bit: FT0 B=4 "
+          f"{lib_equal}, B=32 {lib32_equal}, chamfer {libc_equal}", flush=True)
+    for what, fn in (("FT0 B=32", lambda: ops.group_scatter_add(dg32, idx32, N)),
+                     ("chamfer", lambda: ops.group_scatter_add(dg, ix, n_rows))):
+        print(f"group_scatter_ordered {what} device ms a call by kernel: "
+              f"{launch_breakdown(fn)}", flush=True)
+    del dg, dg32, outc, gt, coarse, refined, nn_idx, ix
+    return row
 
 
 def training_arrays(n: int, complete_points: int, seed: int):
@@ -2141,17 +2336,20 @@ def compare_routes(tag: str, model, loss_for, step_for, state, batch_size: int,
 
 
 def launch_shapes(step, batch: int) -> None:
-    """Phase 11: every shape kernels #8 and B are launched at in one training
-    step, by spies on their wrappers (as check_denoise_ball_queries does):
-    (B, N, M, K, C) of #8 and (B, N, M, K, C, dtype, ld, masked) of B, the
-    launches of each, and the profiler's device ms a launch, replayed on
-    copies of the tensors the step gave it (a channel slice keeps its row
-    stride).  The spies must see every launch of the step."""
+    """Phase 11: every shape kernel #8 and the scatter-add are launched at in
+    one training step, by spies on their wrappers (as
+    check_denoise_ball_queries does): (B, N, M, K, C) of #8 and (B, N, M, K,
+    C, dtype, ld, masked) of the scatter-add (the ordered kernel, from the
+    grouping backwards and the gathers' backward), the launches of each, and
+    the profiler's device ms a launch, replayed on copies of the tensors the
+    step gave it (a channel slice keeps its row stride); each scatter-add
+    shape also through the atomic kernel B.  The spies must see every launch
+    of the step."""
     import importlib
 
     from point_diffusion_refinement_tpu_torch import ops
     from point_diffusion_refinement_tpu_torch.models import grouping
-    from point_diffusion_refinement_tpu_torch.ops import neighbors, scatter
+    from point_diffusion_refinement_tpu_torch.ops import neighbors, sampling, scatter
 
     # the module, not the function that ops re-exports under its name
     ball_group_mod = importlib.import_module("point_diffusion_refinement_tpu_torch.ops.ball_group")
@@ -2164,28 +2362,30 @@ def launch_shapes(step, batch: int) -> None:
                (xyz.shape[0], xyz.shape[1], new_xyz.shape[1], int(nsample), table.shape[-1]))
         if key not in seen:
             a, b, t = xyz.clone(), new_xyz.clone(), table.clone()
-            seen[key] = [0, lambda: gather(a, b, t, radius, nsample)]
+            seen[key] = [0, lambda: gather(a, b, t, radius, nsample), None]
         seen[key][0] += 1
         return gather(xyz, new_xyz, table, radius, nsample)
 
     def scatter_spy(dg, idx, n_rows, counts=None):
         B, M, K, C = dg.shape
         ld = dg.stride(2)
-        key = ("group_scatter_add", (B, n_rows, M, K, C, str(dg.dtype).split(".")[-1], ld,
-                                     counts is not None))
+        key = ("group_scatter_ordered", (B, n_rows, M, K, C, str(dg.dtype).split(".")[-1], ld,
+                                         counts is not None))
         if key not in seen:
             off = dg.storage_offset() % ld
             wide = torch.empty(B, M, K, ld, dtype=dg.dtype, device=dg.device)
             d = wide[..., off:off + C]
             d.copy_(dg)
             i, n = idx.clone(), counts.clone() if counts is not None else None
-            seen[key] = [0, lambda: scatter_add(d, i, n_rows, n)]
+            seen[key] = [0, lambda: scatter_add(d, i, n_rows, n),
+                         lambda: scatter_add(d, i, n_rows, n, deterministic=False)]
         seen[key][0] += 1
         return scatter_add(dg, idx, n_rows, counts)
 
     spots = ((grouping, "ball_query_group", gather_spy),
              (grouping, "group_scatter_add", scatter_spy),
-             (ball_group_mod, "group_scatter_add", scatter_spy))
+             (ball_group_mod, "group_scatter_add", scatter_spy),
+             (sampling, "group_scatter_add", scatter_spy))
     saved = [getattr(mod, name) for mod, name, _ in spots]
     ops.reset_launch_counts()
     try:
@@ -2198,26 +2398,34 @@ def launch_shapes(step, batch: int) -> None:
             setattr(mod, name, orig)
     counts = ops.launch_counts()
     total, bounds = {}, {}
-    for (kernel, shape), (n, replay) in sorted(seen.items()):
-        ms = device_ms(replay, kernel, iters=10)
+    for (kernel, shape), (n, replay, atomic_replay) in sorted(seen.items()):
+        atomic = ""
         if kernel == "ball_query_group":  # inputs, gathered rows, idx, counts
+            ms = device_ms(replay, kernel, iters=10)
             B, N, M, K, C = shape
             moved = B * N * (3 + C) * 4 + B * M * 3 * 4 + B * M * K * (C + 1) * 4 + B * M * 4
-        else:  # the slice's values, idx, the result
-            B, N, M, K, C, dtype, _, _ = shape
-            moved = B * M * K * (C * (2 if dtype == "bfloat16" else 4) + 4) + B * N * C * 4
+        else:  # the slice's values, idx, the counts, the result
+            ms = window_device_ms(replay, 10)
+            B, N, M, K, C, dtype, _, masked = shape
+            moved = (B * M * K * (C * (2 if dtype == "bfloat16" else 4) + 4) + B * N * C * 4
+                     + (B * M * 4 if masked else 0))
+            atomic_ms = device_ms(atomic_replay, "group_scatter_add", iters=10)
+            total["group_scatter_add (atomic B)"] = (total.get("group_scatter_add (atomic B)", 0.0)
+                                                     + n * atomic_ms)
+            atomic = f" atomic_B_device_ms={atomic_ms:.4f}"
         b_ms, _ = bound(moved, 0.0)
         total[kernel] = total.get(kernel, 0.0) + n * ms
         bounds[kernel] = bounds.get(kernel, 0.0) + n * b_ms
         print(f"train step launch shape: {kernel} {shape} launches={n} device_ms={ms:.4f} "
-              f"bound_ms={b_ms:.5f} (bytes)", flush=True)
-    for kernel in ("ball_query_group", "group_scatter_add"):
-        spied = sum(n for (k, _), (n, _) in seen.items() if k == kernel)
+              f"bound_ms={b_ms:.5f} (bytes){atomic}", flush=True)
+    for kernel in ("ball_query_group", "group_scatter_ordered"):
+        spied = sum(v[0] for (k, _), v in seen.items() if k == kernel)
         if spied != counts[kernel]:
             raise AssertionError(f"launch shapes: the spies saw {spied} launches of {kernel}, "
                                  f"the step made {counts[kernel]}")
     print(f"train step launch shapes at B={batch}: device ms a step (launches x replayed "
-          f"device ms) " + " ".join(f"{k}={v:.4f} (bound {bounds[k]:.4f})"
+          f"device ms) " + " ".join(f"{k}={v:.4f}" + (f" (bound {bounds[k]:.4f})" if k in bounds
+                                                        else "")
                                     for k, v in total.items()), flush=True)
 
 
@@ -3668,11 +3876,11 @@ def timed_turns(calls: dict, reps: int = GRAPH_REPS) -> dict:
     return out
 
 
-def device_busy(what: str, fn, grad: bool = False) -> float:
+def device_busy(what: str, fn, grad: bool = False, with_ms: bool = False):
     """The device-busy share of one call of ``fn``: the profiler's device
     time (CUDA activity alone, which is cheap to collect) over the host
     clock around the synchronised call; ``grad`` keeps autograd on, for
-    training steps."""
+    training steps.  ``with_ms``: (share, device ms)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3686,7 +3894,7 @@ def device_busy(what: str, fn, grad: bool = False) -> float:
                  if e.device_type == DeviceType.CUDA) / 1e3
     print(f"profile: {what}, wall_ms={wall_ms:.2f} (profiled) device_ms={dev_ms:.2f} "
           f"device_busy={dev_ms / wall_ms:.3f}", flush=True)
-    return dev_ms / wall_ms
+    return (dev_ms / wall_ms, dev_ms) if with_ms else dev_ms / wall_ms
 
 
 def graphed_ancestral(model, cond, label, dev, tag: str, **routes) -> dict:
@@ -3861,14 +4069,20 @@ def compiled_generation(model, cond, label, dev, rng) -> dict:
 
 # ---- phase 20: compiled training (captured CUDA graphs) -------------------
 COMPILED_STEPS = 10  # steps of each kind from one state
-BUSY_STEPS = 3  # steps of each device-busy window
-# a loss that a planted fault must move, relative (the planted faults'
-# first losses read 1.6e-3 or more off).  Not a bound on two runs of
-# COMPILED_STEPS steps: the B=32 DDPM step (fused routes) takes one of two
-# trajectories run to run, eager against eager as well, 6.61e-4 apart in
-# the losses from the fifth step on (kernel B's float32 atomics, amplified
-# by Adam; NVIDIA H100 80GB HBM3), so the steps of a run are held each
-# against an eager forward of the state it starts from (``stepwise_equal``)
+# steps of each device-busy window of phases 20 and 21
+BUSY_STEPS = 3
+# ... of phase 22 (b) and of the scatter-cost turns: one, as parsing a
+# window's trace (some 15k kernels a training step) took ~6 s a window of
+# three steps on the card
+SHORT_BUSY_STEPS = 1
+# the losses of COMPILED_STEPS compiled steps against COMPILED_STEPS eager
+# ones from the same state, relative; and the loss a planted fault must
+# move (the planted faults' first losses read 1.6e-3 or more off).  Every
+# backward of a gather sums in a fixed order (``ops/scatter.py``), so the
+# runs are also held bit-equal, two eager and two compiled; until PR 16
+# the B=32 DDPM step (fused routes) took one of two trajectories run to
+# run, 6.61e-4 apart from the fifth step (kernel B's float32 atomics,
+# amplified by Adam; NVIDIA H100 80GB HBM3)
 LOSS_TRAJ_RTOL = 1e-4
 
 
@@ -3930,11 +4144,30 @@ def adam_check(state, before, step_shift: int = 0):
     return equal, advanced
 
 
+def end_state(state) -> list:
+    """Copies of the parameters, Adam's moments and step counts, in the
+    model's parameter order."""
+    out = []
+    for p in state.model.parameters():
+        st = state.optimizer.state[p]
+        out += [p.detach().clone(), st["exp_avg"].clone(), st["exp_avg_sq"].clone(),
+                torch.as_tensor(st["step"]).clone()]
+    return out
+
+
+def runs_equal(runs: dict) -> dict:
+    """Per run, against the first: whether every loss, and the parameters,
+    moments and step counts at the end (``end``) are bit-equal."""
+    ref = next(iter(runs.values()))
+    return {k: r["losses"] == ref["losses"] and all(
+        torch.equal(a, b) for a, b in zip(r["end"], ref["end"])) for k, r in runs.items()}
+
+
 def stepwise_equal(state, start, step, loss_fn, inputs) -> list:
     """From ``start`` (restored in place), COMPILED_STEPS calls of ``step``
     (args -> (state, loss)), untimed: whether each one's loss equals, bit
     for bit, ``loss_fn``'s eager forward (no autograd) of the state and
-    inputs that step starts from (the forward has no atomics)."""
+    inputs that step starts from."""
     restore_state(state, start)
     equal = []
     for i in range(COMPILED_STEPS):
@@ -3976,8 +4209,11 @@ def compiled_vs_eager(tag: str, state, make_step, loss_fn, inputs, faults, path,
     counts, parameters and peak memory; COMPILED_STEPS replays more, each
     loss against ``loss_fn``'s eager forward of the state the replay starts
     from (``stepwise_equal``); a device-busy window of each kind; the
-    graph's capture ms and pool bytes.  Returns the compiled run's launch
-    counts and the failed checks."""
+    graph's capture ms and pool bytes.  The COMPILED_STEPS steps run twice
+    each way: every loss, and the parameters, Adam moments and step counts
+    after them, bit-equal across the four runs, and the compiled losses
+    within LOSS_TRAJ_RTOL of the eager ones.  Returns the compiled run's
+    launch counts, the failed checks and a summary for phase 22's table."""
     import gc
 
     from point_diffusion_refinement_tpu_torch import ops
@@ -4000,7 +4236,7 @@ def compiled_vs_eager(tag: str, state, make_step, loss_fn, inputs, faults, path,
                 state, start, step_shift=1)
         return loss.clone(), {n: p.grad.detach().clone() for n, p in model.named_parameters()}
 
-    def run(kind):
+    def run(kind, name):
         restore_state(state, start)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -4015,19 +4251,20 @@ def compiled_vs_eager(tag: str, state, make_step, loss_fn, inputs, faults, path,
         torch.cuda.synchronize()
         out = dict(ms=ms, losses=losses, counts=ops.launch_counts(),
                    params=[p.detach().clone() for p in model.parameters()],
-                   peak=torch.cuda.max_memory_allocated(),
+                   end=end_state(state), peak=torch.cuda.max_memory_allocated(),
                    reserved=torch.cuda.max_memory_reserved())
-        adam[f"{kind} step {COMPILED_STEPS}"] = adam_check(state, before)
+        adam[f"{name} step {COMPILED_STEPS}"] = adam_check(state, before)
         return out
 
     first = {"eager 1": first_step("eager", inputs(0), "eager 1"),
              "eager 2": first_step("eager", inputs(0), "eager 2")}
     planted = {name: first_step("eager", args(), f"fault {name}")
                for name, args in faults.items()}
-    runs = {"eager": run("eager")}
+    runs = {"eager": run("eager", "eager"), "eager 2": run("eager", "eager 2")}
     restore_state(state, start)
-    device_busy(f"{tag} eager, {BUSY_STEPS} steps",
-                lambda: [call("eager", inputs(i)) for i in range(BUSY_STEPS)], grad=True)
+    busy = {"eager": device_busy(f"{tag} eager, {BUSY_STEPS} steps",
+                                 lambda: [call("eager", inputs(i)) for i in range(BUSY_STEPS)],
+                                 grad=True, with_ms=True)}
     model.zero_grad(set_to_none=True)
     gc.collect()
     torch.cuda.empty_cache()
@@ -4038,12 +4275,15 @@ def compiled_vs_eager(tag: str, state, make_step, loss_fn, inputs, faults, path,
     first["replay 1"] = first_step("compiled", inputs(0), "replay 1")  # the capture, a replay
     first["replay 2"] = first_step("compiled", inputs(0), "replay 2")
     graphs = steps["compiled"].graphs
-    runs["compiled"] = run("compiled")
+    runs["compiled"] = run("compiled", "compiled")
+    runs["compiled 2"] = run("compiled", "compiled 2")
     stepwise = stepwise_equal(state, start, lambda args: call("compiled", args), loss_fn,
                               inputs)
     restore_state(state, start)
-    device_busy(f"{tag} compiled, {BUSY_STEPS} steps",
-                lambda: [call("compiled", inputs(i)) for i in range(BUSY_STEPS)], grad=True)
+    busy["compiled"] = device_busy(
+        f"{tag} compiled, {BUSY_STEPS} steps",
+        lambda: [call("compiled", inputs(i)) for i in range(BUSY_STEPS)], grad=True,
+        with_ms=True)
 
     loss_e, g_e = first["eager 1"]
 
@@ -4079,10 +4319,11 @@ def compiled_vs_eager(tag: str, state, make_step, loss_fn, inputs, faults, path,
                zip(runs["compiled"]["losses"], runs["eager"]["losses"]))
     moved = max(float((a - b).abs().max())
                 for a, b in zip(runs["compiled"]["params"], runs["eager"]["params"]))
-    print(f"{tag} {COMPILED_STEPS} steps: losses_max_rel={traj:.3g} (two runs; eager against "
-          f"eager read up to 6.61e-4) params_max_diff={moved:.3g} (tol "
-          f"{2 * lr * COMPILED_STEPS:.3g}); each replayed loss equal to an eager forward of its "
-          f"state: {stepwise}; losses: " + "; ".join(
+    repeats = runs_equal(runs)
+    print(f"{tag} {COMPILED_STEPS} steps: losses_max_rel={traj:.3g} (tol {LOSS_TRAJ_RTOL}) "
+          f"params_max_diff={moved:.3g} (tol {2 * lr * COMPILED_STEPS:.3g}); losses, parameters, "
+          f"moments and step counts at the end bit-equal to eager's: {repeats}; each replayed "
+          f"loss equal to an eager forward of its state: {stepwise}; losses: " + "; ".join(
               f"{k} {[float(f'{v:.9g}') for v in r['losses']]}" for k, r in runs.items()),
           flush=True)
     same_launches(tag, runs["compiled"]["counts"], runs["eager"]["counts"], path)
@@ -4100,6 +4341,12 @@ def compiled_vs_eager(tag: str, state, make_step, loss_fn, inputs, faults, path,
             torch.equal(first[k][0], loss_e) for k in sound),
         f"the replayed gradients within {GRAPH_GRAD_REL_TOL} of the eager ones":
             worst_sound <= GRAPH_GRAD_REL_TOL,
+        "the first step's gradients bit-equal, eager against eager and replayed against "
+        "eager": all(r["equal"] for r in readings.values()),
+        f"the compiled losses within {LOSS_TRAJ_RTOL} of the eager ones over {COMPILED_STEPS} "
+        f"steps": traj <= LOSS_TRAJ_RTOL,
+        "two eager and two compiled runs bit-equal (losses; parameters, moments and step "
+        "counts at the end)": all(repeats.values()),
         f"every planted fault's gradients beyond {GRAPH_GRAD_REL_TOL}":
             least_fault > GRAPH_GRAD_REL_TOL,
         f"every planted fault's loss beyond {LOSS_TRAJ_RTOL}": least_fault_loss > LOSS_TRAJ_RTOL,
@@ -4115,12 +4362,18 @@ def compiled_vs_eager(tag: str, state, make_step, loss_fn, inputs, faults, path,
     }
     failed = [f"{tag}: {k}" for k, ok in checks.items() if not ok]
     counts = runs["compiled"]["counts"]
+    summary = dict(repeat=all(repeats.values()), grads_equal=all(
+        r["equal"] for r in readings.values()), steps=COMPILED_STEPS, **{
+            f"{kind}_ms": float(np.mean(runs[kind]["ms"] + runs[f"{kind} 2"]["ms"]))
+            for kind in ("eager", "compiled")},
+        **{f"{kind}_device_ms": busy[kind][1] / BUSY_STEPS for kind in busy},
+        **{f"{kind}_busy": busy[kind][0] for kind in busy})
     graphs.release()
     del steps, graphs, runs, first, planted, start
     model.zero_grad(set_to_none=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, failed
+    return counts, failed, summary
 
 
 def half_batch(args):
@@ -4130,86 +4383,46 @@ def half_batch(args):
                  for a in args)
 
 
-def compiled_training(dev) -> dict:
+def compiled_training(dev, summaries: dict) -> dict:
     """Phase 20: the training step as one captured CUDA graph
     (``compiled=True``) against the eager step at B=TRAIN_BATCH, full width:
     the ``ddpm`` step with the fused routes on and off, and the
     ``upsample_16384`` x8 refine step with the fused routes on under an
-    output scale that ramps over the steps (one graph).  Planted faults: a
-    dropped half batch, and the next step's draws (DDPM) or output scale
-    (refine).  Each graph is released before the next step's; the phase
-    fails after all three if any check failed."""
-    from point_diffusion_refinement_tpu_torch import train as tr
-    from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
-    from point_diffusion_refinement_tpu_torch.diffusion import calc_diffusion_hyperparams
-    from point_diffusion_refinement_tpu_torch.train.loop import build_model
-
-    counts, failed = {}, []
-    cfg = EXPERIMENTS["ddpm"]()
-    dc, pc = cfg["diffusion_config"], cfg["pointnet_config"]
-    lr = float(cfg["train_config"].get("learning_rate", 2e-4))
-    schedule = calc_diffusion_hyperparams(dc["T"], dc["beta_0"], dc["beta_T"])
-    arrays = training_arrays(TRAIN_BATCH, 2048, seed=40)
-    x0, cond, label = (torch.from_numpy(arrays[k]).to(dev)
-                       for k in ("complete", "partial", "label"))
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(20)
-    draws = [(torch.randint(0, schedule.T, (TRAIN_BATCH,), generator=gen, device=dev),
-              torch.randn(x0.shape, generator=gen, device=dev))
-             for _ in range(COMPILED_STEPS + 1)]
-    ddpm_inputs = lambda i: (x0, cond, label, *draws[i])  # noqa: E731
-    for fused in (True, False):
-        model = build_model(pc, device=dev, seed=0)
-        state = tr.create_train_state(model, seed=1, learning_rate=lr)
-        tag = f"compiled ddpm train ({'fused routes' if fused else 'unfused'})"
-        counts[f"compiled_ddpm_train_{'fused' if fused else 'unfused'}"], bad = \
-            compiled_vs_eager(
-                tag, state,
-                lambda compiled: tr.make_completion_train_step(
-                    model, schedule, fused_gather=fused, fused_sa=fused, compiled=compiled),
-                tr.make_completion_loss(model, schedule.to(dev), fused_gather=fused,
-                                        fused_sa=fused),
-                ddpm_inputs,
-                {"half batch": lambda: half_batch(ddpm_inputs(0)),
-                 "next step's draws": lambda: (x0, cond, label, *draws[1])},
-                TRAIN_PATH_KERNELS if fused else ("fps", "knn", "ball_query"), lr)
-        failed += bad
-        del model, state
-    del draws
-
-    cfg = EXPERIMENTS["upsample_16384"]()
-    pc, rc = cfg["pointnet_config"], cfg["refine_config"]
-    pc["intermediate_refined_X_loss_weight"] = 1.0
-    lr = float(cfg["train_config"].get("learning_rate", 2e-4))
-    arrays = training_arrays(TRAIN_BATCH, 16384, seed=41)
-    batch = tuple(torch.from_numpy(arrays[k]).to(dev)
-                  for k in ("complete", "partial", "label", "generated"))
-    ramp = tr.QuantityScheduler(0, 1, 0.01, float(rc["output_scale_factor"]), COMPILED_STEPS)
-    osf = torch.zeros((), dtype=torch.float32, device=dev)
-    refine_inputs = lambda i: (*batch, osf.fill_(ramp.get_quantity(i % COMPILED_STEPS)))  # noqa: E731,E501
-    model = build_model(pc, device=dev, seed=0)
-    state = tr.create_train_state(model, seed=1, learning_rate=lr)
-    refine_opts = dict(
-        scale=1.0, cd_loss_type="cd_t", point_upsample_factor=int(pc["point_upsample_factor"]),
-        include_displacement_center=bool(pc["include_displacement_center_to_final_output"]),
-        intermediate_loss_weight=1.0, fused_gather=True, fused_sa=True)
-    counts["compiled_refine_train"], bad = compiled_vs_eager(
-        "compiled refine train (x8, fused routes, output scale 0.01 -> 0.001)", state,
-        lambda compiled: tr.make_refine_train_step(model, compiled=compiled, **refine_opts),
-        tr.make_refine_loss(model, **refine_opts),
-        refine_inputs,
-        {"half batch": lambda: half_batch(refine_inputs(0)),
-         "next step's output scale": lambda: refine_inputs(1)},
-        TRAIN_PATH_KERNELS, lr)
-    failed += bad
-    if failed:
-        raise AssertionError("phase 20: " + "; ".join(failed))
+    output scale that ramps over the steps (one graph); the steps of
+    ``training_setup``.  Planted faults: a dropped half batch, and the next
+    step's draws (DDPM) or output scale (refine).  Then ``scatter_cost`` of
+    the SCATTER_COST steps on the same setup.  Each graph is released
+    before the next step's; the phase fails after all three if any check
+    failed.  Fills ``summaries`` (name -> ``compiled_vs_eager``'s summary)
+    for phase 22's table; returns the launch counts by path."""
+    counts, failed = {}, {}
+    paths = {"ddpm_fused": ("compiled_ddpm_train_fused", "compiled ddpm train (fused routes)"),
+             "ddpm_unfused": ("compiled_ddpm_train_unfused", "compiled ddpm train (unfused)"),
+             "refine_x8": ("compiled_refine_train",
+                           "compiled refine train (x8, fused routes, output scale 0.01 -> 0.001)")}
+    for name, (path, tag) in paths.items():
+        s = training_setup(name, dev, COMPILED_STEPS)
+        faults = {"half batch": lambda: half_batch(s.inputs(0)),
+                  ("next step's output scale" if name == "refine_x8" else "next step's draws"):
+                      lambda: s.inputs(1)}
+        counts[path], failed[name], summaries[name] = compiled_vs_eager(
+            tag, s.state, s.make, s.loss_fn, s.inputs, faults, s.path, s.lr)
+        if name in SCATTER_COST:
+            atomic, bad = scatter_cost(name, s)
+            failed[name] += bad
+            counts["atomic_scatter_steps"] = {k: counts.get("atomic_scatter_steps", {}).get(k, 0)
+                                              + v for k, v in atomic.items()}
+        del s, faults
+    bad = [b for v in failed.values() for b in v]
+    if bad:
+        raise AssertionError("phase 20: " + "; ".join(bad))
     return counts
 
 
 # ---- phase 21: the compiled mesh step (one captured CUDA graph on NCCL) ---
 MESH_CARD_STEPS = 10  # steps of each kind across cards: warm-up, capture, 8 replays
 MESH_CARD_TIMEOUT_S = 900  # all the processes, start to end
+MESH_REFINE_STEPS = 3  # steps of the x8 refine step over the group of one, each way
 
 
 def timed_mesh_run(tag: str, state, start, step, inputs) -> dict:
@@ -4321,6 +4534,7 @@ def compiled_mesh_step(dev) -> dict:
             model.zero_grad(set_to_none=True)
             gc.collect()
             torch.cuda.empty_cache()
+        refine = mesh_refine_step(dev, mesh)
     finally:
         dist.destroy_process_group()
 
@@ -4344,14 +4558,15 @@ def compiled_mesh_step(dev) -> dict:
           f"{torch.equal(got['first'], one['first'])} losses_max_rel={traj(got, one):.3g} "
           f"params_max_diff={moved(got, one):.3g}; vs eager DDP: first_loss_equal="
           f"{torch.equal(got['first'], ddp['first'])} losses_max_rel={traj(got, ddp):.3g} "
-          f"params_max_diff={moved(got, ddp):.3g} (tol {bound:.3g}; two runs' losses: eager "
-          f"against eager read up to 6.61e-4); each replayed mesh loss equal to an eager "
-          f"forward of its state: {stepwise}", flush=True)
+          f"params_max_diff={moved(got, ddp):.3g} (tol {bound:.3g}); each replayed mesh loss "
+          f"equal to an eager forward of its state: {stepwise}", flush=True)
     same_launches("mesh step compiled vs eager DDP", got["counts"], ddp["counts"],
                   TRAIN_PATH_KERNELS)
     checks = {
         "the first loss equal to the one-process compiled step's":
             torch.equal(got["first"], one["first"]),
+        "the x8 refine step's first loss equal to the one-process compiled step's":
+            refine["first_loss_equal"],
         f"each of {COMPILED_STEPS} replayed losses equal to an eager forward of its state":
             all(stepwise),
         f"the parameters within {bound:.3g} of both":
@@ -4365,7 +4580,476 @@ def compiled_mesh_step(dev) -> dict:
     del runs, start, state, model, draws
     gc.collect()
     torch.cuda.empty_cache()
-    return {"compiled_mesh_step": got["counts"]}
+    return {"compiled_mesh_step": got["counts"], "compiled_mesh_refine_step": refine["counts"]}
+
+
+def mesh_refine_step(dev, mesh) -> dict:
+    """Phase 21 (b): the compiled ``refine_x8`` step (``training_setup``)
+    over ``mesh`` (``jit_step_for_mesh(compiled=True)``) beside the
+    one-process compiled step, from one state (after an eager step;
+    restored in place) and the same inputs: each a warm-up and a capture,
+    then MESH_REFINE_STEPS steps, host ms around each; the first losses
+    compared bit for bit (the check), the later losses and the state at
+    the end printed beside.  Each graph is released before the next."""
+    import gc
+
+    from point_diffusion_refinement_tpu_torch import ops
+    from point_diffusion_refinement_tpu_torch import train as tr
+
+    s = training_setup("refine_x8", dev, MESH_REFINE_STEPS)
+    s.make(False)(s.state, *s.inputs(MESH_REFINE_STEPS))
+    torch.cuda.synchronize()
+    start = snapshot_state(s.state)
+    makers = {"one process compiled": lambda: s.make(True),
+              "mesh compiled": lambda: tr.jit_step_for_mesh(
+                  s.maker, mesh, s.state, compiled=True, **s.kwargs)[0]}
+    runs = {}
+    for kind, make in makers.items():
+        step = make()
+        restore_state(s.state, start)
+        for _ in range(2):  # the warm-up, the capture
+            step(s.state, *s.inputs(0))
+        restore_state(s.state, start)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ms, losses = [], []
+        for i in range(MESH_REFINE_STEPS):
+            t0 = time.perf_counter()
+            losses.append(float(step(s.state, *s.inputs(i))[1]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        runs[kind] = dict(losses=losses, ms=ms, end=end_state(s.state),
+                          counts=ops.launch_counts(), graphs=step.graphs.num_graphs)
+        graph_stats(f"mesh refine x8 {kind}", step.graphs)
+        step.graphs.release()
+        del step
+        s.state.model.zero_grad(set_to_none=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    one, got = runs["one process compiled"], runs["mesh compiled"]
+    first_equal = got["losses"][0] == one["losses"][0]
+    for kind, r in runs.items():
+        print(f"mesh refine x8 {kind}: {MESH_REFINE_STEPS} steps at B={TRAIN_BATCH} host ms "
+              f"{[round(v, 2) for v in r['ms']]} losses={r['losses']} graphs={r['graphs']}",
+              flush=True)
+    print(f"mesh refine x8 compiled vs one process compiled: first_loss_equal={first_equal} "
+          f"all_losses_and_state_equal={all(runs_equal(runs).values())}", flush=True)
+    same_launches("mesh refine x8 compiled vs one process", got["counts"], one["counts"],
+                  s.path)
+    del s, start, runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"first_loss_equal": first_equal, "counts": got["counts"]}
+
+
+# ---- phase 22: the training step run to run ------------------------------
+# the training configurations of phase 22 (a), the order diagnosis
+DIAGNOSED = ("ddpm_fused", "ddpm_unfused", "refine_x8", "pvd", "pointwise")
+# ... and of its repeat check (b); phase 20 holds the other three the same way
+REPEATED = ("refine_x2", "refine_x4", "denoise", "pvd", "pointwise")
+# steps of each of (b)'s runs (phase 20 runs COMPILED_STEPS): fewer, so that
+# the script stays within its time
+REPEAT_STEPS = 2
+REFINE_SETUPS = {  # name -> (experiment, task)
+    "refine_x8": ("upsample_16384", "refine_completion"),
+    "refine_x2": ("upsample_4096", "refine_completion"),
+    "refine_x4": ("upsample_8192", "refine_completion"),
+    "denoise": ("refine", "denoise"),
+}
+DENOISE_NOISE = 0.01  # the refine configs' noise_magnitude_for_generated_samples
+
+
+def training_setup(name: str, dev, steps: int):
+    """One training configuration at B=TRAIN_BATCH, full width, seeded
+    weights and draws, as a namespace: ``state``; ``maker`` and ``kwargs``
+    (``maker(model, compiled=, **kwargs)`` is the step, as
+    ``jit_step_for_mesh`` takes them); ``make(compiled)``, the step on the
+    state's model; ``loss_fn``, its loss function; ``inputs(i)``, the
+    step's arguments after the state for i <= ``steps``; ``path``, the
+    kernels it must launch.  ``ddpm_fused`` / ``ddpm_unfused``: the
+    ``ddpm`` config in bf16, the fused routes on / off; ``refine_x8``:
+    ``upsample_16384`` with cd_t, the intermediate loss on and the output
+    scale ramping 0.01 -> 0.001 over ``steps``; ``refine_x2`` /
+    ``refine_x4``: ``upsample_4096`` / ``upsample_8192`` at their own loss
+    settings; ``denoise``: the ``refine`` config with task ``denoise`` (the
+    input x_gt + noise of scale DENOISE_NOISE); the refine steps take the
+    fused routes; ``pvd`` (float32) and ``pointwise``: their class
+    defaults on the ``ddpm`` schedule."""
+    from types import SimpleNamespace
+
+    from point_diffusion_refinement_tpu_torch import train as tr
+    from point_diffusion_refinement_tpu_torch.config import EXPERIMENTS
+    from point_diffusion_refinement_tpu_torch.train.loop import build_model
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(22)
+    if name not in REFINE_SETUPS:
+        extra, routes, path = {}, {}, ()
+        if name.startswith("ddpm"):
+            pc = EXPERIMENTS["ddpm"]()["pointnet_config"]
+            if name == "ddpm_fused":
+                routes, path = dict(fused_gather=True, fused_sa=True), TRAIN_PATH_KERNELS
+            else:
+                path = ("fps", "knn", "ball_query")
+        else:
+            network = "pvd" if name == "pvd" else "pointwise_net"
+            pc = {"network_type": network, "model_name": name, "network_args": {}}
+            extra = {"condition_features": 4} if name == "pointwise" else {}
+            path = PVD_PATH_KERNELS if name == "pvd" else ()
+        schedule = option_schedule()
+        arrays = training_arrays(TRAIN_BATCH, 2048, seed=40)
+        x0, cond, label = (torch.from_numpy(arrays[k]).to(dev)
+                           for k in ("complete", "partial", "label"))
+        draws = [(torch.randint(0, schedule.T, (TRAIN_BATCH,), generator=gen, device=dev),
+                  torch.randn(x0.shape, generator=gen, device=dev)) for _ in range(steps + 1)]
+        model = build_model(pc, device=dev, seed=0, **extra)
+        maker, kwargs = tr.make_completion_train_step, dict(schedule=schedule, **routes)
+        loss_fn = tr.make_completion_loss(model, schedule.to(dev), **routes)
+        inputs = lambda i: (x0, cond, label, *draws[i])  # noqa: E731
+    else:
+        exp, task = REFINE_SETUPS[name]
+        cfg = EXPERIMENTS[exp]()
+        pc, rc = cfg["pointnet_config"], cfg["refine_config"]
+        factor = int(pc.get("point_upsample_factor", 1))
+        osf_end = float(rc["output_scale_factor"])
+        if name == "refine_x8":
+            loss = dict(cd_loss_type="cd_t", intermediate_loss_weight=1.0)
+            ramp = tr.QuantityScheduler(0, 1, 0.01, osf_end, steps)
+            scale_at = lambda i: ramp.get_quantity(i % steps)  # noqa: E731
+        else:
+            loss = dict(cd_loss_type=rc["cd_loss_type"], intermediate_loss_weight=float(
+                pc.get("intermediate_refined_X_loss_weight", 0.0)) if factor > 1 else 0.0)
+            scale_at = lambda i: osf_end  # noqa: E731
+        arrays = training_arrays(TRAIN_BATCH, int(cfg["mvp_dataset_config"]["npoints"]),
+                                 seed=41)
+        batch = tuple(torch.from_numpy(arrays[k]).to(dev)
+                      for k in ("complete", "partial", "label", "generated"))
+        noise = [DENOISE_NOISE * torch.randn(batch[0].shape, generator=gen, device=dev)
+                 for _ in range(steps + 1)] if task == "denoise" else None
+        osf = torch.zeros((), dtype=torch.float32, device=dev)
+        model = build_model(pc, device=dev, seed=0)
+        kwargs = dict(scale=1.0, point_upsample_factor=factor, task=task,
+                      include_displacement_center=bool(
+                          pc.get("include_displacement_center_to_final_output", False)),
+                      fused_gather=True, fused_sa=True, **loss)
+        maker, loss_fn = tr.make_refine_train_step, tr.make_refine_loss(model, **kwargs)
+        inputs = lambda i: (*batch, osf.fill_(scale_at(i)),  # noqa: E731
+                            *((noise[i],) if noise is not None else ()))
+        path = TRAIN_PATH_KERNELS
+    lr = 2e-4  # the shipped configs' learning_rate
+    state = tr.create_train_state(model, seed=1, learning_rate=lr)
+    return SimpleNamespace(
+        state=state, maker=maker, kwargs=kwargs, loss_fn=loss_fn, inputs=inputs, path=path,
+        lr=lr, make=lambda compiled: maker(model, compiled=compiled, **kwargs))
+
+
+def grads_of(model) -> dict:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+
+
+def unequal_tensors(got: dict, ref: dict) -> dict:
+    """name -> max |got - ref| over max |ref| of every tensor that is not
+    bit-equal."""
+    return {n: float((got[n] - r).abs().max()) / max(float(r.abs().max()), 1e-30)
+            for n, r in ref.items() if not torch.equal(got[n], r)}
+
+
+def where_unequal(unequal: dict) -> str:
+    """The unequal tensors by module (the first two parts of their names),
+    and the six that differ most."""
+    by_module: dict = {}
+    for n in unequal:
+        key = ".".join(n.split(".")[:2])
+        by_module[key] = by_module.get(key, 0) + 1
+    worst = sorted(unequal.items(), key=lambda kv: -kv[1])[:6]
+    return (f"by module {by_module}; largest {[(n, float(f'{v:.3g}')) for n, v in worst]}"
+            if unequal else "none")
+
+
+def order_diagnosis(dev) -> list:
+    """Phase 22 (a): for each DIAGNOSED configuration, two eager steps from
+    one state (after an eager step, so the moments exist; restored in
+    place) on the same draws: the loss and every parameter's gradient
+    compared bit for bit, the tensors that differ printed by module; then
+    the same pair under ``torch.use_deterministic_algorithms(True,
+    warn_only=True)`` (only here), with what PyTorch flags.  Returns the
+    configurations whose pair differed without the flag."""
+    import gc
+    import warnings
+
+    failed = []
+    for name in DIAGNOSED:
+        setup = training_setup(name, dev, 1)
+        state, inputs = setup.state, setup.inputs
+        step = setup.make(False)
+        step(state, *inputs(1))
+        torch.cuda.synchronize()
+        start = snapshot_state(state)
+
+        def once():
+            restore_state(state, start)
+            loss = step(state, *inputs(0))[1]
+            torch.cuda.synchronize()
+            return loss.clone(), grads_of(state.model)
+
+        pair = (once(), once())
+        fill = torch.utils.deterministic.fill_uninitialized_memory
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            # what the flag swaps and flags, without its NaN fill of every
+            # new tensor (the kernels write all they return)
+            torch.utils.deterministic.fill_uninitialized_memory = False
+            try:
+                flagged_pair = (once(), once())
+            finally:
+                torch.use_deterministic_algorithms(False)
+                torch.utils.deterministic.fill_uninitialized_memory = fill
+        flagged = sorted({" ".join(str(w.message).split())[:200] for w in caught})
+        for what, ((la, ga), (lb, gb)) in (("", pair), (
+                " under use_deterministic_algorithms(True, warn_only=True)", flagged_pair)):
+            unequal = unequal_tensors(ga, gb)
+            print(f"order diagnosis {name}{what}: two eager steps from one state, loss_equal="
+                  f"{torch.equal(la, lb)} grads_equal={len(gb) - len(unequal)} of {len(gb)} "
+                  f"tensors; unequal: {where_unequal(unequal)}", flush=True)
+            if not what and (unequal or not torch.equal(la, lb)):
+                failed.append(name)
+        print(f"order diagnosis {name}: flagged by PyTorch: {flagged or 'nothing'}", flush=True)
+        del setup, state, step, start, pair, flagged_pair
+        gc.collect()
+        torch.cuda.empty_cache()
+    return failed
+
+
+def repeat_check(name: str, dev, steps: int = REPEAT_STEPS):
+    """Phase 22 (b) for one configuration (``training_setup``): two eager
+    and two compiled runs of ``steps`` steps from one state (after an eager
+    step, so the moments exist; restored in place) on the same inputs.
+    Checks: every loss, and the parameters, Adam moments and step counts at
+    the end, bit-equal across the four runs; the first step's gradients
+    bit-equal across them; the launch counts compiled equal to eager.
+    Prints host ms a step (ending in ``float(loss)``), and device ms and
+    busy share over SHORT_BUSY_STEPS steps, each way.  Returns (summary, launch
+    counts of a compiled run, failed checks)."""
+    import gc
+
+    from point_diffusion_refinement_tpu_torch import ops
+
+    tag = f"repeat {name}"
+    s = training_setup(name, dev, steps)
+    state, model = s.state, s.state.model
+    steps_of = {"eager": s.make(False), "compiled": s.make(True)}
+    steps_of["eager"](state, *s.inputs(steps))
+    torch.cuda.synchronize()
+    start = snapshot_state(state)
+
+    def run(kind):
+        step = steps_of[kind]
+        restore_state(state, start)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ms, losses, grads = [], [], None
+        for i in range(steps):
+            t0 = time.perf_counter()
+            losses.append(float(step(state, *s.inputs(i))[1]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if i == 0:
+                grads = grads_of(model)
+        torch.cuda.synchronize()
+        return dict(ms=ms, losses=losses, grads=grads, end=end_state(state),
+                    counts=ops.launch_counts())
+
+    def busy(kind):
+        restore_state(state, start)
+        return device_busy(f"{tag} {kind}, {SHORT_BUSY_STEPS} steps", lambda: [
+            steps_of[kind](state, *s.inputs(i)) for i in range(SHORT_BUSY_STEPS)], grad=True,
+            with_ms=True)
+
+    runs = {"eager 1": run("eager"), "eager 2": run("eager")}
+    busy_of = {"eager": busy("eager")}
+    model.zero_grad(set_to_none=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    restore_state(state, start)
+    for _ in range(2):  # the warm-up, the capture
+        steps_of["compiled"](state, *s.inputs(0))
+    runs["compiled 1"] = run("compiled")
+    runs["compiled 2"] = run("compiled")
+    busy_of["compiled"] = busy("compiled")
+    graph_stats(tag, steps_of["compiled"].graphs)
+
+    repeats = runs_equal(runs)
+    ref = runs["eager 1"]["grads"]
+    grads = {k: unequal_tensors(r["grads"], ref) for k, r in runs.items()}
+    for k, r in runs.items():
+        print(f"{tag} {k}: losses={r['losses']} host ms {[round(v, 2) for v in r['ms']]}; "
+              f"against eager 1: run bit-equal={repeats[k]} first-step gradients unequal: "
+              f"{where_unequal(grads[k])}", flush=True)
+    same_launches(tag, runs["compiled 1"]["counts"], runs["eager 1"]["counts"], s.path)
+    summary = dict(repeat=all(repeats.values()), grads_equal=not any(grads.values()),
+                   steps=steps, **{
+                       f"{kind}_ms": float(np.mean(runs[f"{kind} 1"]["ms"]
+                                                   + runs[f"{kind} 2"]["ms"]))
+                       for kind in ("eager", "compiled")},
+                   **{f"{kind}_device_ms": busy_of[kind][1] / SHORT_BUSY_STEPS for kind in busy_of},
+                   **{f"{kind}_busy": busy_of[kind][0] for kind in busy_of})
+    failed = [f"{tag}: {k}" for k, ok in {
+        "two eager and two compiled runs bit-equal (losses; parameters, moments and step "
+        "counts at the end)": summary["repeat"],
+        "the first step's gradients bit-equal across the four runs": summary["grads_equal"],
+        "finite losses": bool(np.isfinite(runs["compiled 1"]["losses"]).all()),
+    }.items() if not ok]
+    counts = runs["compiled 1"]["counts"]
+    steps_of["compiled"].graphs.release()
+    del s, state, model, steps_of, runs, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return summary, counts, failed
+
+
+# the configurations of phase 20 that also run ``scatter_cost``, its turns,
+# and the steps of each turn's timed run
+SCATTER_COST = ("ddpm_fused", "refine_x8")
+SCATTER_COST_TURNS = ("ordered", "atomic", "atomic", "ordered")
+SCATTER_COST_STEPS = 3
+# the port's modules that call ops/scatter.py::group_scatter_add
+SCATTER_CALLERS = ("models.grouping", "ops.ball_group", "ops.sampling", "ops.voxelize")
+
+
+@contextlib.contextmanager
+def scatter_kernel(deterministic: bool):
+    """Inside the context every caller of ``group_scatter_add`` in the port
+    (SCATTER_CALLERS: the grouping backwards, the gathers' backward, the
+    voxel transfers) passes ``deterministic``: the port reaches the atomic
+    kernel B only through that keyword, so a whole step is timed with it by
+    binding the keyword where the callers look the function up."""
+    import functools
+    import importlib
+
+    from point_diffusion_refinement_tpu_torch.ops import scatter
+
+    mods = [importlib.import_module(f"point_diffusion_refinement_tpu_torch.{m}")
+            for m in SCATTER_CALLERS]
+    saved = [m.group_scatter_add for m in mods]
+    bound = functools.partial(scatter.group_scatter_add, deterministic=deterministic)
+    try:
+        for m in mods:
+            m.group_scatter_add = bound
+        yield
+    finally:
+        for m, f in zip(mods, saved):
+            m.group_scatter_add = f
+
+
+def scatter_cost(name: str, s):
+    """Phase 20, after ``compiled_vs_eager`` of ``name`` on the same setup
+    ``s`` (``training_setup``): the compiled step with the ordered
+    scatter-add against the same step with the atomic kernel B
+    (``scatter_kernel`` around each graph's warm-up and capture), in the
+    turns SCATTER_COST_TURNS from one state.  Two graphs of a B=32 step do
+    not fit the card together (a pool holds ~40 GB), so a turn of the other
+    kind releases the graph and captures its own.  A turn: SCATTER_COST_STEPS
+    steps with the host clock around each (ending in ``float(loss)``), then
+    a device window of SHORT_BUSY_STEPS steps.  Checks: each kind launches
+    its kernel and not the other; the ordered turns' losses bit-equal.
+    Returns (the atomic turns' launch counts, the failed checks)."""
+    import gc
+
+    from point_diffusion_refinement_tpu_torch import ops
+
+    tag = f"scatter cost {name}"
+    state = s.state
+    start = snapshot_state(state)
+    host, device, losses, counts = {}, {}, {}, {}
+    step, live = None, None
+    for kind in SCATTER_COST_TURNS:
+        if kind != live:
+            if step is not None:
+                step.graphs.release()
+                state.model.zero_grad(set_to_none=True)
+                gc.collect()
+                torch.cuda.empty_cache()
+            step, live = s.make(True), kind
+            restore_state(state, start)
+            with scatter_kernel(deterministic=kind == "ordered"):
+                for _ in range(2):  # the warm-up, the capture
+                    step(state, *s.inputs(0))
+        restore_state(state, start)
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        ms, turn = [], []
+        for i in range(SCATTER_COST_STEPS):
+            t0 = time.perf_counter()
+            turn.append(float(step(state, *s.inputs(i))[1]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        got = ops.launch_counts()
+        counts[kind] = {k: counts.get(kind, {}).get(k, 0) + v for k, v in got.items()}
+        restore_state(state, start)
+        _, dev_ms = device_busy(
+            f"{tag} compiled, {kind} scatter, {SHORT_BUSY_STEPS} steps",
+            lambda step=step: [step(state, *s.inputs(i)) for i in range(SHORT_BUSY_STEPS)],
+            grad=True, with_ms=True)
+        host.setdefault(kind, []).append(float(np.mean(ms)))
+        device.setdefault(kind, []).append(dev_ms / SHORT_BUSY_STEPS)
+        losses.setdefault(kind, []).append(turn)
+    step.graphs.release()
+    state.model.zero_grad(set_to_none=True)
+    restore_state(state, start)
+
+    def diff(of):
+        o, a = np.mean(of["ordered"]), np.mean(of["atomic"])
+        return f"{o - a:+.2f} ms ({(o - a) / a:+.2%})"
+
+    same = {k: all(v == ls[0] for v in ls) for k, ls in losses.items()}
+    print(f"{tag} B={TRAIN_BATCH} compiled step in turns {'/'.join(SCATTER_COST_TURNS)}: "
+          f"host_ms a step (mean over {SCATTER_COST_STEPS}) " + " ".join(
+              f"{k}={[round(v, 2) for v in host[k]]}" for k in host) + "; device_ms a step " +
+          " ".join(f"{k}={[round(v, 2) for v in device[k]]}" for k in device) +
+          f"; ordered minus atomic: host {diff(host)} device {diff(device)}; the turns' losses "
+          f"bit-equal: ordered {same['ordered']} atomic {same['atomic']}", flush=True)
+    checks = {
+        "the ordered turns launch only the ordered scatter-add":
+            counts["ordered"]["group_scatter_ordered"] > 0
+            and counts["ordered"]["group_scatter_add"] == 0,
+        "the atomic turns launch only kernel B": counts["atomic"]["group_scatter_add"] > 0
+            and counts["atomic"]["group_scatter_ordered"] == 0,
+        "the ordered turns' losses bit-equal": same["ordered"],
+    }
+    del step, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts["atomic"], [f"{tag}: {k}" for k, ok in checks.items() if not ok]
+
+
+def training_repeats(dev, summaries: dict) -> dict:
+    """Phase 22: (a) ``order_diagnosis``; (b) ``repeat_check`` of every
+    REPEATED configuration (phase 20 ran the same checks on ``ddpm_fused``,
+    ``ddpm_unfused`` and ``refine_x8``: their summaries come in
+    ``summaries``); a table of the eight configurations.  Fails after all
+    parts if a check failed.  Returns the launch counts by path."""
+    t0 = time.perf_counter()
+    failed = [f"order diagnosis {n}: two eager steps differ" for n in order_diagnosis(dev)]
+    took = {"a": time.perf_counter() - t0}
+    counts = {}
+    for name in REPEATED:
+        summaries[name], counts[f"repeat_{name}"], bad = repeat_check(name, dev)
+        failed += bad
+    took["b"] = time.perf_counter() - t0 - took["a"]
+    print("phase 22 seconds: " + " ".join(f"({k}) {v:.1f}" for k, v in took.items()),
+          flush=True)
+    print("training steps run to run (B=32, full width; host ms a step ending in float(loss); "
+          f"device ms and busy over {BUSY_STEPS} profiled steps in phase 20, "
+          f"{SHORT_BUSY_STEPS} in phase 22):", flush=True)
+    for name, r in summaries.items():
+        print(f"  {name}: runs bit-equal={r['repeat']} first-step gradients bit-equal="
+              f"{r['grads_equal']} ({r['steps']} steps, 2 eager + 2 compiled) host_ms eager="
+              f"{r['eager_ms']:.2f} compiled={r['compiled_ms']:.2f} device_ms eager="
+              f"{r['eager_device_ms']:.2f} compiled={r['compiled_device_ms']:.2f} busy eager="
+              f"{r['eager_busy']:.3f} compiled={r['compiled_busy']:.3f}", flush=True)
+    if failed:
+        raise AssertionError("phase 22: " + "; ".join(failed))
+    return counts
 
 
 def mesh_step_rank(rank: int, port: int, workdir: str, world: int) -> None:
@@ -4694,9 +5378,12 @@ def main() -> int:
         path_counts["refine_train"], kernel_ms["per_refine_train_step_ms"] = refine_training(
             dev, workdir)
         at("20 compiled training")
-        path_counts.update(compiled_training(dev))
+        repeat_summaries = {}
+        path_counts.update(compiled_training(dev, repeat_summaries))
         at("21 compiled mesh step")
         path_counts.update(compiled_mesh_step(dev))
+        at("22 training run to run")
+        path_counts.update(training_repeats(dev, repeat_summaries))
         at("14 file pipeline")
         path_counts["file_pipeline"] = file_pipeline(dev, workdir, direct)
         at("16 model options")

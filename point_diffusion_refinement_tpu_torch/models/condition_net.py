@@ -52,6 +52,7 @@ import torch.nn as nn
 
 from ..diffusion.schedule import calc_t_emb
 from ..ops.ball_group import ball_group
+from ..ops.sampling import gather_points
 from ..utils.device import DeviceLike, resolve_device
 from .common import ACTIVATIONS, Dense, GroupNorm, swish
 from .model_config import (
@@ -91,14 +92,17 @@ def _nerf_encode(x: torch.Tensor, multires: int) -> torch.Tensor:
 
 
 class Embed(nn.Module):
-    """``nn.Embed``: a (num, features) table looked up by integer labels."""
+    """``nn.Embed``: a (num, features) table looked up by integer labels.
+    The lookup is a ``gather_points`` row gather, so on the card its
+    gradient (labels repeat in a batch) sums in a fixed order."""
 
     def __init__(self, num_embeddings: int, features: int):
         super().__init__()
         self.embedding = nn.Parameter(torch.randn(num_embeddings, features) / features ** 0.5)
 
     def forward(self, ids):
-        return self.embedding[ids.long()]
+        rows = gather_points(self.embedding[None], ids.reshape(1, -1))[0]
+        return rows.reshape(*ids.shape, self.embedding.shape[1])
 
 
 class PointNet2CloudCondition(nn.Module):

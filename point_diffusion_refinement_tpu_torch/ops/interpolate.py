@@ -1,7 +1,8 @@
 """Three-nearest-neighbour interpolation.
 
 Counterpart of the JAX package's ``ops/interpolate.py``; plain PyTorch on top
-of ``knn``.
+of ``knn`` and ``group_points`` (whose backward is the ordered scatter-add on
+the card).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import Tuple
 import torch
 
 from .neighbors import knn
+from .sampling import group_points
 
 
 def three_nn(unknown: torch.Tensor, known: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -23,9 +25,7 @@ def three_nn(unknown: torch.Tensor, known: torch.Tensor) -> Tuple[torch.Tensor, 
 def three_interpolate(features: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """Weighted sum of 3 neighbour features: (B, m, C), (B, n, 3), (B, n, 3)
     -> (B, n, C)."""
-    B = idx.shape[0]
-    bi = torch.arange(B, device=features.device)[:, None, None]
-    g = features[bi, idx.long()]  # (B, n, 3, C)
+    g = group_points(features, idx)  # (B, n, 3, C)
     return (g * weight[..., None]).sum(dim=2)
 
 

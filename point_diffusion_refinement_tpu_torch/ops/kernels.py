@@ -66,6 +66,11 @@ KERNELS = {
         "group_scatter.cu", "pdr_group_scatter_add",
         [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     ),
+    # the same sum in a fixed order (the default of every caller)
+    "group_scatter_ordered": (
+        "group_scatter_ordered.cu", "pdr_group_scatter_ordered",
+        [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+    ),
     # the three sweeps of the fused attention pool
     "attention_stats": (
         "attention_pool.cu", "pdr_attention_stats", [_P] * 7 + [_I] * 8 + [_P],
@@ -95,6 +100,10 @@ QUERIES = {
     "attention_row_blocks": ("attention_pool.cu", "pdr_attention_row_blocks", [_I] * 9),
     # the dynamic shared memory a launch of the fused ball group takes
     "ball_group_smem": ("ball_group.cu", "pdr_ball_group_smem", [_I] * 4),
+    # the int32 workspace of a launch of the ordered scatter-add
+    "group_scatter_ordered_workspace": (
+        "group_scatter_ordered.cu", "pdr_group_scatter_ordered_workspace", [_I] * 4,
+    ),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

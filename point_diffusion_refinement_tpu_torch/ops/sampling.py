@@ -6,7 +6,11 @@ Counterpart of the JAX package's ``ops/sampling.py``.  On GPU tensors
 coordinates, both in ``csrc/fps.cu``; their plain PyTorch version
 (``furthest_point_sample_plain``) runs for CPU tensors and is the reference
 the kernels are held against.  Gathers are plain indexed loads (the TPU's
-one-hot matmul gathers and their hi/lo bf16 splits stay behind).
+one-hot matmul gathers and their hi/lo bf16 splits stay behind); on a GPU
+tensor that needs a gradient, their backward is the ordered scatter-add
+(``ops/scatter.py``) in place of the indexed load's own (an accumulating
+``index_put_``), as for every gather of the training step: its sums repeat
+run to run, as the JAX package's one-hot einsums do.
 
 Quirks reproduced exactly:
   * the first selected index is always 0;
@@ -22,6 +26,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import kernels
+from .scatter import group_scatter_add
 
 PAD_NORM_SQ = 1e-3
 # the kernel keeps a row's points and running minima in registers and an
@@ -46,8 +51,39 @@ FPS_BLOCKS = (
 FPS_MAX_POINTS = 2 ** 18
 
 
+class _OrderedGather(torch.autograd.Function):
+    """``points[b, idx[b, m, k]]``, (B, N, C) x (B, M, K) -> (B, M, K, C),
+    with the ordered scatter-add of the cotangent as its backward: a row's
+    gradient is the sum of its slots' cotangents in slot order, in float32,
+    cast once to the points' dtype.  Differentiable in ``points`` only."""
+
+    @staticmethod
+    def forward(ctx, points, idx):
+        idx = idx.to(torch.int32).contiguous()
+        ctx.save_for_backward(idx)
+        ctx.n_rows = points.shape[1]
+        ctx.dtype = points.dtype
+        bi = torch.arange(points.shape[0], device=points.device)[:, None, None]
+        return points[bi, idx.long()]
+
+    @staticmethod
+    def backward(ctx, d_out):
+        (idx,) = ctx.saved_tensors
+        if d_out.dtype not in (torch.float32, torch.bfloat16):
+            d_out = d_out.to(torch.float32)
+        return group_scatter_add(d_out, idx, ctx.n_rows).to(ctx.dtype), None
+
+
+def _ordered_backward(points: torch.Tensor) -> bool:
+    """Whether a gather of ``points`` takes ``_OrderedGather``: a GPU tensor
+    (outside ``plain_ops()``) whose gradient is being recorded."""
+    return points.requires_grad and torch.is_grad_enabled() and not kernels.use_plain(points)
+
+
 def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, N, C) x (B, M) -> (B, M, C)."""
+    if _ordered_backward(points):
+        return _OrderedGather.apply(points, idx[:, :, None])[:, :, 0]
     B = points.shape[0]
     bi = torch.arange(B, device=points.device)[:, None]
     return points[bi, idx.long()]
@@ -55,6 +91,8 @@ def gather_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """(B, N, C) x (B, M, K) -> (B, M, K, C)."""
+    if _ordered_backward(points):
+        return _OrderedGather.apply(points, idx)
     B = points.shape[0]
     bi = torch.arange(B, device=points.device)[:, None, None]
     return points[bi, idx.long()]

@@ -1,16 +1,21 @@
 """Scatter-add of grouped cotangents into table rows.
 
-The backward of the two grouping kernels (``ops/neighbors.py::
-ball_query_group`` and ``ops/ball_group.py::ball_group``):
-``dtable[b, idx[b, m, k], c] += dg[b, m, k, c]`` over all (m, k), summed in
+The backward of every gather of the training step (``ops/neighbors.py::
+ball_query_group``, ``ops/ball_group.py::ball_group``, ``ops/sampling.py::
+gather_points`` / ``group_points`` and what calls them):
+``out[b, idx[b, m, k], c] += dg[b, m, k, c]`` over all (m, k), summed in
 float32.  The JAX package computes it as an einsum against a (B, M, K, N)
 bf16 one-hot with bf16-rounded cotangents (``models/grouping.py::
-_fused_ball_gather_bwd``, ``ops/windowed_grad.py::_bwd``), a TPU stand-in
-for the atomic scatter-add of the original CUDA code; the port scatters
-directly and does not round the cotangent.  ``group_scatter_add`` launches
-``csrc/group_scatter.cu`` on GPU tensors; its plain version (``index_add_``)
-runs for CPU tensors.  The kernel's atomics land in an order that changes
-from run to run, so its sums vary in the last float32 bits.
+_fused_ball_gather_bwd``, ``ops/windowed_grad.py::_bwd``), whose sums XLA
+takes in a fixed order; the port scatters directly and does not round the
+cotangent.  On GPU tensors ``group_scatter_add`` launches
+``csrc/group_scatter_ordered.cu``, which sums each row's terms in ascending
+slot order from 0.0, the order of the plain version (``index_add_``, serial
+on the CPU), so a run repeats bit for bit and equals the plain version on
+CPU copies.  ``deterministic=False`` takes the atomic kernel B,
+``csrc/group_scatter.cu``, whose sums vary in the last float32 bits from run
+to run: kept to be timed beside the ordered kernel, never a default.  The
+plain version runs for CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,7 +27,7 @@ import torch
 from . import kernels
 
 
-# consecutive balls a thread of the scatter-add kernel takes in turn.  A
+# consecutive balls a thread of the atomic kernel B takes in turn.  A
 # thread carries its run across its balls, so consecutive empty balls (all
 # slots row 0) merge into one atomic: two a thread where the support has at
 # least SCATTER_PAIR_MIN_ROWS rows (the large, sparsely covered levels,
@@ -37,7 +42,7 @@ SCATTER_MIN_THREADS = 1 << 16
 
 
 def scatter_balls_per_thread(balls: int, C: int, n_rows: int) -> int:
-    """Balls a thread of the scatter-add kernel takes, for ``balls`` = B * M
+    """Balls a thread of the atomic kernel B takes, for ``balls`` = B * M
     balls of C channels each, scattered into ``n_rows`` rows."""
     if n_rows >= SCATTER_PAIR_MIN_ROWS and -(-balls // 2) * C >= SCATTER_MIN_THREADS:
         return 2
@@ -49,7 +54,8 @@ def group_scatter_add_plain(
     counts: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain version of ``group_scatter_add``: one ``index_add_`` over the
-    flattened (b, row) index."""
+    flattened (b, row) index (on the CPU a serial loop over the slots, so
+    each row sums its terms in ascending slot order from 0.0)."""
     B, M, K, C = dg.shape
     vals = dg.to(torch.float32)
     if counts is not None:
@@ -62,7 +68,7 @@ def group_scatter_add_plain(
 
 def group_scatter_add(
     dg: torch.Tensor, idx: torch.Tensor, n_rows: int,
-    counts: Optional[torch.Tensor] = None,
+    counts: Optional[torch.Tensor] = None, *, deterministic: bool = True,
 ) -> torch.Tensor:
     """Sum grouped values back into the rows they were gathered from.
 
@@ -72,6 +78,8 @@ def group_scatter_add(
       idx: (B, M, K) int32 row indices in [0, n_rows).
       n_rows: N of the (B, N, C) result.
       counts: optional (B, M) int32; balls with count 0 are skipped.
+      deterministic: the ordered kernel (True) or the atomic kernel B
+        (False) on GPU tensors.
 
     Returns:
       (B, N, C) float32.
@@ -94,8 +102,32 @@ def group_scatter_add(
     if counts is not None:
         counts = counts.contiguous()
         kernels.check(counts, "group_scatter_add counts", torch.int32, (B, M))
+    if deterministic:
+        return _ordered_launch(dg, ld, idx, n_rows, counts)
     return _scatter_launch(dg, ld, idx, n_rows, counts,
                            scatter_balls_per_thread(B * M, C, n_rows))
+
+
+def _ordered_launch(dg, ld, idx, n_rows, counts) -> torch.Tensor:
+    """One launch of ``csrc/group_scatter_ordered.cu`` on checked tensors:
+    the (B, n_rows, C) float32 sum, each row's terms in slot order.  Its
+    workspace (the inverse index) comes from PyTorch's allocator on the
+    current stream, sized from B * M * K and B * n_rows alone."""
+    B, M, K, C = dg.shape
+    if B * n_rows * C == 0:
+        return torch.zeros((B, n_rows, C), dtype=torch.float32, device=dg.device)
+    words = kernels.query("group_scatter_ordered_workspace", B, n_rows, M, K)
+    if words < 0:
+        raise ValueError(f"group_scatter_add: (B, N, M, K) = {(B, n_rows, M, K)} is beyond "
+                         "the ordered kernel's int32 indexing")
+    work = torch.empty(words, dtype=torch.int32, device=dg.device)
+    out = torch.empty((B, n_rows, C), dtype=torch.float32, device=dg.device)
+    kernels.launch(
+        "group_scatter_ordered", dg.data_ptr(), int(dg.dtype == torch.bfloat16), ld,
+        idx.data_ptr(), counts.data_ptr() if counts is not None else None,
+        B, n_rows, M, K, C, work.data_ptr(), out.data_ptr(),
+    )
+    return out
 
 
 def _scatter_launch(dg, ld, idx, n_rows, counts, balls_per_thread: int) -> torch.Tensor:

@@ -19,6 +19,13 @@ The optimizer is one Adam for both routes and both devices: fused (a few
 launches a step where the per-tensor route makes many) and capturable (its
 step count on the parameters' device, which a graph needs).
 
+A step repeats bit for bit run to run, as the JAX package's jitted step
+does: every backward of a gather sums in a fixed order
+(``ops/scatter.py``), and the update runs its ``backward()`` with cuDNN's
+deterministic algorithms (``_ordered_backward``), since cuDNN's default
+ones sum a convolution's weight gradient (PVCNN2's Conv3d) in an order
+that changes from run to run on the card.
+
 The two fused training routes of the network (``fused_gather``,
 ``fused_sa``; see ``models/modules.py``) are keyword arguments of the step
 makers and are off by default, as their environment opt-ins are in the JAX
@@ -121,6 +128,19 @@ def _recording(model, record_stats: bool):
     return collect_neighbor_stats(_unwrap(model)) if record_stats else contextlib.nullcontext()
 
 
+@contextlib.contextmanager
+def _ordered_backward():
+    """cuDNN's deterministic algorithms inside the block (a process-wide
+    flag, restored at its end): the update's ``backward()`` runs in it, and
+    a compiled step's warm-up and capture pick their algorithms there."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
 def _make_update(model, loss_fn: Callable, record_stats: bool) -> Callable:
     """update(optimizer, *inputs) -> loss, or (loss, stats): the loss
     function at ``inputs``, ``backward()`` and one optimizer step.  The
@@ -138,7 +158,8 @@ def _make_update(model, loss_fn: Callable, record_stats: bool) -> Callable:
         out = loss_fn(*inputs)
         loss, stats = out if record_stats else (out, None)
         optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with _ordered_backward():
+            loss.backward()
         if mesh_net is not None:
             mesh_net.reduce_gradients()
         with warnings.catch_warnings():

@@ -8,9 +8,12 @@ JAX nor the JAX package, so it runs on a GPU machine without them:
 Indices, counts, coordinates, kNN distances and grouped bf16 values must
 be equal: kernel and plain version compute the same separately rounded
 float32 distances and round the same float32 values to bf16.  The
-scatter-add kernel sums float32 with atomics, in an order that changes from
-run to run: it is held to SCATTER_TOL of the largest row sum (the new
-cases: of each element's own sum of magnitudes).  The attention
+ordered scatter-add (``group_scatter_add``'s default) sums each row in
+slot order, as its plain version does on the CPU: two launches are
+bit-equal and equal the plain version on CPU copies.  The atomic kernel B
+(``deterministic=False``) sums float32 with atomics, in an order that
+changes from run to run: it is held to SCATTER_TOL of the largest row sum
+(the new cases: of each element's own sum of magnitudes).  The attention
 sweeps repeat their plain versions' rounding points but add their float32
 products in another order: statistics are held to STATS_TOL, the pooled
 output to ATTENTION_TOL (a bf16 rounding that flips moves one term by 2^-8).
@@ -489,7 +492,7 @@ def test_ball_query_group_unaligned_table(dev):
 
 def _scatter_agrees(dg, idx, N, counts=None, balls_per_thread=None):
     if balls_per_thread is None:
-        out = ops.group_scatter_add(dg, idx, N, counts)
+        out = ops.group_scatter_add(dg, idx, N, counts, deterministic=False)
     else:
         out = scatter._scatter_launch(dg, dg.stride(2), idx, N, counts, balls_per_thread)
     ref = ops.group_scatter_add_plain(dg, idx, N, counts)
@@ -544,7 +547,7 @@ def test_group_scatter_add_all_empty(dev, dtype):
     idx = torch.zeros(B, M, K, dtype=torch.int32, device=dev)
     counts = torch.zeros(B, M, dtype=torch.int32, device=dev)
     dg = torch.randn(B, M, K, C, device=dev).to(dtype)
-    assert not ops.group_scatter_add(dg, idx, N, counts).any()
+    assert not ops.group_scatter_add(dg, idx, N, counts, deterministic=False).any()
     for bpt in (None, 1, 8):
         _scatter_agrees(dg, idx, N, None, bpt)
         if bpt is not None:
@@ -561,10 +564,97 @@ def test_group_scatter_add(dev, dtype, masked):
     idx, counts = ops.ball_query(x, c, 0.3, K)
     wide = torch.randn(B, M, K, C + 9, device=dev).to(dtype)
     for dg in (wide[..., :C], wide[..., :C].contiguous(), wide[..., C:C + 3]):
-        out = ops.group_scatter_add(dg, idx, N, counts if masked else None)
+        out = ops.group_scatter_add(dg, idx, N, counts if masked else None,
+                                    deterministic=False)
         ref = ops.group_scatter_add_plain(dg, idx, N, counts if masked else None)
         assert out.dtype == torch.float32 and out.shape == (B, N, dg.shape[-1])
         assert float((out - ref).abs().max()) <= SCATTER_TOL * float(ref.abs().max())
+
+
+def _ordered_agrees(dg, idx, N, counts=None):
+    """Two launches of the ordered scatter-add bit-equal, and equal to the
+    plain version run on CPU copies."""
+    out = ops.group_scatter_add(dg, idx, N, counts)
+    again = ops.group_scatter_add(dg, idx, N, counts, deterministic=True)
+    ref = ops.group_scatter_add_plain(dg.cpu(), idx.cpu(), N,
+                                      None if counts is None else counts.cpu())
+    assert out.dtype == torch.float32 and out.shape == (dg.shape[0], N, dg.shape[-1])
+    assert torch.equal(out, again)
+    assert torch.equal(out.cpu(), ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masked", [False, True])
+def test_group_scatter_ordered_ft0(dev, dtype, masked):
+    """The level-0 feature transfer at B = 4 (support 3072, 2048 balls,
+    K = 32, 35 channels, most balls empty): a float32 cotangent and a bf16
+    slice of a wider row."""
+    rng = np.random.default_rng(60)
+    B, N, M, K, C = 4, 3072, 2048, 32, 35
+    sup = _cloud(rng, B, N, 3, lo=-0.5, hi=0.5).to(dev)
+    q = torch.from_numpy(rng.standard_normal((B, M, 3)).astype(np.float32)).to(dev)
+    idx, counts = ops.ball_query(sup, q, 0.1, K)
+    dg = torch.randn(B, M, K, C, device=dev).to(dtype)
+    wide = torch.randn(B, M, K, C + 9, device=dev).to(dtype)
+    for d in (dg, wide[..., :C], wide[..., 4:4 + C]):
+        _ordered_agrees(d, idx, N, counts if masked else None)
+
+
+@pytest.mark.parametrize("case", ["every_slot_one_row", "few_rows", "hot_spots", "wide"])
+def test_group_scatter_ordered_lists(dev, case):
+    """Lists of every length: one row taking every slot of its batch row
+    (32768 ids: the long path), lists of a few hundred (sorted in shared
+    memory), chamfer's K = 1 re-gather with hot spots, 300 channels (two
+    channel passes of a long sum), with and without empty balls skipped."""
+    rng = np.random.default_rng(61)
+    B, M, K = 2, 1024, 32
+    if case == "every_slot_one_row":
+        N, C = 300, 35
+        idx = torch.zeros(B, M, K, dtype=torch.int32)
+    elif case == "few_rows":
+        N, C = 8, 3
+        idx = torch.from_numpy(rng.integers(0, N, (B, M, K)).astype(np.int32))
+    elif case == "hot_spots":
+        B, M, K, N, C = 4, 16384, 1, 16384, 3
+        idx = torch.from_numpy(rng.integers(0, N, (B, M, K)).astype(np.int32))
+        idx[:, : M // 2] = torch.from_numpy(rng.integers(0, 40, (B, M // 2, K)).astype(np.int32))
+        idx[:, ::3] = 5
+    else:
+        N, C = 64, 300
+        idx = torch.from_numpy(rng.integers(0, N, (B, M, K)).astype(np.int32))
+        idx[:, :300] = 1
+    counts = torch.from_numpy(rng.integers(0, 3, (B, M)).astype(np.int32))
+    idx, counts = idx.to(dev), counts.to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        dg = torch.randn(B, M, K, C, device=dev).to(dtype)
+        _ordered_agrees(dg, idx, N)
+        _ordered_agrees(dg, idx, N, counts)
+
+
+@pytest.mark.parametrize("kind", ["gather", "group"])
+def test_ordered_gather_backward(dev, kind):
+    """``gather_points`` / ``group_points`` on a CUDA tensor that needs a
+    gradient: the indexed load forward, the ordered scatter-add backward,
+    bit-equal run to run and to the same Function on CPU copies."""
+    rng = np.random.default_rng(62)
+    pts = torch.from_numpy(rng.standard_normal((3, 500, 33)).astype(np.float32))
+    shape = (3, 4000) if kind == "gather" else (3, 700, 16)
+    idx = torch.from_numpy(rng.integers(0, 500, shape).astype(np.int32))
+    idx[:, :200] = 7
+    fn = sampling.gather_points if kind == "gather" else sampling.group_points
+    w = torch.randn(shape + (33,))
+
+    def grad(device, fused_fn):
+        p = pts.to(device).requires_grad_()
+        (g,) = torch.autograd.grad((fused_fn(p, idx.to(device)) * w.to(device)).sum(), p)
+        return g
+
+    on_cpu = grad("cpu", lambda p, i: sampling._OrderedGather.apply(
+        p, i[:, :, None])[:, :, 0] if kind == "gather" else sampling._OrderedGather.apply(p, i))
+    ops.reset_launch_counts()
+    a, b = grad(dev, fn), grad(dev, fn)
+    assert ops.launch_counts()["group_scatter_ordered"] == 2
+    assert torch.equal(a, b) and torch.equal(a.cpu(), on_cpu)
 
 
 @pytest.mark.parametrize("mode", ["center_zero", "row0"])
@@ -753,6 +843,7 @@ def test_launch_counts(dev):
     ops.ball_group(x, [x, x], x, 0.2, 8)
     _, i, _ = ops.ball_query_group(x, x, x, 0.2, 8)
     ops.group_scatter_add(torch.ones(1, 64, 8, 3, device=dev), i, 64)
+    ops.group_scatter_add(torch.ones(1, 64, 8, 3, device=dev), i, 64, deterministic=False)
     ops.knn_group(x, x, x, 4)
     pool, feat, grouped, gfo, _ = _attention_site(dev, 14, 1, 16, 8, 8, 12, 32, 32, False)
     with torch.no_grad():
@@ -766,7 +857,8 @@ def test_launch_counts(dev):
             pool(feat, grouped, gfo, "all", fused=True)
     assert ops.launch_counts() == {"fps": 1, "fps_idx": 1, "ball_query": 1, "knn": 1,
                                    "ball_group": 1, "ball_query_group": 1,
-                                   "group_scatter_add": 1, "knn_group": 1,
+                                   "group_scatter_add": 1, "group_scatter_ordered": 1,
+                                   "knn_group": 1,
                                    "attention_stats": 1, "attention_hstats": 1,
                                    "attention_out": 1, "attention_finish_stats": 1,
                                    "attention_finish_h": 1}

@@ -461,7 +461,7 @@ def test_mesh_step_holds_one_graph_on_card(dev):
         losses, _ = _card_steps(step, state, dev)
         assert step.graphs.num_graphs == 1
         launches = step.graphs.stats()[0]["launches"]
-        assert launches["group_scatter_add"] > 0 and launches["ball_query_group"] > 0
+        assert launches["group_scatter_ordered"] > 0 and launches["ball_query_group"] > 0
         assert all(bool(torch.isfinite(v)) for v in losses)
     finally:
         torch.distributed.destroy_process_group()
