@@ -512,7 +512,7 @@ TRAIN_PATH_KERNELS = ("ball_query_group", "group_scatter_ordered", "ball_group",
 # the profiler's names of the kernels whose device time a denoise step, a
 # pipeline and a training step is reported (fps_reg_kernel<kCoords, threads,
 # per> and the workspace path's fps_global_kernel<kCoords>;
-# group_scatter_add_kernel<float> and <__nv_bfloat16>; the nine
+# group_scatter_add_kernel<float> and <__nv_bfloat16>; the four
 # scatter_ordered_* kernels of one group_scatter_ordered launch)
 PROFILED_KERNELS = {
     "fps": ("fps_reg_kernel<true", "fps_global_kernel<true"),
@@ -694,6 +694,52 @@ def launch_breakdown(fn, calls: int = 10) -> str:
              e.self_device_time_total / 1e3 / calls)
             for e in prof.key_averages() if e.self_device_time_total > 0]
     return " ".join(f"{k}={v:.4f}" for k, v in sorted(rows, key=lambda kv: -kv[1]))
+
+
+# kernels and memsets a call of the ordered scatter-add starts (count, scan,
+# fill, sum and the memset of the counts), at every shape
+ORDERED_LAUNCHES = 5
+# the node types of a CUDA graph (CUgraphNodeType) that launch device work
+GRAPH_NODE_KINDS = {0: "kernel", 1: "memcpy", 2: "memset"}
+
+
+def graph_launches(fn) -> dict:
+    """The device work one call of ``fn`` starts, counted exactly: the call
+    (after a warm-up) is captured in a CUDA graph, and the graph's nodes
+    are counted by type through libcuda (``cuGraphGetNodes``), which drops
+    nothing, as the profiler's records may."""
+    import ctypes
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    if cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * n.value)()
+    if n.value and cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) != 0:
+        raise RuntimeError("cuGraphGetNodes failed")
+    kinds: dict = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        if cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) != 0:
+            raise RuntimeError("cuGraphNodeGetType failed")
+        name = GRAPH_NODE_KINDS.get(kind.value, f"type {kind.value}")
+        kinds[name] = kinds.get(name, 0) + 1
+    graph.reset()
+    return kinds
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    return smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a"
 
 
 def ball_query_row(sup, q, r: float, K: int, name: str) -> dict:
@@ -986,7 +1032,8 @@ def check_fps_idx(dev, rng, pick_floor_ms: float):
 ROW_EXTRAS = ("latency_floor_ms", "wrapper_ms", "scan_ms", "mean_count", "ms_bf16_slice",
               "bound_ms_bf16_slice", "ms_b32", "wrapper_ms_b32", "bound_ms_b32",
               "ms_bf16_slice_b32", "library_ms_b32", "ms_chamfer", "bound_ms_chamfer",
-              "library_ms_chamfer", "atomic_ms", "atomic_ms_b32", "atomic_ms_chamfer")
+              "library_ms_chamfer", "atomic_ms", "atomic_ms_b32", "atomic_ms_chamfer",
+              "launches_a_call", "ms_pair", "ms_two_singles")
 
 
 def print_row(r) -> None:
@@ -2092,14 +2139,22 @@ def ordered_scatter_row(dev, gen, idx4, cnt4, idx32, N: int, M: int, K: int, C: 
     refine step (B=32, the nearest of 16384 points among 16384 that are
     eight jittered copies of a 2048-point cloud, K=1, C=3).  Each: two
     launches bit-equal and equal to the plain version run on CPU copies,
-    bit for bit.  Times: the profiler's device ms of a call (every launch
-    of it), beside the atomic kernel B, the plain version on the card, and
-    ``index_put_(accumulate=True)`` under ``use_deterministic_algorithms``
-    (library_ms, the one PyTorch call that sums the same deterministically);
-    bound_ms: the bytes of dg, idx and the result at 3.35 TB/s (what the
-    function moves; the kernel's own inverse index is not counted)."""
+    bit for bit; at B=4 also the two-table form (the bf16 slice and float32
+    positions, as ``ball_group_train``'s backward passes them: one launch,
+    each result equal to its single call and to the plain version) and a
+    captured graph of it replayed on new cotangents.  Launches a call: the
+    kernel and memset nodes of a CUDA graph of one call (graph_launches),
+    ORDERED_LAUNCHES at each of the four shapes.  Times: the profiler's
+    device ms of a call (every launch of it), by kernel at FT0 B=32 and
+    chamfer's shape, beside the atomic kernel B,
+    the plain version on the card, and ``index_put_(accumulate=True)``
+    under ``use_deterministic_algorithms`` (library_ms, the one PyTorch call
+    that sums the same deterministically); bound_ms: the bytes of dg, idx
+    and the result at 3.35 TB/s (what the function moves; the kernel's own
+    inverse index and partials are not counted)."""
     from point_diffusion_refinement_tpu_torch import ops
     from point_diffusion_refinement_tpu_torch.ops.chamfer import nn_sqdist
+    from point_diffusion_refinement_tpu_torch.utils.graphs import CapturedFunction
 
     def agree(what, dg, ix, n_rows, counts=None):
         out = ops.group_scatter_add(dg, ix, n_rows, counts)
@@ -2108,12 +2163,17 @@ def ordered_scatter_row(dev, gen, idx4, cnt4, idx32, N: int, M: int, K: int, C: 
                                           None if counts is None else counts.cpu())
         torch.cuda.synchronize()
         err = float((out.cpu() - ref).abs().max())
-        lists = torch.bincount((ix.long() + torch.arange(ix.shape[0], device=dev)[:, None, None]
-                                * n_rows).reshape(-1), minlength=ix.shape[0] * n_rows)
+        flat = (ix.long() + torch.arange(ix.shape[0], device=dev)[:, None, None]
+                * n_rows).reshape(-1)
+        lists = torch.bincount(flat, minlength=ix.shape[0] * n_rows)
+        starts = torch.ones_like(ix, dtype=torch.bool)
+        starts[..., 1:] = ix[..., 1:] != ix[..., :-1]
+        runs = torch.bincount(flat[starts.reshape(-1)], minlength=ix.shape[0] * n_rows)
         print(f"group_scatter_ordered {what}: two launches equal={torch.equal(out, again)} "
               f"equal to plain on CPU copies={err == 0.0} max_abs_err={err:.3g} (longest "
-              f"list {int(lists.max())}, lists over 32: {int((lists > 32).sum())}, over "
-              f"8192: {int((lists > 8192).sum())})", flush=True)
+              f"list {int(lists.max())} slots in {int(runs.max())} runs; lists over 32 runs: "
+              f"{int((runs > 32).sum())}, runs in all {int(runs.sum())} of {ix.numel()} slots)",
+              flush=True)
         if not (torch.equal(out, again) and err == 0.0):
             raise AssertionError(f"group_scatter_ordered {what}: not bit-equal")
         return out, err
@@ -2131,6 +2191,17 @@ def ordered_scatter_row(dev, gen, idx4, cnt4, idx32, N: int, M: int, K: int, C: 
             torch.use_deterministic_algorithms(False)
         return ms, equal
 
+    def launches_of(what, fn, breakdown=False):
+        nodes = graph_launches(fn)
+        n = nodes.get("kernel", 0) + nodes.get("memset", 0)
+        text = f"device ms a call by kernel: {launch_breakdown(fn)}; " if breakdown else ""
+        print(f"group_scatter_ordered {what}: {text}launches a call: {n} (a graph of one call: "
+              f"{nodes})", flush=True)
+        if n != ORDERED_LAUNCHES or set(nodes) - {"kernel", "memset"}:
+            raise AssertionError(f"group_scatter_ordered {what}: {nodes} in a call, not "
+                                 f"{ORDERED_LAUNCHES} kernels and memsets")
+        return n
+
     wide = torch.randn(4, M, K, C + 9, generator=gen, device=dev).to(torch.bfloat16)
     dg = torch.randn(4, M, K, C, generator=gen, device=dev)
     worst = 0.0
@@ -2144,25 +2215,64 @@ def ordered_scatter_row(dev, gen, idx4, cnt4, idx32, N: int, M: int, K: int, C: 
                max_abs_err=worst)
     run = lambda: ops.group_scatter_add(dg, idx4, N)  # noqa: E731
     row["ms"], row["wrapper_ms"] = window_device_ms(run), time_ms(run, 20)
-    row["ms_bf16_slice"] = window_device_ms(lambda: ops.group_scatter_add(wide[..., :C], idx4, N))
+    launches_of("FT0 B=4 float32", run)
+    run_sl = lambda: ops.group_scatter_add(wide[..., :C], idx4, N)  # noqa: E731
+    row["ms_bf16_slice"] = window_device_ms(run_sl)
+    launches_of("FT0 B=4 bf16 slice", run_sl)
     row["atomic_ms"] = device_ms(lambda: ops.group_scatter_add(dg, idx4, N, deterministic=False),
                                  "group_scatter_add")
     row["plain_ms"] = time_ms(lambda: ops.group_scatter_add_plain(dg, idx4, N), 5)
     row["library_ms"], lib_equal = library_ms(dg, idx4, N, out4)
     row["bound_ms"], row["bound_by"] = bound(
         nbytes(dg, idx4) + out4.numel() * 4, float(dg.numel()))
-    del wide, out4
+
+    # the two-table form (features and positions of one gather) and its replay
+    pos = torch.randn(4, M, K, 3, generator=gen, device=dev)
+    for counts in (None, cnt4):
+        ops.reset_launch_counts()
+        pair = ops.group_scatter_add_pair(wide[..., :C], pos, idx4, N, counts)
+        launched = ops.launch_counts()["group_scatter_ordered"]
+        singles = [ops.group_scatter_add(d, idx4, N, counts) for d in (wide[..., :C], pos)]
+        refs = [ops.group_scatter_add_plain(d.cpu(), idx4.cpu(), N,
+                                            None if counts is None else counts.cpu())
+                for d in (wide[..., :C], pos)]
+        ok = (launched == 1 and all(torch.equal(a, b) for a, b in zip(pair, singles))
+              and all(torch.equal(a.cpu(), b) for a, b in zip(pair, refs)))
+        print(f"group_scatter_ordered pair FT0 B=4 (bf16 slice of {C}, float32 positions of 3)"
+              f"{' counts' if counts is not None else ''}: launches={launched} equal to the "
+              f"single calls and to plain on CPU copies={ok}", flush=True)
+        if not ok:
+            raise AssertionError("group_scatter_ordered pair: not bit-equal or not one launch")
+    row["ms_pair"] = window_device_ms(
+        lambda: ops.group_scatter_add_pair(wide[..., :C], pos, idx4, N, cnt4))
+    row["ms_two_singles"] = window_device_ms(lambda: [
+        ops.group_scatter_add(d, idx4, N, cnt4) for d in (wide[..., :C], pos)])
+    graphed = CapturedFunction(lambda a, b, i, n: ops.group_scatter_add_pair(a, b, i, N, n))
+    replays = []
+    for step in range(4):  # the warm-up, the capture, two replays on new cotangents
+        a = torch.randn(wide.shape, generator=gen, device=dev).to(torch.bfloat16)[..., :C]
+        b = torch.randn(pos.shape, generator=gen, device=dev)
+        got = graphed(a, b, idx4, cnt4)
+        want = ops.group_scatter_add_pair(a, b, idx4, N, cnt4)
+        replays.append(all(torch.equal(x, y) for x, y in zip(got, want)))
+    print(f"group_scatter_ordered pair in a captured graph: replays equal to eager={replays} "
+          f"graph launches={graphed.stats()[0]['launches']}; pair ms={row['ms_pair']:.4f} "
+          f"against two single calls {row['ms_two_singles']:.4f}", flush=True)
+    graphed.release()
+    if not all(replays):
+        raise AssertionError("group_scatter_ordered pair: a replay differs from eager")
+    del wide, out4, pos, graphed
 
     dg = torch.randn(TRAIN_BATCH, M, K, C, generator=gen, device=dev)
     out32, _ = agree("FT0 B=32 float32", dg, idx32, N)
     run = lambda: ops.group_scatter_add(dg, idx32, N)  # noqa: E731
     row["ms_b32"], row["wrapper_ms_b32"] = window_device_ms(run, 10), time_ms(run, 10)
+    launches_of("FT0 B=32 float32", run, breakdown=True)
     row["atomic_ms_b32"] = device_ms(
         lambda: ops.group_scatter_add(dg, idx32, N, deterministic=False), "group_scatter_add")
     row["library_ms_b32"], lib32_equal = library_ms(dg, idx32, N, out32)
     row["bound_ms_b32"] = bound(nbytes(dg, idx32) + out32.numel() * 4, float(dg.numel()))[0]
-    dg32 = dg
-    del out32
+    del dg, out32
 
     arrays = training_arrays(TRAIN_BATCH, 16384, seed=41)
     gt = torch.from_numpy(arrays["complete"]).to(dev)
@@ -2174,18 +2284,16 @@ def ordered_scatter_row(dev, gen, idx4, cnt4, idx32, N: int, M: int, K: int, C: 
     n_rows = refined.shape[1]
     dg = torch.randn(TRAIN_BATCH, gt.shape[1], 1, 3, generator=gen, device=dev)
     outc, _ = agree("chamfer (32,16384) into 16384, K=1, C=3", dg, ix, n_rows)
-    row["ms_chamfer"] = window_device_ms(lambda: ops.group_scatter_add(dg, ix, n_rows), 10)
+    run = lambda: ops.group_scatter_add(dg, ix, n_rows)  # noqa: E731
+    row["ms_chamfer"] = window_device_ms(run, 10)
+    row["launches_a_call"] = launches_of("chamfer", run, breakdown=True)
     row["atomic_ms_chamfer"] = device_ms(
         lambda: ops.group_scatter_add(dg, ix, n_rows, deterministic=False), "group_scatter_add")
     row["library_ms_chamfer"], libc_equal = library_ms(dg, ix, n_rows, outc)
     row["bound_ms_chamfer"] = bound(nbytes(dg, ix) + outc.numel() * 4, float(dg.numel()))[0]
     print(f"group_scatter_ordered: the deterministic index_put_ equal to it bit for bit: FT0 B=4 "
           f"{lib_equal}, B=32 {lib32_equal}, chamfer {libc_equal}", flush=True)
-    for what, fn in (("FT0 B=32", lambda: ops.group_scatter_add(dg32, idx32, N)),
-                     ("chamfer", lambda: ops.group_scatter_add(dg, ix, n_rows))):
-        print(f"group_scatter_ordered {what} device ms a call by kernel: "
-              f"{launch_breakdown(fn)}", flush=True)
-    del dg, dg32, outc, gt, coarse, refined, nn_idx, ix
+    del dg, outc, gt, coarse, refined, nn_idx, ix
     return row
 
 
@@ -2340,11 +2448,12 @@ def launch_shapes(step, batch: int) -> None:
     one training step, by spies on their wrappers (as
     check_denoise_ball_queries does): (B, N, M, K, C) of #8 and (B, N, M, K,
     C, dtype, ld, masked) of the scatter-add (the ordered kernel, from the
-    grouping backwards and the gathers' backward), the launches of each, and
-    the profiler's device ms a launch, replayed on copies of the tensors the
+    grouping backwards and the gathers' backward; a two-table launch of the
+    fused ball group's backward as "C+C2"), the launches of each, and the
+    profiler's device ms a launch, replayed on copies of the tensors the
     step gave it (a channel slice keeps its row stride); each scatter-add
-    shape also through the atomic kernel B.  The spies must see every launch
-    of the step."""
+    shape also through the atomic kernel B (a launch a table).  The spies
+    must see every launch of the step."""
     import importlib
 
     from point_diffusion_refinement_tpu_torch import ops
@@ -2354,37 +2463,66 @@ def launch_shapes(step, batch: int) -> None:
     # the module, not the function that ops re-exports under its name
     ball_group_mod = importlib.import_module("point_diffusion_refinement_tpu_torch.ops.ball_group")
 
-    seen = {}  # (kernel, shape) -> [launches, replay]
+    seen = {}  # (kernel, shape) -> [launches, replay, atomic replays, bytes moved]
     gather, scatter_add = neighbors.ball_query_group, scatter.group_scatter_add
+    scatter_pair = scatter.group_scatter_add_pair
+
+    def copy_of(dg):
+        """A copy of ``dg`` with its row stride (a channel slice stays one)."""
+        B, M, K, C = dg.shape
+        ld = dg.stride(2)
+        off = dg.storage_offset() % ld
+        d = torch.empty(B, M, K, ld, dtype=dg.dtype, device=dg.device)[..., off:off + C]
+        d.copy_(dg)
+        return d
+
+    def moved(dgs, n_rows, counts):  # the tables' values, idx, the counts, the results
+        B, M, K, _ = dgs[0].shape
+        return (sum(d.numel() * d.element_size() + B * n_rows * d.shape[-1] * 4 for d in dgs)
+                + B * M * K * 4 + (B * M * 4 if counts is not None else 0))
 
     def gather_spy(xyz, new_xyz, table, radius, nsample):
         key = ("ball_query_group",
                (xyz.shape[0], xyz.shape[1], new_xyz.shape[1], int(nsample), table.shape[-1]))
         if key not in seen:
             a, b, t = xyz.clone(), new_xyz.clone(), table.clone()
-            seen[key] = [0, lambda: gather(a, b, t, radius, nsample), None]
+            seen[key] = [0, lambda: gather(a, b, t, radius, nsample), None, None]
         seen[key][0] += 1
         return gather(xyz, new_xyz, table, radius, nsample)
 
     def scatter_spy(dg, idx, n_rows, counts=None):
         B, M, K, C = dg.shape
-        ld = dg.stride(2)
-        key = ("group_scatter_ordered", (B, n_rows, M, K, C, str(dg.dtype).split(".")[-1], ld,
-                                         counts is not None))
+        key = ("group_scatter_ordered", (B, n_rows, M, K, C, str(dg.dtype).split(".")[-1],
+                                         dg.stride(2), counts is not None))
         if key not in seen:
-            off = dg.storage_offset() % ld
-            wide = torch.empty(B, M, K, ld, dtype=dg.dtype, device=dg.device)
-            d = wide[..., off:off + C]
-            d.copy_(dg)
+            d = copy_of(dg)
             i, n = idx.clone(), counts.clone() if counts is not None else None
             seen[key] = [0, lambda: scatter_add(d, i, n_rows, n),
-                         lambda: scatter_add(d, i, n_rows, n, deterministic=False)]
+                         [lambda: scatter_add(d, i, n_rows, n, deterministic=False)],
+                         moved([dg], n_rows, counts)]
         seen[key][0] += 1
         return scatter_add(dg, idx, n_rows, counts)
+
+    def pair_spy(dg, dg2, idx, n_rows, counts=None):
+        B, M, K, C = dg.shape
+        key = ("group_scatter_ordered", (
+            B, n_rows, M, K, f"{C}+{dg2.shape[-1]}",
+            "+".join(str(d.dtype).split(".")[-1] for d in (dg, dg2)),
+            f"{dg.stride(2)}+{dg2.stride(2)}", counts is not None))
+        if key not in seen:
+            d, d2 = copy_of(dg), copy_of(dg2)
+            i, n = idx.clone(), counts.clone() if counts is not None else None
+            seen[key] = [0, lambda: scatter_pair(d, d2, i, n_rows, n),
+                         [lambda x=x: scatter_add(x, i, n_rows, n, deterministic=False)
+                          for x in (d, d2)],
+                         moved([dg, dg2], n_rows, counts)]
+        seen[key][0] += 1
+        return scatter_pair(dg, dg2, idx, n_rows, counts)
 
     spots = ((grouping, "ball_query_group", gather_spy),
              (grouping, "group_scatter_add", scatter_spy),
              (ball_group_mod, "group_scatter_add", scatter_spy),
+             (ball_group_mod, "group_scatter_add_pair", pair_spy),
              (sampling, "group_scatter_add", scatter_spy))
     saved = [getattr(mod, name) for mod, name, _ in spots]
     ops.reset_launch_counts()
@@ -2398,22 +2536,21 @@ def launch_shapes(step, batch: int) -> None:
             setattr(mod, name, orig)
     counts = ops.launch_counts()
     total, bounds = {}, {}
-    for (kernel, shape), (n, replay, atomic_replay) in sorted(seen.items()):
+    for (kernel, shape), (n, replay, atomic_replays, bytes_moved) in sorted(
+            seen.items(), key=lambda kv: (kv[0][0], str(kv[0][1]))):
         atomic = ""
         if kernel == "ball_query_group":  # inputs, gathered rows, idx, counts
             ms = device_ms(replay, kernel, iters=10)
             B, N, M, K, C = shape
-            moved = B * N * (3 + C) * 4 + B * M * 3 * 4 + B * M * K * (C + 1) * 4 + B * M * 4
-        else:  # the slice's values, idx, the counts, the result
+            bytes_moved = (B * N * (3 + C) * 4 + B * M * 3 * 4 + B * M * K * (C + 1) * 4
+                           + B * M * 4)
+        else:
             ms = window_device_ms(replay, 10)
-            B, N, M, K, C, dtype, _, masked = shape
-            moved = (B * M * K * (C * (2 if dtype == "bfloat16" else 4) + 4) + B * N * C * 4
-                     + (B * M * 4 if masked else 0))
-            atomic_ms = device_ms(atomic_replay, "group_scatter_add", iters=10)
+            atomic_ms = sum(device_ms(f, "group_scatter_add", iters=10) for f in atomic_replays)
             total["group_scatter_add (atomic B)"] = (total.get("group_scatter_add (atomic B)", 0.0)
                                                      + n * atomic_ms)
             atomic = f" atomic_B_device_ms={atomic_ms:.4f}"
-        b_ms, _ = bound(moved, 0.0)
+        b_ms, _ = bound(bytes_moved, 0.0)
         total[kernel] = total.get(kernel, 0.0) + n * ms
         bounds[kernel] = bounds.get(kernel, 0.0) + n * b_ms
         print(f"train step launch shape: {kernel} {shape} launches={n} device_ms={ms:.4f} "
@@ -3890,10 +4027,20 @@ def device_busy(what: str, fn, grad: bool = False, with_ms: bool = False):
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    dev_ms = sum(e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == DeviceType.CUDA) / 1e3
+    # the profiler's raw device records: parsing a window of two B=32 PVD
+    # steps into events took 0.96-1.15 s, summing its raw records 0.05-0.08
+    # s, to the same device time (tools/time_ordered_scatter.py, NVIDIA H100
+    # 80GB HBM3)
+    events = [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    dev_ms = sum(us for _, us in events) / 1e3
+    # the ordered scatter-add's kernels in the window (its share of a step)
+    ordered = [us for name, us in events
+               if any(k in name for k in PROFILED_KERNELS["group_scatter_ordered"])]
+    share = (f" scatter_ordered_device_ms={sum(ordered) / 1e3:.4f} ({len(ordered)} kernels)"
+             if ordered else "")
     print(f"profile: {what}, wall_ms={wall_ms:.2f} (profiled) device_ms={dev_ms:.2f} "
-          f"device_busy={dev_ms / wall_ms:.3f}", flush=True)
+          f"device_busy={dev_ms / wall_ms:.3f}{share}", flush=True)
     return (dev_ms / wall_ms, dev_ms) if with_ms else dev_ms / wall_ms
 
 
@@ -4072,8 +4219,8 @@ COMPILED_STEPS = 10  # steps of each kind from one state
 # steps of each device-busy window of phases 20 and 21
 BUSY_STEPS = 3
 # ... of phase 22 (b) and of the scatter-cost turns: one, as parsing a
-# window's trace (some 15k kernels a training step) took ~6 s a window of
-# three steps on the card
+# window's trace into events (some 15k kernels a training step) took ~6 s
+# a window of three steps on the card (device_busy now sums the raw records)
 SHORT_BUSY_STEPS = 1
 # the losses of COMPILED_STEPS compiled steps against COMPILED_STEPS eager
 # ones from the same state, relative; and the loss a planted fault must
@@ -4912,8 +5059,10 @@ def repeat_check(name: str, dev, steps: int = REPEAT_STEPS):
 SCATTER_COST = ("ddpm_fused", "refine_x8")
 SCATTER_COST_TURNS = ("ordered", "atomic", "atomic", "ordered")
 SCATTER_COST_STEPS = 3
-# the port's modules that call ops/scatter.py::group_scatter_add
+# the port's modules that call ops/scatter.py::group_scatter_add, and those
+# that call its two-table form group_scatter_add_pair
 SCATTER_CALLERS = ("models.grouping", "ops.ball_group", "ops.sampling", "ops.voxelize")
+SCATTER_PAIR_CALLERS = ("ops.ball_group",)
 
 
 @contextlib.contextmanager
@@ -4922,23 +5071,33 @@ def scatter_kernel(deterministic: bool):
     (SCATTER_CALLERS: the grouping backwards, the gathers' backward, the
     voxel transfers) passes ``deterministic``: the port reaches the atomic
     kernel B only through that keyword, so a whole step is timed with it by
-    binding the keyword where the callers look the function up."""
+    binding the keyword where the callers look the function up.  With
+    ``deterministic=False`` the two-table form (SCATTER_PAIR_CALLERS) becomes
+    two launches of B, one a table."""
     import functools
     import importlib
 
     from point_diffusion_refinement_tpu_torch.ops import scatter
 
-    mods = [importlib.import_module(f"point_diffusion_refinement_tpu_torch.{m}")
-            for m in SCATTER_CALLERS]
-    saved = [m.group_scatter_add for m in mods]
-    bound = functools.partial(scatter.group_scatter_add, deterministic=deterministic)
+    def atomic_pair(dg, dg2, idx, n_rows, counts=None):
+        return tuple(scatter.group_scatter_add(d, idx, n_rows, counts, deterministic=False)
+                     for d in (dg, dg2))
+
+    patches = [(importlib.import_module(f"point_diffusion_refinement_tpu_torch.{m}"),
+                "group_scatter_add",
+                functools.partial(scatter.group_scatter_add, deterministic=deterministic))
+               for m in SCATTER_CALLERS]
+    if not deterministic:
+        patches += [(importlib.import_module(f"point_diffusion_refinement_tpu_torch.{m}"),
+                     "group_scatter_add_pair", atomic_pair) for m in SCATTER_PAIR_CALLERS]
+    saved = [getattr(m, name) for m, name, _ in patches]
     try:
-        for m in mods:
-            m.group_scatter_add = bound
+        for m, name, f in patches:
+            setattr(m, name, f)
         yield
     finally:
-        for m, f in zip(mods, saved):
-            m.group_scatter_add = f
+        for (m, name, _), f in zip(patches, saved):
+            setattr(m, name, f)
 
 
 def scatter_cost(name: str, s):
@@ -5397,10 +5556,7 @@ def main() -> int:
 
     at("15 report")
     # 15. report
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "nvidia-smi: n/a")
+    print(card_line())
     kern = []
     for r in rows:
         by_path = {path: c[LAUNCH_NAMES[r["name"]]] for path, c in path_counts.items()}

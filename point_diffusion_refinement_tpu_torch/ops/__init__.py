@@ -19,7 +19,7 @@ from .neighbors import (
     masked_mean,
     pairwise_sqdist,
 )
-from .scatter import group_scatter_add, group_scatter_add_plain
+from .scatter import group_scatter_add, group_scatter_add_pair, group_scatter_add_plain
 from .sampling import (
     furthest_point_sample,
     furthest_point_sample_and_gather,
@@ -47,6 +47,7 @@ __all__ = [
     "gather_points",
     "group_points",
     "group_scatter_add",
+    "group_scatter_add_pair",
     "group_scatter_add_plain",
     "inverse_distance_weights",
     "knn",

@@ -31,7 +31,7 @@ import torch
 from . import kernels
 from .neighbors import _radius_sq, ball_query_plain
 from .sampling import group_points
-from .scatter import group_scatter_add
+from .scatter import group_scatter_add, group_scatter_add_pair
 
 EMPTY_MODES = {"center_zero": 0, "row0": 1}
 # queries each warp of the kernel takes in turn (its block stages the support
@@ -204,24 +204,31 @@ class _BallGroupTrain(torch.autograd.Function):
         C, N = ctx.n_features, ctx.n_rows
         skip_empty = counts if ctx.center_zero else None
         d_support = d_features = d_queries = None
-        if ctx.needs_input_grad[1]:
-            d_features = group_scatter_add(
-                d_grouped[..., :C], idx, N, skip_empty).to(ctx.dtypes[1])
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[2]:
+        need_support, need_features = ctx.needs_input_grad[0], ctx.needs_input_grad[1]
+        if need_support or ctx.needs_input_grad[2]:
             d_pos = d_grouped[..., C:].to(torch.float32)
             d_rel, d_abs = d_pos[..., 0:3], d_pos[..., 3:6]
-            if ctx.needs_input_grad[0]:
-                d_support = group_scatter_add(
-                    (d_rel + d_abs).contiguous(), idx, N, skip_empty).to(ctx.dtypes[0])
-            if ctx.needs_input_grad[2]:
-                if ctx.center_zero:
-                    have = (counts > 0).to(torch.float32)[..., None, None]
-                    d_queries = (d_abs * (1.0 - have) - d_rel * have).sum(dim=2)
-                else:
-                    d_queries = -d_rel.sum(dim=2)
-                if ctx.include_center:
-                    d_queries = d_queries + d_pos[..., 6:9].sum(dim=2)
-                d_queries = d_queries.to(ctx.dtypes[2])
+        if need_support and need_features:
+            # both tables through one inverse index of idx
+            d_features, d_support = group_scatter_add_pair(
+                d_grouped[..., :C], (d_rel + d_abs).contiguous(), idx, N, skip_empty)
+        elif need_features:
+            d_features = group_scatter_add(d_grouped[..., :C], idx, N, skip_empty)
+        elif need_support:
+            d_support = group_scatter_add((d_rel + d_abs).contiguous(), idx, N, skip_empty)
+        if d_features is not None:
+            d_features = d_features.to(ctx.dtypes[1])
+        if d_support is not None:
+            d_support = d_support.to(ctx.dtypes[0])
+        if ctx.needs_input_grad[2]:
+            if ctx.center_zero:
+                have = (counts > 0).to(torch.float32)[..., None, None]
+                d_queries = (d_abs * (1.0 - have) - d_rel * have).sum(dim=2)
+            else:
+                d_queries = -d_rel.sum(dim=2)
+            if ctx.include_center:
+                d_queries = d_queries + d_pos[..., 6:9].sum(dim=2)
+            d_queries = d_queries.to(ctx.dtypes[2])
         return d_support, d_features, d_queries, None, None, None, None
 
 

@@ -66,10 +66,11 @@ KERNELS = {
         "group_scatter.cu", "pdr_group_scatter_add",
         [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     ),
-    # the same sum in a fixed order (the default of every caller)
+    # the same sum in a fixed order (the default of every caller), of one
+    # table or of two gathered with the same idx
     "group_scatter_ordered": (
         "group_scatter_ordered.cu", "pdr_group_scatter_ordered",
-        [_P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P],
+        [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     ),
     # the three sweeps of the fused attention pool
     "attention_stats": (
@@ -100,9 +101,9 @@ QUERIES = {
     "attention_row_blocks": ("attention_pool.cu", "pdr_attention_row_blocks", [_I] * 9),
     # the dynamic shared memory a launch of the fused ball group takes
     "ball_group_smem": ("ball_group.cu", "pdr_ball_group_smem", [_I] * 4),
-    # the int32 workspace of a launch of the ordered scatter-add
+    # the 4-byte workspace words of a launch of the ordered scatter-add
     "group_scatter_ordered_workspace": (
-        "group_scatter_ordered.cu", "pdr_group_scatter_ordered_workspace", [_I] * 4,
+        "group_scatter_ordered.cu", "pdr_group_scatter_ordered_workspace", [_I] * 5,
     ),
 }
 

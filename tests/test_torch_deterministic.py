@@ -2,15 +2,24 @@
 step does: every backward of a gather sums in a fixed order.
 
 On the card the ordered scatter-add (``csrc/group_scatter_ordered.cu``)
-sums each row's terms in ascending slot order from 0.0, the order of its
-plain version (``ops/scatter.py::group_scatter_add_plain``, a serial
-``index_add_`` on the CPU); its cases are in
-``tests/test_torch_kernels_cuda.py``.  Here, on the CPU:
+sums in the order of its plain version (``ops/scatter.py::
+group_scatter_add_plain``, two serial ``index_add_`` on the CPU).  A run is
+a maximal stretch of consecutive slots (m, k), (m, k + 1), ... of one ball
+whose idx equals the row (a ball that ``counts`` skips has none); each run's
+terms are summed in slot order from 0.0, then the runs' partials into the
+row in ascending order of their first slot, from 0.0.  Its card cases are
+in ``tests/test_torch_kernels_cuda.py``.  Here, on the CPU:
 
 - the gathers' autograd Function (``ops/sampling.py::_OrderedGather``, the
   route of ``gather_points`` / ``group_points`` on the card) against the JAX
   package's ``gather_points`` / ``group_points`` and their ``jax.grad``, and
   against the indexed load's own autograd gradient;
+- the plain scatter-add against a float32 loop written out in that order
+  (empty balls, padded balls, repeats inside a ball, ``counts``, a bf16
+  channel slice, every slot on one row), at K = 1 bit-equal to one
+  ``index_add_`` in slot order (the order before runs), and the two-table
+  form (``group_scatter_add_pair``, ``ball_group_train``'s backward) equal
+  to single calls;
 - the plain scatter-add against the JAX package's backward of the fused
   gather (``models/grouping.py::_fused_ball_gather_bwd``, a one-hot einsum),
   including every slot on one row, empty balls skipped through ``counts``
@@ -152,6 +161,141 @@ def test_scatter_plain_against_jax_einsum(case):
         # a skipped ball adds nothing: the same as zeroing its slots
         assert torch.equal(out, scatter.group_scatter_add_plain(
             torch.from_numpy(jax_dg), t_idx, N))
+
+
+def _run_order_loop(dg, idx, n_rows, counts=None):
+    """The scatter-add written out in runs: each run's terms summed in slot
+    order from 0.0, its partial added to the row as the runs come (so in
+    ascending order of their first slot), all in float32."""
+    B, M, K, C = dg.shape
+    out = np.zeros((B, n_rows, C), np.float32)
+    for b in range(B):
+        for m in range(M):
+            if counts is not None and counts[b, m] == 0:
+                continue
+            k = 0
+            while k < K:
+                row = idx[b, m, k]
+                part = np.zeros(C, np.float32)
+                while k < K and idx[b, m, k] == row:
+                    part = part + dg[b, m, k]
+                    k += 1
+                out[b, row] = out[b, row] + part
+    return out
+
+
+def _slot_order(dg, idx, n_rows, counts=None):
+    """One ``index_add_`` of every slot in slot order: the plain version
+    before runs (a skipped ball's slots zeroed)."""
+    B, M, K, C = dg.shape
+    vals = dg.to(torch.float32)
+    if counts is not None:
+        vals = vals * (counts > 0).to(torch.float32)[..., None, None]
+    flat = idx.long() + torch.arange(B)[:, None, None] * n_rows
+    out = torch.zeros((B * n_rows, C), dtype=torch.float32)
+    out.index_add_(0, flat.reshape(-1), vals.reshape(-1, C))
+    return out.reshape(B, n_rows, C)
+
+
+def _spread(rng, shape):
+    """float32 values over six decades, so that another order of the sums
+    rounds differently."""
+    return (rng.standard_normal(shape) * 10.0 ** rng.uniform(-3, 3, shape)).astype(np.float32)
+
+
+@pytest.mark.parametrize("case", ["empty_balls", "padded_balls", "repeats", "counts",
+                                  "bf16_slice", "every_slot_one_row"])
+def test_scatter_plain_in_run_order(case):
+    rng = _rng(4)
+    B, N, M, K, C = 2, 30, 40, 6, 5
+    idx, counts = _ball_slots(rng, B, N, M, K, empty_every=3)
+    if case == "padded_balls":
+        idx, counts = _ball_slots(rng, B, N, M, K, empty_every=M + 1)
+    elif case == "repeats":  # runs inside a ball, and one row in runs apart
+        idx = rng.integers(0, 4, (B, M, K)).astype(np.int32)
+    elif case == "every_slot_one_row":
+        idx[:] = 7
+    dg = _spread(rng, (B, M, K, C))
+    use_counts = case == "counts"
+    if case == "bf16_slice":
+        dg = _bf16_values(dg)
+        wide = torch.zeros(B, M, K, C + 3, dtype=torch.bfloat16)
+        wide[..., 1:1 + C] = torch.from_numpy(dg).to(torch.bfloat16)
+        t_dg = wide[..., 1:1 + C]
+        assert t_dg.stride(2) == C + 3
+    else:
+        t_dg = torch.from_numpy(dg)
+    t_idx, t_counts = torch.from_numpy(idx), torch.from_numpy(counts) if use_counts else None
+    out = scatter.group_scatter_add_plain(t_dg, t_idx, N, t_counts)
+    want = _run_order_loop(dg, idx, N, counts if use_counts else None)
+    assert out.dtype == torch.float32 and out.shape == (B, N, C)
+    assert torch.equal(out, torch.from_numpy(want))
+    assert torch.equal(scatter.group_scatter_add(t_dg, t_idx, N, t_counts), out)
+    if case in ("empty_balls", "every_slot_one_row"):
+        # the order is the runs', not the slots': the sums round otherwise
+        assert not torch.equal(out, _slot_order(t_dg, t_idx, N, t_counts))
+
+
+@pytest.mark.parametrize("case", ["random", "hot_spot", "signed_zeros", "counts"])
+def test_scatter_plain_k1_equals_slot_order(case):
+    """At K = 1 (the voxel sums, the devoxelize and chamfer gathers, the
+    class embedding) every run is one slot: bit-equal to one ``index_add_``
+    in slot order."""
+    rng = _rng(5)
+    B, N, M, C = 3, 50, 400, 4
+    idx = rng.integers(0, N, (B, M, 1)).astype(np.int32)
+    if case == "hot_spot":
+        idx[:, ::2] = 9
+    dg = _spread(rng, (B, M, 1, C))
+    if case == "signed_zeros":
+        dg[:, ::3] = -0.0
+        dg[:, 1::5] = 0.0
+    counts = rng.integers(0, 2, (B, M)).astype(np.int32) if case == "counts" else None
+    t_dg, t_idx = torch.from_numpy(dg), torch.from_numpy(idx)
+    t_counts = torch.from_numpy(counts) if counts is not None else None
+    out = scatter.group_scatter_add_plain(t_dg, t_idx, N, t_counts)
+    assert torch.equal(out, _slot_order(t_dg, t_idx, N, t_counts))
+    assert torch.equal(out, torch.from_numpy(_run_order_loop(dg, idx, N, counts)))
+
+
+@pytest.mark.parametrize("use_counts", [False, True])
+def test_scatter_pair_equals_single_calls(use_counts):
+    rng = _rng(6)
+    B, N, M, K, C = 2, 40, 30, 8, 6
+    idx, counts = _ball_slots(rng, B, N, M, K, empty_every=4)
+    wide = torch.from_numpy(_spread(rng, (B, M, K, C + 9))).to(torch.bfloat16)
+    d_feat = wide[..., :C]
+    d_pos = torch.from_numpy(_spread(rng, (B, M, K, 3)))
+    t_idx, t_counts = torch.from_numpy(idx), torch.from_numpy(counts) if use_counts else None
+    a, b = scatter.group_scatter_add_pair(d_feat, d_pos, t_idx, N, t_counts)
+    assert torch.equal(a, scatter.group_scatter_add(d_feat, t_idx, N, t_counts))
+    assert torch.equal(b, scatter.group_scatter_add(d_pos, t_idx, N, t_counts))
+
+
+@pytest.mark.parametrize("mode", ["center_zero", "row0"])
+def test_ball_group_train_backward_pair_equals_single(mode):
+    """``ball_group_train``'s backward takes the two-table form where both
+    the features and the support need a gradient: each equals what it gets
+    alone."""
+    from point_diffusion_refinement_tpu_torch import ops
+
+    rng = _rng(7)
+    x = torch.from_numpy(rng.uniform(-1, 1, (2, 120, 3)).astype(np.float32))
+    q = torch.from_numpy(rng.uniform(-1, 1, (2, 40, 3)).astype(np.float32))
+    q[:, ::4] += 5.0  # empty balls
+    f = torch.from_numpy(rng.standard_normal((2, 120, 7)).astype(np.float32))
+
+    def grads(need):
+        leaves = [t.clone().requires_grad_(n) for t, n in zip((x, f, q), need)]
+        g, _, _ = ops.ball_group_train(*leaves, 0.4, 8, True, mode)
+        w = torch.from_numpy(_rng(8).standard_normal(g.shape).astype(np.float32))
+        out = torch.autograd.grad((g.float() * w).sum(), [t for t in leaves if t.requires_grad])
+        return dict(zip([i for i, n in enumerate(need) if n], out))
+
+    both = grads((True, True, True))
+    assert torch.equal(both[0], grads((True, False, False))[0])
+    assert torch.equal(both[1], grads((False, True, False))[1])
+    assert torch.equal(both[2], grads((False, False, True))[2])
 
 
 def _avg_voxelize_before(features, vox_coords, r):

@@ -4,7 +4,11 @@ against the Pallas kernel in interpret mode.
 
 Inputs come from a numpy seed and go through both packages.  On the CPU the
 port's wrappers run their plain versions, so the fused and unfused routes
-of the port must agree exactly (same float32 sums, same order); against
+of the port must agree exactly where both sum a gather's cotangent in the
+scatter-add's order (``ops/scatter.py``: runs of a ball's slots, then the
+runs), as they do on the card: there the unfused gathers take the ordered
+backward (``ops/sampling.py::_OrderedGather``), which the tests that compare
+the routes also give them on the CPU (``_ordered_gathers``); against
 the JAX custom VJPs the tolerance is bf16-sized, because those round the
 cotangents (and the windowed kernel its outputs) to bfloat16 for the MXU
 and the port does not.
@@ -100,11 +104,34 @@ def test_query_and_group_fused_without_features():
 
 # ---- (e) the fused gather's gradient ------------------------------------------
 
+# the float32 gap allowed between two orders of one sum, a share of the sum
+# of its terms' magnitudes
+ORDER_RTOL = 1e-6
+
+
+def _near_in_another_order(got, ref, magnitude):
+    """``got`` equals ``ref`` up to the order of float32 sums: each element
+    within ORDER_RTOL of the sum of its terms' magnitudes (``magnitude``)."""
+    gap = (got - ref).abs()
+    assert bool((gap <= ORDER_RTOL * magnitude.abs()).all()), float((gap / magnitude.abs()).max())
+
+
+def _ordered_gathers(monkeypatch):
+    """The gathers take the ordered backward on the CPU too, as they do on
+    the card: a gather's gradient sums in the scatter-add's order, the one
+    of the fused routes' backwards (the indexed load's own backward sums in
+    slot order)."""
+    from point_diffusion_refinement_tpu_torch.ops import sampling
+
+    monkeypatch.setattr(sampling, "_ordered_backward",
+                        lambda p: p.requires_grad and torch.is_grad_enabled())
+
+
 def test_fused_gather_grad_matches_jax_vjp_and_unfused(monkeypatch):
     """d(loss)/d(features): equal to autograd through the port's unfused
-    path, and within the JAX test's own tolerance (rtol = atol = 2e-2: its
-    VJP rounds the cotangent to bf16) of the JAX fused VJP in interpret
-    mode."""
+    path (its gather's backward the ordered scatter-add, as on the card),
+    and within the JAX test's own tolerance (rtol = atol = 2e-2: its VJP
+    rounds the cotangent to bf16) of the JAX fused VJP in interpret mode."""
     import point_diffusion_refinement_tpu.ops.pallas_neighbors as pn
     from point_diffusion_refinement_tpu.ops import sampling as jsampling
 
@@ -117,14 +144,20 @@ def test_fused_gather_grad_matches_jax_vjp_and_unfused(monkeypatch):
     g_jax = jax.grad(lambda f_: jnp.sum(jgrouping.query_and_group(
         jnp.asarray(x), jnp.asarray(c), f_, **kw)[0] ** 2))(jnp.asarray(f))
 
-    grads = []
-    for fused in (False, True):
+    def grads(fused, magnitude=False):
         ft = _t(f, grad=True)
         out, _ = query_and_group(_t(x), _t(c), ft, fused_gather=fused, **kw)
-        (out ** 2).sum().backward()
-        grads.append(ft.grad)
-    assert torch.equal(grads[0], grads[1])
-    np.testing.assert_allclose(grads[1].numpy(), np.asarray(g_jax), rtol=2e-2, atol=2e-2)
+        # the loss's cotangent 2 out, or its magnitude |2 out|
+        ((out * (2 * out).detach().abs()).sum() if magnitude else (out ** 2).sum()).backward()
+        return ft.grad
+
+    # autograd through the indexed load (slot order), an independent sum
+    by_index, magnitude = grads(False), grads(False, magnitude=True)
+    _ordered_gathers(monkeypatch)
+    fused = grads(True)
+    assert torch.equal(grads(False), fused)
+    _near_in_another_order(fused, by_index, magnitude)
+    np.testing.assert_allclose(fused.numpy(), np.asarray(g_jax), rtol=2e-2, atol=2e-2)
 
 
 def test_fused_ball_gather_is_differentiable_in_table_only():
@@ -206,16 +239,19 @@ def test_ball_group_train_grads_match_jax_windowed_vjp():
 
 @pytest.mark.parametrize("mode", ["row0", "center_zero"])
 @pytest.mark.parametrize("center", [False, True])
-def test_ball_group_train_grads_equal_autograd_through_plain(mode, center):
+def test_ball_group_train_grads_equal_autograd_through_plain(mode, center, monkeypatch):
     """Exactly (float32 tables: both sum the bf16 cotangent in float32, in
-    the same order on the CPU) against autograd through ``ball_group_plain``,
-    with empty balls in both empty modes."""
+    the scatter-add's order, the plain version's gathers taking the ordered
+    backward as on the card) against autograd through ``ball_group_plain``,
+    with empty balls in both empty modes; and within float32 rounding
+    (ORDER_RTOL) of autograd through the indexed load of the plain version
+    unpatched, which sums in slot order."""
     xyz, feats, new_xyz = _windowed_data()
     new_xyz[:, ::5] += 4.0
     w = torch.from_numpy(np.random.default_rng(1).standard_normal(
         (B, M, K, C + (9 if center else 6))).astype(np.float32))
-    got, want = [], []
-    for fn, acc in ((ops.ball_group_train, got), (None, want)):
+
+    def run(fn, weight):
         leaves = [_t(a, grad=True) for a in (xyz, feats, new_xyz)]
         if fn is not None:
             grouped, counts, idx = fn(*leaves, RADIUS, K, center, mode)
@@ -224,10 +260,20 @@ def test_ball_group_train_grads_equal_autograd_through_plain(mode, center):
         else:
             (grouped,), _ = ops.ball_group_plain(
                 leaves[0], [leaves[1]], leaves[2], RADIUS, K, center, mode)
-        (grouped.float() * w).sum().backward()
-        acc.extend([grouped.detach()] + [t.grad for t in leaves])
+        (grouped.float() * weight).sum().backward()
+        return [grouped.detach()] + [t.grad for t in leaves]
+
+    # the loss is linear in the grouped values: with |w| each gradient is the
+    # sum of its terms' magnitudes (negated for the centres, whose terms
+    # enter with a minus sign)
+    by_index, magnitude = run(None, w), run(None, w.abs())
+    _ordered_gathers(monkeypatch)
+    got, want = run(ops.ball_group_train, w), run(None, w)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    assert torch.equal(got[0], by_index[0])
+    for a, b, m in zip(got[1:], by_index[1:], magnitude[1:]):
+        _near_in_another_order(a, b, m)
 
 
 def test_set_abstraction_fused_sa_route_matches_unfused():

@@ -9,8 +9,11 @@ Indices, counts, coordinates, kNN distances and grouped bf16 values must
 be equal: kernel and plain version compute the same separately rounded
 float32 distances and round the same float32 values to bf16.  The
 ordered scatter-add (``group_scatter_add``'s default) sums each row in
-slot order, as its plain version does on the CPU: two launches are
-bit-equal and equal the plain version on CPU copies.  The atomic kernel B
+its fixed order (each run of a ball's consecutive slots on the row in
+slot order, then the runs in order of their first slot), as its plain
+version does on the CPU: two launches are bit-equal and equal the plain
+version on CPU copies, also through the two-table form and in a captured
+graph's replay.  The atomic kernel B
 (``deterministic=False``) sums float32 with atomics, in an order that
 changes from run to run: it is held to SCATTER_TOL of the largest row sum
 (the new cases: of each element's own sum of magnitudes).  The attention
@@ -600,17 +603,35 @@ def test_group_scatter_ordered_ft0(dev, dtype, masked):
         _ordered_agrees(d, idx, N, counts if masked else None)
 
 
-@pytest.mark.parametrize("case", ["every_slot_one_row", "few_rows", "hot_spots", "wide"])
+@pytest.mark.parametrize("case", ["every_slot_one_row", "every_slot_one_row_k1", "few_rows",
+                                  "hot_spots", "wide", "runs_in_balls", "knn_k8"])
 def test_group_scatter_ordered_lists(dev, case):
-    """Lists of every length: one row taking every slot of its batch row
-    (32768 ids: the long path), lists of a few hundred (sorted in shared
-    memory), chamfer's K = 1 re-gather with hot spots, 300 channels (two
-    channel passes of a long sum), with and without empty balls skipped."""
+    """Lists of every length: one row taking every slot of its batch row at
+    K = 32 (1024 runs of 32 slots: a long list) and at K = 1 (81920 runs
+    of one slot: two bitmap windows, ordered 2048 at a time), lists of a
+    few hundred runs, chamfer's K = 1 re-gather with hot spots, 300
+    channels (five channel passes of a long list), runs inside balls and
+    runs past a warp (K = 80), a kNN gather's backward (K = 8 distinct
+    neighbours, ~32 one-slot runs a row, 320 channels: lists sorted by a
+    warp), with and without empty balls skipped."""
     rng = np.random.default_rng(61)
     B, M, K = 2, 1024, 32
     if case == "every_slot_one_row":
         N, C = 300, 35
         idx = torch.zeros(B, M, K, dtype=torch.int32)
+    elif case == "every_slot_one_row_k1":
+        B, M, K, N, C = 2, 81920, 1, 500, 3
+        idx = torch.full((B, M, K), 17, dtype=torch.int32)
+    elif case == "knn_k8":
+        M, K, N, C = 1024, 8, 256, 320
+        idx = torch.from_numpy(np.stack([np.stack([rng.choice(N, K, replace=False)
+                                                   for _ in range(M)]) for _ in range(B)])
+                               .astype(np.int32))
+    elif case == "runs_in_balls":
+        M, K, N, C = 300, 80, 50, 19
+        idx = torch.from_numpy(np.repeat(rng.integers(0, N, (B, M, K // 8)), 8, axis=2)
+                               .astype(np.int32))
+        idx[:, ::3, 5:] = idx[:, ::3, :1]  # a whole ball one run, across warps
     elif case == "few_rows":
         N, C = 8, 3
         idx = torch.from_numpy(rng.integers(0, N, (B, M, K)).astype(np.int32))
@@ -629,6 +650,59 @@ def test_group_scatter_ordered_lists(dev, case):
         dg = torch.randn(B, M, K, C, device=dev).to(dtype)
         _ordered_agrees(dg, idx, N)
         _ordered_agrees(dg, idx, N, counts)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_group_scatter_ordered_pair(dev, masked):
+    """The two-table form at the level-0 transfer of B = 4 (a bf16 slice of
+    35 features, ld 44, and float32 positions, as ``ball_group_train``'s
+    backward passes them): one launch, each result bit-equal to its single
+    call and to the plain version on CPU copies."""
+    rng = np.random.default_rng(63)
+    B, N, M, K, C = 4, 3072, 2048, 32, 35
+    sup = _cloud(rng, B, N, 3, lo=-0.5, hi=0.5).to(dev)
+    q = torch.from_numpy(rng.standard_normal((B, M, 3)).astype(np.float32)).to(dev)
+    idx, counts = ops.ball_query(sup, q, 0.1, K)
+    counts = counts if masked else None
+    wide = torch.randn(B, M, K, C + 9, device=dev).to(torch.bfloat16)
+    feat, pos = wide[..., :C], torch.randn(B, M, K, 3, device=dev)
+    ops.reset_launch_counts()
+    a, b = ops.group_scatter_add_pair(feat, pos, idx, N, counts)
+    assert ops.launch_counts()["group_scatter_ordered"] == 1
+    for got, d in ((a, feat), (b, pos)):
+        assert torch.equal(got, ops.group_scatter_add(d, idx, N, counts))
+        ref = ops.group_scatter_add_plain(d.cpu(), idx.cpu(), N,
+                                          None if counts is None else counts.cpu())
+        assert torch.equal(got.cpu(), ref)
+
+
+def test_group_scatter_ordered_graph_replay(dev):
+    """A captured graph of the two-table form replays on new cotangents and
+    a new idx (the same shapes) bit-equal to eager launches."""
+    from point_diffusion_refinement_tpu_torch.utils.graphs import CapturedFunction
+
+    rng = np.random.default_rng(64)
+    B, N, M, K = 2, 700, 512, 32
+
+    def inputs(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        x = torch.rand(B, N, 3, generator=g, device=dev)
+        c = torch.rand(B, M, 3, generator=g, device=dev)
+        c[:, ::3] += 5.0
+        idx, counts = ops.ball_query(x, c, 0.2, K)
+        return (torch.randn(B, M, K, 40, generator=g, device=dev).to(torch.bfloat16)[..., 2:37],
+                torch.randn(B, M, K, 3, generator=g, device=dev), idx, counts)
+
+    fn = CapturedFunction(lambda d, p, i, n: ops.group_scatter_add_pair(d, p, i, N, n))
+    for seed in (1, 2, 3, 4):  # the warm-up, the capture, two replays
+        d, p, i, n = inputs(seed + int(rng.integers(0, 100)))
+        got = fn(d, p, i, n)
+        want = ops.group_scatter_add_pair(d, p, i, N, n)
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert fn.num_graphs == 1
+    assert fn.stats()[0]["launches"] == {"group_scatter_ordered": 1}
+    fn.release()
 
 
 @pytest.mark.parametrize("kind", ["gather", "group"])
