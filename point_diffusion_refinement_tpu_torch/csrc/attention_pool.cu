@@ -1,7 +1,8 @@
 // The AttentionPool forward in three sweeps over the grouped tensors
-// (statistics of k and v, statistics of h, and scores + masked softmax +
-// weighted value sum) and two small finishing kernels that turn the sweeps'
-// partial sums into the GroupNorm vectors.
+// (statistics of k, v and q, statistics of h, and scores + masked softmax +
+// weighted value sum), the first two in thread-block clusters that finish
+// their GroupNorm vectors in the last cluster of each batch row, and one
+// elementwise pass that writes the normalised query rows between them.
 //
 // Replaces the TPU kernels ops/pallas_attention.py::_stats_kernel,
 // _h_stats_kernel and _out_kernel (called by fused_attention_pool,
@@ -48,10 +49,28 @@
 //   them.
 // - Softmax in one pass: a running maximum, sum and weighted sum per
 //   (centre, column), one exp per slot.
-// - Each block writes its per-column partial sums to its own row of a
-//   (B, P, 2, C) scratch; the finishing kernels add the P rows in order, so
-//   the statistics are deterministic, and write the GroupNorm vectors (and
-//   the normalised query rows) in the types the next sweep reads.
+// - Sweeps 1 and 2 run in thread-block clusters of cs consecutive row tiles
+//   (cudaLaunchKernelEx; cs from the occupancy rule at cluster_size).  Each
+//   block keeps its per-column sums and sums of squares in shared memory;
+//   the cluster's blocks add them through distributed shared memory in rank
+//   order, so a batch row has P / cs rows of partial sums in a (B, P / cs +
+//   1, ld) scratch.  Rank 0 takes the batch row's ticket (an int32
+//   atomicAdd) as it starts, its latency under the tile's copy; the cluster
+//   that takes the last one adds the rows up in float64 in ascending order
+//   (each block a share of the 16-byte columns, in row runs fixed by the
+//   shapes) into the last row, once every cluster has counted its row
+//   written (a release reduction after the cluster barrier; every other
+//   cluster started before it, so it waits only on clusters that are
+//   running or done).  Its rank 0 writes the GroupNorm vectors in the
+//   types the next kernel reads and sets the tickets back to 0, so a
+//   captured graph replays with no memset.  The statistics are the same
+//   whichever cluster finishes.  Sweep 1 also sums
+//   qd = relu(mm + b0) over each cluster's slice of the centres (16-byte
+//   loads, while the tile's copy is in flight), so its finish writes the
+//   first GroupNorm over [q, k] (q's and k's per-channel float32 (mul, add))
+//   and the values' GroupNorm.  The query rows qn = bf16(bf16(qd) * mul +
+//   add) need those vectors, so they are one coalesced elementwise pass
+//   between sweeps 1 and 2 (attn_qn_kernel).
 //
 // Rounding points (the function's, repeated by the plain version): bf16
 // operands, float32 accumulation rounded to bf16, bf16 bias add; the first
@@ -60,13 +79,18 @@
 // scores masked with bf16(-1e9); softmax and the weighted sum in float32.
 #include "common.cuh"
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 
 #include <algorithm>
 #include <cstdint>
+#include <map>
+#include <mutex>
+#include <tuple>
 
 namespace {
 
+namespace cg = cooperative_groups;
 typedef __nv_bfloat16 bf16;
 
 constexpr int kThreads = 128;  // four warps
@@ -320,10 +344,10 @@ struct ColSums {
     s[j][e & 1] += v;
     q[j][e & 1] += v * v;
   }
-  // the block's sums of chunk columns [0, ncols) -> part[n0 + c] (sums) and
-  // part[C + n0 + c] (squares) for n0 + c < limit; fixed order: the 8 row
+  // the block's sums of chunk columns [0, ncols) -> row[n0 + c] (sums) and
+  // row[C + n0 + c] (squares) for n0 + c < limit; fixed order: the 8 row
   // groups of a warp by shuffles, then the warps' row groups in order
-  __device__ void write(float* red, int n0, int ncols, int limit, int C, float* part) {
+  __device__ void write(float* red, int n0, int ncols, int limit, int C, float* row) {
     using S = Shape<R>;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
     const int wr = warp % S::WR, wc = warp / S::WR;
@@ -352,7 +376,7 @@ struct ColSums {
       if (n0 + c < limit) {
         float v = red[which * kNC + c];
         for (int w = 1; w < S::WR; ++w) v += red[(w * 2 + which) * kNC + c];
-        part[which * C + n0 + c] = v;
+        row[which * C + n0 + c] = v;
       }
     }
   }
@@ -369,14 +393,23 @@ struct Args {
   const bf16 *mu1, *s1, *bb1;   // (B, I)
   const bf16 *mu2, *s2, *bb2;   // (B, Co)
   const int* counts;            // (B, M) or null
-  float* part;                  // (B, P, 2, C): C = c2 + Co (stats) or I (hstats)
+  float* part;                  // (B, Pr + 1, row_floats(C)): C = c2 + Co + c1 or I
   float* out;                   // (B, M, Co)
+  // the finishing work of sweeps 1 and 2
+  const bf16 *mm, *b0;          // (B, M, c1) = feat W0 rounded to bf16, (c1)
+  const float *sc0, *bi0;       // first GroupNorm (normed0), or h's (normed1)
+  const float *sc2, *bi2;       // the values' GroupNorm (normed2)
+  float *mulq, *addq;           // (B, c1)
+  float *omulk, *oaddk;         // (B, c2)
+  bf16 *fmu, *fs, *fbb;         // (B, Co) of the values, or (B, I) of h
+  int* tickets;                 // (B, kTicketInts), 0 between launches
 };
 
 struct Dims {
   int M, K, P;                  // centres, slots, row blocks (tiles or units) a batch row
+  int Pr;                       // rows of partial sums a batch row: P / the cluster size
   int cpb, resident;            // column chunks a block; weights kept in shared memory
-  int Ck, Cv, c2, I, Co;        // channel counts
+  int Ck, Cv, c2, I, Co, c1;    // channel counts
   int Ckp, Cvp, c2p, Ip, Cop;   // rounded up to 16
 };
 
@@ -425,6 +458,8 @@ __device__ void key_norm(const bf16* A, int lda, const Args& a, const Dims& d, c
 // and its float scratch.  Every region is a multiple of 16 bytes.
 constexpr int kBarBytes = 64;
 constexpr int kRingElems = kStages * kNC * kWLd;
+constexpr int kRedBytes = 2 * 4 * kNC * 4;  // a chunk's sums of each row group of a tile
+constexpr int kRedFloats = kRedBytes / 4;
 
 struct Smem {
   uint64_t* bars;  // kStages ring barriers, then the activation barrier
@@ -450,9 +485,288 @@ __device__ __forceinline__ void init_bars(uint64_t* bars, int act = kThreads) {
   __syncthreads();
 }
 
+// ---- the column sums of sweeps 1 and 2: clusters, tickets, the finish --------
+constexpr int kFlagOffset = 32;  // the cluster's "last" flag, in the barrier bytes
+// a batch row's tickets: clusters that took one, clusters whose row is written
+constexpr int kTicketInts = 2;
+
+// floats a row of partial sums of C columns takes: C sums, C squares, padded
+// to whole 16-byte vectors
+__host__ __device__ constexpr int row_floats(int C) { return (2 * C + 3) / 4 * 4; }
+
+// Per-channel sums and sums of squares of qd = relu(bf16(mm + b0)) over
+// rows [m0, m1) of one batch row's mm (rows of c1) -> s[c], q[c]; thread
+// `first` of `threads` owns its channels and adds the rows in order, 16-byte
+// loads where the rows are whole vectors, eight rows' loads in flight.
+__device__ void q_sums(const bf16* mm, const bf16* b0, int c1, int m0, int m1, float* s,
+                       float* q, int first, int threads) {
+  if ((c1 & 7) == 0 && (reinterpret_cast<uintptr_t>(mm) & 15) == 0) {
+    for (int v = first; v < (c1 >> 3); v += threads) {
+      bf16 bias[8];
+      float as[8], aq[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        bias[e] = b0[8 * v + e];
+        as[e] = aq[e] = 0.f;
+      }
+#pragma unroll 8
+      for (int m = m0; m < m1; ++m) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(mm + static_cast<size_t>(m) * c1) + v);
+        const bf16* xv = reinterpret_cast<const bf16*>(&x);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) {
+          const float f = bf(brelu(badd(xv[e], bias[e])));
+          as[e] += f;
+          aq[e] += f * f;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        s[8 * v + e] = as[e];
+        q[8 * v + e] = aq[e];
+      }
+    }
+  } else {
+    for (int c = first; c < c1; c += threads) {
+      float as = 0.f, aq = 0.f;
+#pragma unroll 8
+      for (int m = m0; m < m1; ++m) {
+        const float f = bf(brelu(badd(mm[static_cast<size_t>(m) * c1 + c], b0[c])));
+        as += f;
+        aq += f * f;
+      }
+      s[c] = as;
+      q[c] = aq;
+    }
+  }
+}
+
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.s32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// A barrier over the cluster (a block barrier where the cluster is one block)
+__device__ __forceinline__ void cluster_barrier(cg::cluster_group& cl, int cs) {
+  if (cs > 1) {
+    cl.sync();
+  } else {
+    __syncthreads();
+  }
+}
+
+// The batch row's ticket of clusters started (tk[0]), taken by rank 0's
+// thread 0 as the block starts, its latency hidden behind the tile's copy
+// (other threads get 0).  The cluster that takes the last one finishes the
+// batch row: every other cluster of the row took a lower ticket, so it has
+// started by then and the finishing cluster waits only on clusters that
+// are running or done.
+__device__ __forceinline__ int start_ticket(int* tk, int rank) {
+  return rank == 0 && threadIdx.x == 0 ? atomicAdd(tk, 1) : 0;
+}
+
+// The cluster's column sums -> its row of the partial sums.  Each block
+// left its sums of its ncols columns in sums (the sums, then the squares,
+// ld_s apart); the cluster's block r adds every block's value in rank order
+// (distributed shared memory) for its share of the columns and writes it
+// to row[c] and row[C + c].  Rank 0's thread 0 tells every block whether
+// the cluster finishes the batch row (its start ticket is the last of
+// nclusters) through the block's flag before the second cluster barrier,
+// after which no block reads another's shared memory, then counts the row
+// written (tk[1]) by a release reduction, which the barrier orders after
+// every thread's writes.  Returns true in the finishing cluster's blocks.
+__device__ bool cluster_row(const float* sums, int ld_s, int ncols, float* row, int C, int* tk,
+                            int ticket, int nclusters, int* flag) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = static_cast<int>(cl.num_blocks()), rank = static_cast<int>(cl.block_rank());
+  cluster_barrier(cl, cs);  // every block's sums are in its shared memory
+  if (rank == 0 && threadIdx.x == 0) {
+    for (int r = 0; r < cs; ++r) *cl.map_shared_rank(flag, r) = ticket == nclusters - 1;
+  }
+  for (int i = rank * kThreads + threadIdx.x; i < 2 * ncols; i += cs * kThreads) {
+    const int which = i / ncols;
+    const int c = i - which * ncols;
+    float v = 0.f;
+    for (int r = 0; r < cs; ++r) v += cl.map_shared_rank(sums, r)[which * ld_s + c];
+    row[which * C + c] = v;
+  }
+  cluster_barrier(cl, cs);
+  if (rank == 0 && threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.s32 [%0], 1;\n" ::"l"(tk + 1) : "memory");
+  }
+  return *flag != 0;
+}
+
+// In the batch row's finishing cluster: once every cluster's row is
+// written, the Pr partial rows (ld floats apart, a multiple of 4) added up
+// in float64 in ascending row order and rounded once into row Pr, block
+// `rank` of `cs` taking its range of the row's 16-byte columns, four
+// columns a thread; where the range leaves threads idle its rows split into
+// runs, added in run order (the runs' sums in scratch, 128 x 4 doubles of
+// the block's shared memory, free once its sums are added).  The split
+// follows (Pr, ld, cs) alone, not which cluster came last.  Ends with the
+// cluster barrier, after which rank 0 may read the whole totals row; rank
+// 0 then sets the tickets back to 0.
+__device__ void column_totals(float* part, int Pr, int ld, const int* tk, int nclusters,
+                              double* scratch) {
+  cg::cluster_group cl = cg::this_cluster();
+  const int cs = static_cast<int>(cl.num_blocks()), rank = static_cast<int>(cl.block_rank());
+  if (threadIdx.x == 0) {  // acquire; the barrier passes it to the block
+    while (load_acquire(tk + 1) < nclusters) __nanosleep(32);
+  }
+  __syncthreads();
+  const int nv = ld / 4, per = (nv + cs - 1) / cs;
+  const int c0 = min(nv, rank * per), nc = min(nv, c0 + per) - c0;
+  float4* tot = reinterpret_cast<float4*>(part + static_cast<size_t>(Pr) * ld);
+  const int splits = nc > 0 ? max(1, min(kThreads / nc, Pr)) : 1;
+  const int run = (Pr + splits - 1) / splits;
+  for (int i = threadIdx.x; i < nc * splits; i += kThreads) {
+    const int s = i / nc;
+    const int c = c0 + i - s * nc;
+    const int p1 = min(Pr, (s + 1) * run);
+    double v[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll 16
+    for (int p = s * run; p < p1; ++p) {
+      const float4 x =
+          __ldcg(reinterpret_cast<const float4*>(part + static_cast<size_t>(p) * ld) + c);
+      v[0] += x.x;
+      v[1] += x.y;
+      v[2] += x.z;
+      v[3] += x.w;
+    }
+    if (splits == 1) {
+      tot[c] = make_float4(v[0], v[1], v[2], v[3]);
+    } else {
+      for (int e = 0; e < 4; ++e) scratch[4 * i + e] = v[e];
+    }
+  }
+  if (splits > 1) {
+    __syncthreads();
+    for (int c = threadIdx.x; c < nc; c += kThreads) {
+      double v[4] = {scratch[4 * c], scratch[4 * c + 1], scratch[4 * c + 2], scratch[4 * c + 3]};
+      for (int s = 1; s < splits; ++s) {
+        for (int e = 0; e < 4; ++e) v[e] += scratch[4 * (s * nc + c) + e];
+      }
+      tot[c0 + c] = make_float4(v[0], v[1], v[2], v[3]);
+    }
+  }
+  __threadfence();  // this block's share of the totals, before the barrier
+  cluster_barrier(cl, cs);
+}
+
+__device__ __forceinline__ void mean_rstd(float sum, float ssq, float cnt, float& mean,
+                                          float& rstd) {
+  mean = sum / cnt;
+  rstd = rsqrtf(fmaxf(ssq / cnt - mean * mean, 0.f) + 1e-5f);
+}
+
+// (mean, rstd) -> grp[2 g], grp[2 g + 1] of the ng <= 32 groups of gs
+// consecutive channels of a GroupNorm over cnt values a channel's group,
+// channel i's (sum, sum of squares) at(i): lane g of each warp adds its
+// warp's share of group g's channels (every fourth), the four warps' sums
+// then added in warp order through scratch (256 floats).
+template <typename At>
+__device__ void group_stats(int ng, int gs, float cnt, At at, float* grp, float* scratch) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float s = 0.f, q = 0.f;
+  if (lane < ng) {
+#pragma unroll 4
+    for (int i = warp; i < gs; i += kThreads / 32) {
+      const float2 v = at(lane * gs + i);
+      s += v.x;
+      q += v.y;
+    }
+  }
+  scratch[2 * threadIdx.x] = s;
+  scratch[2 * threadIdx.x + 1] = q;
+  __syncthreads();
+  if (static_cast<int>(threadIdx.x) < ng) {
+    s = q = 0.f;
+    for (int w = 0; w < kThreads / 32; ++w) {
+      s += scratch[2 * (w * 32 + threadIdx.x)];
+      q += scratch[2 * (w * 32 + threadIdx.x) + 1];
+    }
+    mean_rstd(s, q, cnt, grp[2 * threadIdx.x], grp[2 * threadIdx.x + 1]);
+  }
+  __syncthreads();
+}
+
+// (mu, s, b) in bf16 of a GroupNorm of C channels from its groups' (mean,
+// rstd) in grp (gs channels a group, identity lanes past normed)
+__device__ void write_pgn(const float* grp, int gs, int normed, int C, const float* sc,
+                          const float* bi, bf16* mu, bf16* s, bf16* bb) {
+  for (int c = threadIdx.x; c < C; c += kThreads) {
+    if (c < normed) {
+      const int g = c / gs;
+      mu[c] = rb(grp[2 * g]);
+      s[c] = rb(grp[2 * g + 1] * sc[c]);
+      bb[c] = rb(bi[c]);
+    } else {
+      mu[c] = rb(0.f);
+      s[c] = rb(1.f);
+      bb[c] = rb(0.f);
+    }
+  }
+}
+
+// Sweep 1's finish, in rank 0 of the batch row's last cluster, from the totals
+// row tot (sums of k's c2 channels, the values' Co, q's c1, then their
+// squares): the first GroupNorm over [q, k], a q channel's sums times K
+// (each q row stands for K rows) -> q's and k's per-channel float32 (mul,
+// add), identity past normed0; the values' GroupNorm -> (mu, s, b) in bf16.
+// red: the groups' (mean, rstd), the first GroupNorm's then the values',
+// and group_stats' scratch.
+__device__ void finish_stats(const Args& a, const Dims& d, int b, const float* tot, float* red) {
+  const int c12 = d.c1 + d.c2, ctot = d.c2 + d.Co + d.c1;
+  const int ng0 = min(32, c12), normed0 = c12 - c12 % ng0, gs0 = normed0 / ng0;
+  const int ng2 = min(32, d.Co), normed2 = d.Co - d.Co % ng2, gs2 = normed2 / ng2;
+  const float rows = static_cast<float>(d.M) * static_cast<float>(d.K);
+  const float K = static_cast<float>(d.K);
+  const float* qt = tot + d.c2 + d.Co;
+  group_stats(ng0, gs0, rows * static_cast<float>(gs0), [&](int i) {
+    return i < d.c1 ? make_float2(__ldcg(qt + i) * K, __ldcg(qt + ctot + i) * K)
+                    : make_float2(__ldcg(tot + i - d.c1), __ldcg(tot + ctot + i - d.c1));
+  }, red, red + 128);
+  group_stats(ng2, gs2, rows * static_cast<float>(gs2), [&](int i) {
+    return make_float2(__ldcg(tot + d.c2 + i), __ldcg(tot + ctot + d.c2 + i));
+  }, red + 64, red + 128);
+  for (int i = threadIdx.x; i < c12; i += kThreads) {
+    float mul = 1.f, add = 0.f;
+    if (i < normed0) {
+      const int g = i / gs0;
+      mul = red[2 * g + 1] * a.sc0[i];
+      add = a.bi0[i] - red[2 * g] * mul;
+    }
+    if (i < d.c1) {
+      a.mulq[static_cast<size_t>(b) * d.c1 + i] = mul;
+      a.addq[static_cast<size_t>(b) * d.c1 + i] = add;
+    } else {
+      a.omulk[static_cast<size_t>(b) * d.c2 + i - d.c1] = mul;
+      a.oaddk[static_cast<size_t>(b) * d.c2 + i - d.c1] = add;
+    }
+  }
+  const size_t o = static_cast<size_t>(b) * d.Co;
+  write_pgn(red + 64, gs2, normed2, d.Co, a.sc2, a.bi2, a.fmu + o, a.fs + o, a.fbb + o);
+}
+
+// Sweep 2's finish: h's GroupNorm -> (mu, s, b) in bf16, from the totals
+// row tot (sums of h's I channels, then their squares)
+__device__ void finish_h(const Args& a, const Dims& d, int b, const float* tot, float* red) {
+  const int ng = min(32, d.I), normed = d.I - d.I % ng, gs = normed / ng;
+  group_stats(ng, gs, static_cast<float>(d.M) * static_cast<float>(d.K) * static_cast<float>(gs),
+              [&](int i) { return make_float2(__ldcg(tot + i), __ldcg(tot + d.I + i)); }, red,
+              red + 128);
+  const size_t o = static_cast<size_t>(b) * d.I;
+  write_pgn(red, gs, normed, d.I, a.sc0, a.bi0, a.fmu + o, a.fs + o, a.fbb + o);
+}
+
 // Sweep 1: per-column sums and sums of squares of k = relu(g W1 + b1) and
-// v = gfo W4 + b4 over one row tile -> row u of part (B, P, 2, c2 + Co).
-// Blocks y < gk take groups of cpb of k's column chunks, the rest v's.
+// v = gfo W4 + b4 over one row tile.  Blocks y < gk take groups of cpb of
+// k's column chunks, the rest v's; blocks y = 0 also sum q over their
+// cluster's slice of the centres.  -> the cluster's row u / cs of part
+// (B, Pr + 1, row of c2 + Co + c1); the batch row's last cluster adds the
+// rows up and finishes.
 template <int R>
 __global__ void __launch_bounds__(kThreads, 4) attn_stats_kernel(Args a, Dims d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -482,19 +796,35 @@ __global__ void __launch_bounds__(kThreads, 4) attn_stats_kernel(Args a, Dims d)
   bf16* A = sm.take(R * lda);
   bf16* raw = sm.take(raw_elems(R, max(d.Ck, d.Cv)));
   float* red = reinterpret_cast<float*>(sm.next);
+  float* csum = red + kRedFloats;  // the block's column sums: nb sums, then nb squares
+  const int nb = n_hi - n_lo;
   uint64_t* abar = sm.bars + kStages;
+  int* tk = a.tickets + kTicketInts * b;
+  const int cs = d.P / d.Pr, uc = u / cs, rank = u - uc * cs;  // the cluster, the rank in it
+  const int ticket = start_ticket(tk, rank);
+  const int ctot = d.c2 + d.Co + d.c1, ld = row_floats(ctot);
+  float* part = a.part + static_cast<size_t>(b) * (d.Pr + 1) * ld;
+  float* row = part + static_cast<size_t>(uc) * ld;
   init_bars(sm.bars);
   const int head = issue_rows(raw, src, C, static_cast<size_t>(u) * R, nrows, abar);
   if (d.resident) {  // the block's rows of the weight, once
     stage_rows(const_cast<bf16*>(w.s), wt, Cp, n_lo, n_hi - n_lo);
     bar_arrive_copies(sm.bars);
   }
+  if (blockIdx.y == 0) {  // q over the cluster's slice of the centres, while the copies land
+    const int mq = (d.M + d.Pr - 1) / d.Pr;
+    const int m0 = min(d.M, uc * mq);
+    q_sums(a.mm + static_cast<size_t>(b) * d.M * d.c1, a.b0, d.c1, m0, min(d.M, m0 + mq),
+           row + d.c2 + d.Co, row + ctot + d.c2 + d.Co, rank * kThreads + threadIdx.x,
+           cs * kThreads);
+    if (rank == 0) {
+      for (int i = 2 * ctot + threadIdx.x; i < ld; i += kThreads) row[i] = 0.f;
+    }
+  }
   zero_pad(A, lda, C, Cp, R);
   bar_wait(abar, 0);
   lay_out(A, lda, raw, head, C, nrows);
   if (d.resident) bar_wait(sm.bars, 0);
-  const int ctot = d.c2 + d.Co;
-  float* part = a.part + (static_cast<size_t>(b) * d.P + u) * 2 * ctot + (is_k ? 0 : d.c2);
   float acc[Shape<R>::NT][4];
   for (int n0 = n_lo; n0 < n_hi; n0 += kNC) {
     const int ncols = min(kNC, n_hi - n0);
@@ -513,12 +843,24 @@ __global__ void __launch_bounds__(kThreads, 4) attn_stats_kernel(Args a, Dims d)
         }
       }
     }
-    sums.write(red, n0, ncols, cout, ctot, part);
+    sums.write(red, n0 - n_lo, ncols, cout - n_lo, nb, csum);
   }
+  const int nclusters = d.Pr * static_cast<int>(gridDim.y);
+  int* flag = reinterpret_cast<int*>(smem_raw + kFlagOffset);
+  if (!cluster_row(csum, nb, min(n_hi, cout) - n_lo, row + (is_k ? 0 : d.c2) + n_lo, ctot, tk,
+                   ticket, nclusters, flag)) {
+    return;
+  }
+  column_totals(part, d.Pr, ld, tk, nclusters, reinterpret_cast<double*>(smem_raw + kBarBytes));
+  if (rank != 0) return;
+  if (threadIdx.x == 0) tk[0] = tk[1] = 0;
+  finish_stats(a, d, b, part + static_cast<size_t>(d.Pr) * ld, red);
 }
 
 // Sweep 2: per-column sums of h = relu(qp + (kn W2k + b2)) over one row
-// tile, a group of cpb of h's column chunks -> row u of part (B, P, 2, I).
+// tile, a group of cpb of h's column chunks -> the cluster's row u / cs of
+// part (B, Pr + 1, row of I); the batch row's last cluster adds the rows up
+// and finishes.
 template <int R>
 __global__ void __launch_bounds__(kThreads, 4) attn_hstats_kernel(Args a, Dims d) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -545,7 +887,12 @@ __global__ void __launch_bounds__(kThreads, 4) attn_hstats_kernel(Args a, Dims d
   // is laid out
   bf16* raw = raw_elems(R, d.Ck) <= R * ldk ? kn : sm.take(raw_elems(R, d.Ck));
   float* red = reinterpret_cast<float*>(sm.next);
+  float* csum = red + kRedFloats;  // the block's column sums: nb sums, then nb squares
+  const int nb = n_hi - n_lo;
   uint64_t* abar = sm.bars + kStages;
+  int* tk = a.tickets + kTicketInts * b;
+  const int cs = d.P / d.Pr, uc = u / cs, rank = u - uc * cs;  // the cluster, the rank in it
+  const int ticket = start_ticket(tk, rank);
   init_bars(sm.bars);
   const int head = issue_rows(raw, src, d.Ck, static_cast<size_t>(u) * R, nrows, abar);
   if (d.resident) {
@@ -563,7 +910,9 @@ __global__ void __launch_bounds__(kThreads, 4) attn_hstats_kernel(Args a, Dims d
   key_norm<R>(A, lda, a, d, mulk, addk, kn, ldk, w1, ring);
   // the centres of this thread's two rows
   const int m_lo = (u * R + acc_row<R>(0)) / d.K, m_hi = (u * R + acc_row<R>(2)) / d.K;
-  float* part = a.part + (static_cast<size_t>(b) * d.P + u) * 2 * d.I;
+  const int ld = row_floats(d.I);
+  float* part = a.part + static_cast<size_t>(b) * (d.Pr + 1) * ld;
+  float* row = part + static_cast<size_t>(uc) * ld;
   float acc[Shape<R>::NT][4];
   for (int n0 = n_lo; n0 < n_hi; n0 += kNC) {
     const int ncols = min(kNC, n_hi - n0);
@@ -583,8 +932,21 @@ __global__ void __launch_bounds__(kThreads, 4) attn_hstats_kernel(Args a, Dims d
         }
       }
     }
-    sums.write(red, n0, ncols, d.I, d.I, part);
+    sums.write(red, n0 - n_lo, ncols, d.I - n_lo, nb, csum);
   }
+  if (blockIdx.y == 0 && rank == 0) {
+    for (int i = 2 * d.I + threadIdx.x; i < ld; i += kThreads) row[i] = 0.f;
+  }
+  const int nclusters = d.Pr * static_cast<int>(gridDim.y);
+  int* flag = reinterpret_cast<int*>(smem_raw + kFlagOffset);
+  if (!cluster_row(csum, nb, min(n_hi, d.I) - n_lo, row + n_lo, d.I, tk, ticket, nclusters,
+                   flag)) {
+    return;
+  }
+  column_totals(part, d.Pr, ld, tk, nclusters, reinterpret_cast<double*>(smem_raw + kBarBytes));
+  if (rank != 0) return;
+  if (threadIdx.x == 0) tk[0] = tk[1] = 0;
+  finish_h(a, d, b, part + static_cast<size_t>(d.Pr) * ld, red);
 }
 
 // One slot of the online softmax over a centre's slots: running maximum mx,
@@ -776,177 +1138,50 @@ __global__ void __launch_bounds__(kThreads, 4) attn_out_kernel(Args a, Dims d) {
   }
 }
 
-// ---- finishing kernels --------------------------------------------------
-// (a, b) summed over the block in a fixed order; every thread gets the sums
-__device__ __forceinline__ void block_sum2(float& a, float& b, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+// ---- the query rows -----------------------------------------------------------
+// qn = bf16(bf16(qd) * mul + add), qd = relu(bf16(mm + b0)), over (B, M, c1)
+// with q's per-channel (mul, add) (B, c1) from sweep 1's finish: a thread 8
+// consecutive values, one 16-byte load and store, where c1 is a multiple
+// of 8 and the pointers are 16-byte aligned (vec); else one value a thread.
+// Bound by bytes: mm read once, qn written once.
+constexpr int kQnThreads = 256;
+
+__global__ void __launch_bounds__(kQnThreads) attn_qn_kernel(
+    const bf16* __restrict__ mm, const bf16* __restrict__ b0, const float* __restrict__ mulq,
+    const float* __restrict__ addq, bf16* __restrict__ qn, int M, int c1, size_t n, int vec) {
+  const size_t stride = static_cast<size_t>(gridDim.x) * kQnThreads;
+  const size_t first = static_cast<size_t>(blockIdx.x) * kQnThreads + threadIdx.x;
+  if (vec) {
+    for (size_t v = first; v < n / 8; v += stride) {
+      const size_t row = 8 * v / c1;
+      const int c = static_cast<int>(8 * v - row * c1);
+      const size_t bc = row / M * c1 + c;
+      const uint4 x = __ldg(reinterpret_cast<const uint4*>(mm) + v);
+      const float4 m0 = __ldg(reinterpret_cast<const float4*>(mulq + bc));
+      const float4 m1 = __ldg(reinterpret_cast<const float4*>(mulq + bc) + 1);
+      const float4 a0 = __ldg(reinterpret_cast<const float4*>(addq + bc));
+      const float4 a1 = __ldg(reinterpret_cast<const float4*>(addq + bc) + 1);
+      const float mul[8] = {m0.x, m0.y, m0.z, m0.w, m1.x, m1.y, m1.z, m1.w};
+      const float add[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const bf16* xv = reinterpret_cast<const bf16*>(&x);
+      uint4 y;
+      bf16* yv = reinterpret_cast<bf16*>(&y);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    a += __shfl_xor_sync(PDR_FULL_MASK, a, off);
-    b += __shfl_xor_sync(PDR_FULL_MASK, b, off);
-  }
-  if (lane == 0) {
-    red[2 * warp] = a;
-    red[2 * warp + 1] = b;
-  }
-  __syncthreads();
-  a = red[0];
-  b = red[1];
-  for (int w = 1; w < kThreads / 32; ++w) {
-    a += red[2 * w];
-    b += red[2 * w + 1];
-  }
-}
-
-// sums over the P partial rows (B, P, 2, ctot) of channels [c0, c0 + n) at
-// offset `off`, this thread's share
-__device__ __forceinline__ void partial_sums(const float* part, int P, int ctot, int off,
-                                             int c0, int n, float& a, float& b) {
-  for (int i = threadIdx.x; i < P * n; i += kThreads) {
-    const int p = i / n;
-    const float* row = part + static_cast<size_t>(p) * 2 * ctot + off + c0 + (i - p * n);
-    a += row[0];
-    b += row[ctot];
-  }
-}
-
-__device__ __forceinline__ void mean_rstd(float sum, float ssq, float cnt, float& mean,
-                                          float& rstd) {
-  mean = sum / cnt;
-  rstd = rsqrtf(fmaxf(ssq / cnt - mean * mean, 0.f) + 1e-5f);
-}
-
-struct FinishArgs {
-  const bf16 *mm, *b0;          // (B, M, c1) = feat W0 rounded to bf16, (c1)
-  const float* part;            // (B, P, 2, ctot)
-  const float *sc0, *bi0;       // first GroupNorm (normed0)
-  const float *sc2, *bi2;       // GroupNorm of the values or of h (normed)
-  bf16* qn;                     // (B, M, c1)
-  float *mulk, *addk;           // (B, c2)
-  bf16 *mu, *s, *bb;            // (B, C) of the values or of h
-  int M, K, P, c1, c2, C;       // C: c_out (after sweep 1) or inter_c (after sweep 2)
-};
-
-// After sweep 1: blocks x < ng0 finish a group of the first GroupNorm over
-// [q (c1), k (c2)]: its q channels' sums over the centres (times K, each q
-// row standing for K rows), its k channels' from the partials; then mulk /
-// addk of its k channels and qn = bf16(qd * mul + add) of its q channels,
-// qd = relu(mm + b0).  Blocks ng0 <= x < ng0 + ng2 finish a group of the
-// values' GroupNorm: (mu, s, b) in bf16.  The last block writes the
-// passthrough channels past each normed width (identity).
-__global__ void __launch_bounds__(kThreads) attn_finish_stats_kernel(FinishArgs f) {
-  __shared__ float red[2 * kThreads / 32];
-  const int b = blockIdx.y, x = blockIdx.x;
-  const int c12 = f.c1 + f.c2, ctot = f.c2 + f.C;
-  const int ng0 = min(32, c12), normed0 = c12 - c12 % ng0;
-  const int ng2 = min(32, f.C), normed2 = f.C - f.C % ng2;
-  const float* part = f.part + static_cast<size_t>(b) * f.P * 2 * ctot;
-  const bf16* mm = f.mm + static_cast<size_t>(b) * f.M * f.c1;
-  bf16* qn = f.qn + static_cast<size_t>(b) * f.M * f.c1;
-  auto qd_at = [&](int m, int c) {
-    return brelu(badd(mm[static_cast<size_t>(m) * f.c1 + c], f.b0[c]));
-  };
-  if (x < ng0) {
-    const int gs = normed0 / ng0, ch0 = x * gs;
-    const int nq = max(0, min(ch0 + gs, f.c1) - ch0);  // q channels [ch0, ch0 + nq)
-    const int k0 = max(ch0, f.c1) - f.c1, nk = gs - nq;  // k channels [k0, k0 + nk)
-    float qa = 0.f, qb = 0.f, ka = 0.f, kb = 0.f;
-    for (int i = threadIdx.x; i < f.M * nq; i += kThreads) {
-      const int m = i / nq;
-      const float v = bf(qd_at(m, ch0 + i - m * nq));
-      qa += v;
-      qb += v * v;
-    }
-    partial_sums(part, f.P, ctot, 0, k0, nk, ka, kb);
-    block_sum2(qa, qb, red);
-    __syncthreads();
-    block_sum2(ka, kb, red);
-    float mean, rstd;
-    mean_rstd(qa * static_cast<float>(f.K) + ka, qb * static_cast<float>(f.K) + kb,
-              static_cast<float>(f.M) * static_cast<float>(f.K) * static_cast<float>(gs),
-              mean, rstd);
-    for (int i = threadIdx.x; i < nk; i += kThreads) {
-      const int ch = f.c1 + k0 + i;
-      const float mul = rstd * f.sc0[ch];
-      f.mulk[static_cast<size_t>(b) * f.c2 + k0 + i] = mul;
-      f.addk[static_cast<size_t>(b) * f.c2 + k0 + i] = f.bi0[ch] - mean * mul;
-    }
-    for (int i = threadIdx.x; i < f.M * nq; i += kThreads) {
-      const int m = i / nq;
-      const int c = ch0 + i - m * nq;
-      const float mul = rstd * f.sc0[c];
-      const float add = f.bi0[c] - mean * mul;
-      qn[static_cast<size_t>(m) * f.c1 + c] = rb(bf(qd_at(m, c)) * mul + add);
-    }
-  } else if (x < ng0 + ng2) {
-    const int gs = normed2 / ng2, ch0 = (x - ng0) * gs;
-    float sa = 0.f, sb = 0.f;
-    partial_sums(part, f.P, ctot, f.c2, ch0, gs, sa, sb);
-    block_sum2(sa, sb, red);
-    float mean, rstd;
-    mean_rstd(sa, sb, static_cast<float>(f.M) * static_cast<float>(f.K) * static_cast<float>(gs),
-              mean, rstd);
-    for (int i = threadIdx.x; i < gs; i += kThreads) {
-      const size_t o = static_cast<size_t>(b) * f.C + ch0 + i;
-      f.mu[o] = rb(mean);
-      f.s[o] = rb(rstd * f.sc2[ch0 + i]);
-      f.bb[o] = rb(f.bi2[ch0 + i]);
+      for (int e = 0; e < 8; ++e) yv[e] = rb(bf(brelu(badd(xv[e], b0[c + e]))) * mul[e] + add[e]);
+      reinterpret_cast<uint4*>(qn)[v] = y;
     }
   } else {
-    const int nq = max(0, f.c1 - normed0);  // q channels past normed0
-    for (int i = threadIdx.x; i < f.M * nq; i += kThreads) {
-      const int m = i / nq;
-      const int c = normed0 + i - m * nq;
-      qn[static_cast<size_t>(m) * f.c1 + c] = qd_at(m, c);
-    }
-    for (int kc = max(0, normed0 - f.c1) + threadIdx.x; kc < f.c2; kc += kThreads) {
-      f.mulk[static_cast<size_t>(b) * f.c2 + kc] = 1.f;
-      f.addk[static_cast<size_t>(b) * f.c2 + kc] = 0.f;
-    }
-    for (int c = normed2 + threadIdx.x; c < f.C; c += kThreads) {
-      const size_t o = static_cast<size_t>(b) * f.C + c;
-      f.mu[o] = rb(0.f);
-      f.s[o] = rb(1.f);
-      f.bb[o] = rb(0.f);
-    }
-  }
-}
-
-// After sweep 2: (mu, s, b) of h's GroupNorm in bf16, one block a group and
-// the last for the passthrough channels.
-__global__ void __launch_bounds__(kThreads) attn_finish_h_kernel(FinishArgs f) {
-  __shared__ float red[2 * kThreads / 32];
-  const int b = blockIdx.y, x = blockIdx.x;
-  const int ng = min(32, f.C), normed = f.C - f.C % ng;
-  const float* part = f.part + static_cast<size_t>(b) * f.P * 2 * f.C;
-  if (x < ng) {
-    const int gs = normed / ng, ch0 = x * gs;
-    float sa = 0.f, sb = 0.f;
-    partial_sums(part, f.P, f.C, 0, ch0, gs, sa, sb);
-    block_sum2(sa, sb, red);
-    float mean, rstd;
-    mean_rstd(sa, sb, static_cast<float>(f.M) * static_cast<float>(f.K) * static_cast<float>(gs),
-              mean, rstd);
-    for (int i = threadIdx.x; i < gs; i += kThreads) {
-      const size_t o = static_cast<size_t>(b) * f.C + ch0 + i;
-      f.mu[o] = rb(mean);
-      f.s[o] = rb(rstd * f.sc2[ch0 + i]);
-      f.bb[o] = rb(f.bi2[ch0 + i]);
-    }
-  } else {
-    for (int c = normed + threadIdx.x; c < f.C; c += kThreads) {
-      const size_t o = static_cast<size_t>(b) * f.C + c;
-      f.mu[o] = rb(0.f);
-      f.s[o] = rb(1.f);
-      f.bb[o] = rb(0.f);
+    for (size_t i = first; i < n; i += stride) {
+      const size_t row = i / c1;
+      const int c = static_cast<int>(i - row * c1);
+      const size_t bc = row / M * c1 + c;
+      qn[i] = rb(bf(brelu(badd(mm[i], b0[c]))) * mulq[bc] + addq[bc]);
     }
   }
 }
 
 // ---- host side --------------------------------------------------------------
-constexpr int kRedBytes = 2 * 4 * kNC * 4;
 
-// shared memory of sweep S (1, 2, 3) at R rows a tile
 // weights a block keeps resident (elements), given d.cpb
 size_t weight_elems(int S, const Dims& d) {
   const size_t rows = static_cast<size_t>(d.cpb) * kNC;
@@ -972,7 +1207,8 @@ size_t smem_bytes(int S, int R, const Dims& d) {
     if (raw_elems(R, d.Ck) > R * ldk) e += raw_elems(R, d.Ck);
     if (raw_elems(R, d.Cv) > 2 * R * kSLd) e += raw_elems(R, d.Cv);
   }
-  return kBarBytes + 2 * e + (S == 3 ? 0 : kRedBytes);
+  // sweeps 1 and 2: a chunk's row-group sums, then the block's column sums
+  return kBarBytes + 2 * e + (S == 3 ? 0 : kRedBytes + 2 * sizeof(float) * d.cpb * kNC);
 }
 
 template <int S, int R>
@@ -1054,34 +1290,145 @@ Plan plan(int S, Dims d, int B) {
   return best;
 }
 
+// ---- clusters of sweeps 1 and 2 ------------------------------------------
+// Sweeps 1 and 2 launch in clusters of cs consecutive row tiles, cs dividing
+// the row tiles: the largest of kMaxCluster, ..., 2 whose clusters keep at
+// least (kResidentLoss - 1) / kResidentLoss of the blocks lone blocks keep
+// resident (a cluster must fit one GPC), and 1 where none does or where the
+// grid is less than one wave of lone blocks (clusters are packed onto fewer
+// SMs than lone blocks are spread over).  Clusters of 4 and 8 ran the 17
+// sites of a denoise step slower than clusters of 2 on an H100 (PERF.md):
+// each block waits at the cluster barriers for the cluster's slowest.
+constexpr int kMaxCluster = 2;
+constexpr int kResidentLoss = 16;
+
+// Blocks of `fn` resident at once on the current device in clusters of cs
+// (cudaOccupancyMaxActiveClusters; cs = 1: blocks an SM times the SMs),
+// asked once per device, kernel, shared memory and cluster size.
+cudaError_t resident_blocks(const void* fn, size_t smem, int cs, int* n) {
+  static std::mutex mu;
+  static std::map<std::tuple<int, const void*, size_t, int>, int> seen;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const auto key = std::make_tuple(device, fn, smem, cs);
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = seen.find(key);
+  if (it != seen.end()) {
+    *n = it->second;
+    return cudaSuccess;
+  }
+  int count = 0;
+  if (cs == 1) {
+    int sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&count, fn, kThreads, smem);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+    }
+    count *= sms;
+  } else {
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cs;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(cs, 1, 1);
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&count, fn, &cfg);
+    count *= cs;
+  }
+  if (err != cudaSuccess) return err;
+  *n = seen[key] = count;
+  return cudaSuccess;
+}
+
+template <int S, int R>
+cudaError_t cluster_size(const Plan& p, int B, int* cs) {
+  *cs = 1;
+  cudaError_t err = allow_smem<S, R>(p.smem);
+  int lone = 0;
+  if (err == cudaSuccess) err = resident_blocks(kernel_of<S, R>(), p.smem, 1, &lone);
+  if (err != cudaSuccess || static_cast<long>(p.units) * p.groups * B < lone) return err;
+  for (int c = kMaxCluster; c > 1; c /= 2) {
+    if (p.units % c != 0) continue;
+    int n = 0;
+    err = resident_blocks(kernel_of<S, R>(), p.smem, c, &n);
+    if (err != cudaSuccess) return err;
+    if (static_cast<long>(n) * kResidentLoss >= static_cast<long>(lone) * (kResidentLoss - 1)) {
+      *cs = c;
+      break;
+    }
+  }
+  return cudaSuccess;
+}
+
+template <int S>
+cudaError_t cluster_of(const Plan& p, int B, int* cs) {
+  if (p.R == 64) return cluster_size<S, 64>(p, B, cs);
+  if (p.R == 32) return cluster_size<S, 32>(p, B, cs);
+  return cluster_size<S, 16>(p, B, cs);
+}
+
+// Sweeps 1 and 2: d.Pr must be the row tiles over the cluster size (the
+// caller sized the partial sums by it: Pr + 1 rows a batch row, the last the
+// totals).  A refused cluster launch returns its error.
 template <int S, int R>
 int launch_at(const Args& a, Dims d, const Plan& p, int B, cudaStream_t s) {
-  const cudaError_t err = allow_smem<S, R>(p.smem);
+  cudaError_t err = allow_smem<S, R>(p.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   d.cpb = p.cpb;
   d.resident = p.resident;
   const dim3 grid(p.units, p.groups, B);
-  if (S == 1) attn_stats_kernel<R><<<grid, kThreads, p.smem, s>>>(a, d);
-  if (S == 2) attn_hstats_kernel<R><<<grid, kThreads, p.smem, s>>>(a, d);
-  if (S == 3) attn_out_kernel<R><<<grid, kThreads, p.smem, s>>>(a, d);
+  if constexpr (S == 3) {
+    attn_out_kernel<R><<<grid, kThreads, p.smem, s>>>(a, d);
+  } else {
+    int cs = 1;
+    err = cluster_size<S, R>(p, B, &cs);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (p.units / cs != d.Pr) return static_cast<int>(cudaErrorInvalidValue);
+    d.P = p.units;
+    cudaLaunchAttribute attr;
+    attr.id = cudaLaunchAttributeClusterDimension;
+    attr.val.clusterDim.x = cs;
+    attr.val.clusterDim.y = 1;
+    attr.val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = grid;
+    cfg.blockDim = dim3(kThreads, 1, 1);
+    cfg.dynamicSmemBytes = p.smem;
+    cfg.stream = s;
+    cfg.attrs = &attr;
+    cfg.numAttrs = 1;
+    if constexpr (S == 1) {
+      err = cudaLaunchKernelEx(&cfg, attn_stats_kernel<R>, a, d);
+    } else {
+      err = cudaLaunchKernelEx(&cfg, attn_hstats_kernel<R>, a, d);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   PDR_RETURN_LAUNCH_ERROR();
 }
 
-// The caller's P must be the plan's row blocks (it sized the partial sums).
+// The caller's P: the plan's row blocks (sweep 3) or the rows of partial
+// sums (sweeps 1 and 2, in d.Pr).
 template <int S>
 int run(const Args& a, Dims d, int B, cudaStream_t s) {
   if (B < 1 || d.M < 1 || d.K < 1) return static_cast<int>(cudaErrorInvalidValue);
   const Plan p = plan(S, d, B);
-  if (p.R == 0 || p.units != d.P) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.R == 0 || (S == 3 && p.units != d.P)) return static_cast<int>(cudaErrorInvalidValue);
   if (p.R == 64) return launch_at<S, 64>(a, d, p, B, s);
   if (p.R == 32) return launch_at<S, 32>(a, d, p, B, s);
   return launch_at<S, 16>(a, d, p, B, s);
 }
 
-Dims make_dims(int M, int K, int P, int Ck, int Cv, int c2, int I, int Co) {
+Dims make_dims(int M, int K, int P, int Ck, int Cv, int c2, int I, int Co, int c1) {
   Dims d;
-  d.M = M; d.K = K; d.P = P; d.cpb = 1; d.resident = 0;
-  d.Ck = Ck; d.Cv = Cv; d.c2 = c2; d.I = I; d.Co = Co;
+  d.M = M; d.K = K; d.P = P; d.Pr = P; d.cpb = 1; d.resident = 0;
+  d.Ck = Ck; d.Cv = Cv; d.c2 = c2; d.I = I; d.Co = Co; d.c1 = c1;
   d.Ckp = up16(Ck); d.Cvp = up16(Cv); d.c2p = up16(c2); d.Ip = up16(I); d.Cop = up16(Co);
   return d;
 }
@@ -1092,38 +1439,85 @@ const T* cp(const void* p) { return static_cast<const T*>(p); }
 }  // namespace
 
 // Weights are bf16, transposed (out, in) and zero-padded to multiples of 16
-// on both axes; biases bf16, zero-padded alike.  Any K >= 1.  P: the row
-// blocks pdr_attention_row_blocks gives (the partial sums have P rows).  A
-// width whose 16-row tile does not fit a block's shared memory returns
-// cudaErrorInvalidValue.
+// on both axes; biases bf16, zero-padded alike.  Any K >= 1.  P: sweep 3's
+// row blocks (pdr_attention_row_blocks); for sweeps 1 and 2 the rows of
+// partial sums, their row blocks over pdr_attention_cluster_size (the
+// partial sums have P + 1 rows a batch row, the last their column totals,
+// each row C sums and C squares padded to a multiple of 4 floats).
+// tickets: (B, 2) int32, zero on entry, left zero; launches that share them
+// must not overlap.  A width whose 16-row tile does not fit a block's shared
+// memory returns cudaErrorInvalidValue.
 
-// g (B, M, K, Ck), gfo (B, M, K, Cv) bf16 -> part (B, P, 2, c2 + Co) float32
-// per-row-block partial sums of k (columns [0, c2)) and v ([c2, c2 + Co)).
+// Sweep 1 and its finish.  g (B, M, K, Ck), gfo (B, M, K, Cv) bf16, mm
+// (B, M, c1) bf16 = feat W0 (before its bias), b0 (c1) bf16, the first
+// GroupNorm's scale / bias (normed0) and the values' (normed2) float32 ->
+// part (B, P + 1, row of c2 + Co + c1) float32 (the row tiles' sums of k,
+// v and q; row P their totals), mulq / addq (B, c1) and mulk / addk (B, c2)
+// float32, mu2 / s2 / bb2 (B, Co) bf16.
 extern "C" int pdr_attention_stats(const void* g, const void* gfo, const void* w1t,
                                    const void* b1, const void* w4t, const void* b4,
-                                   void* part, int B, int M, int K, int Ck, int Cv, int c2,
-                                   int Co, int P, void* stream) {
+                                   const void* mm, const void* b0, const void* sc0,
+                                   const void* bi0, const void* sc2, const void* bi2,
+                                   void* part, void* mulq, void* addq, void* mulk, void* addk,
+                                   void* mu2, void* s2, void* bb2, void* tickets, int B, int M,
+                                   int K, int Ck, int Cv, int c2, int Co, int c1, int P,
+                                   void* stream) {
   Args a = {};
   a.g = cp<bf16>(g); a.gfo = cp<bf16>(gfo);
   a.w1t = cp<bf16>(w1t); a.b1 = cp<bf16>(b1);
   a.w4t = cp<bf16>(w4t); a.b4 = cp<bf16>(b4);
+  a.mm = cp<bf16>(mm); a.b0 = cp<bf16>(b0);
+  a.sc0 = cp<float>(sc0); a.bi0 = cp<float>(bi0);
+  a.sc2 = cp<float>(sc2); a.bi2 = cp<float>(bi2);
   a.part = static_cast<float*>(part);
-  return run<1>(a, make_dims(M, K, P, Ck, Cv, c2, 16, Co), B, static_cast<cudaStream_t>(stream));
+  a.mulq = static_cast<float*>(mulq); a.addq = static_cast<float*>(addq);
+  a.omulk = static_cast<float*>(mulk); a.oaddk = static_cast<float*>(addk);
+  a.fmu = static_cast<bf16*>(mu2); a.fs = static_cast<bf16*>(s2); a.fbb = static_cast<bf16*>(bb2);
+  a.tickets = static_cast<int*>(tickets);
+  if (c1 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return run<1>(a, make_dims(M, K, P, Ck, Cv, c2, 16, Co, c1), B,
+                static_cast<cudaStream_t>(stream));
 }
 
-// + qp (B, M, I) bf16, mulk / addk (B, c2) float32 -> part (B, P, 2, I).
+// qn = bf16(bf16(relu(bf16(mm + b0))) * mulq + addq): mm, qn (B, M, c1) bf16,
+// b0 (c1) bf16, mulq / addq (B, c1) float32.
+extern "C" int pdr_attention_qn(const void* mm, const void* b0, const void* mulq,
+                                const void* addq, void* qn, int B, int M, int c1, void* stream) {
+  if (B < 1 || M < 1 || c1 < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t n = static_cast<size_t>(B) * M * c1;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(mm) | reinterpret_cast<uintptr_t>(mulq) |
+                         reinterpret_cast<uintptr_t>(addq) | reinterpret_cast<uintptr_t>(qn);
+  const int vec = c1 % 8 == 0 && (ptrs & 15) == 0;
+  const size_t work = vec ? n / 8 : n;
+  const int blocks = static_cast<int>(
+      std::min<size_t>((work + kQnThreads - 1) / kQnThreads, 132 * 16));
+  attn_qn_kernel<<<blocks, kQnThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      cp<bf16>(mm), cp<bf16>(b0), cp<float>(mulq), cp<float>(addq), static_cast<bf16*>(qn), M,
+      c1, n, vec);
+  PDR_RETURN_LAUNCH_ERROR();
+}
+
+// Sweep 2 and its finish.  + qp (B, M, I) bf16, mulk / addk (B, c2) float32,
+// h's GroupNorm scale / bias (normed1) float32 -> part (B, P + 1, row of I), mu1
+// / s1 / bb1 (B, I) bf16.
 extern "C" int pdr_attention_hstats(const void* g, const void* w1t, const void* b1,
                                     const void* mulk, const void* addk, const void* w2kt,
-                                    const void* b2, const void* qp, void* part, int B, int M,
-                                    int K, int Ck, int c2, int I, int P, void* stream) {
+                                    const void* b2, const void* qp, const void* sc1,
+                                    const void* bi1, void* part, void* mu1, void* s1, void* bb1,
+                                    void* tickets, int B, int M, int K, int Ck, int c2, int I,
+                                    int P, void* stream) {
   Args a = {};
   a.g = cp<bf16>(g);
   a.w1t = cp<bf16>(w1t); a.b1 = cp<bf16>(b1);
   a.mulk = cp<float>(mulk); a.addk = cp<float>(addk);
   a.w2kt = cp<bf16>(w2kt); a.b2 = cp<bf16>(b2);
   a.qp = cp<bf16>(qp);
+  a.sc0 = cp<float>(sc1); a.bi0 = cp<float>(bi1);
   a.part = static_cast<float*>(part);
-  return run<2>(a, make_dims(M, K, P, Ck, 16, c2, I, 16), B, static_cast<cudaStream_t>(stream));
+  a.fmu = static_cast<bf16*>(mu1); a.fs = static_cast<bf16*>(s1); a.fbb = static_cast<bf16*>(bb1);
+  a.tickets = static_cast<int*>(tickets);
+  return run<2>(a, make_dims(M, K, P, Ck, 16, c2, I, 16, 32), B,
+                static_cast<cudaStream_t>(stream));
 }
 
 // + the GroupNorm vectors mu/s/b of h (B, I) and of v (B, Co) in bf16, counts
@@ -1149,53 +1543,32 @@ extern "C" int pdr_attention_out(const void* g, const void* gfo, const void* w1t
   a.mu2 = cp<bf16>(mu2); a.s2 = cp<bf16>(s2); a.bb2 = cp<bf16>(bb2);
   a.counts = cp<int>(counts);
   a.out = static_cast<float*>(out);
-  return run<3>(a, make_dims(M, K, P, Ck, Cv, c2, I, Co), B, static_cast<cudaStream_t>(stream));
+  return run<3>(a, make_dims(M, K, P, Ck, Cv, c2, I, Co, 32), B,
+                static_cast<cudaStream_t>(stream));
 }
 
 // The row blocks P of sweep S (1: stats, 2: hstats, 3: out) at these sizes:
-// row tiles a batch row (sweeps 1, 2) or units of whole centres (sweep 3),
-// the rows of the partial sums the caller allocates and passes back; 0 when
-// no row tile fits a block's shared memory.
+// row tiles a batch row (sweeps 1, 2: the rows of partial sums, one more
+// for their totals) or units of whole centres (sweep 3); 0 when no row tile
+// fits a block's shared memory.
 extern "C" int pdr_attention_row_blocks(int S, int B, int M, int K, int Ck, int Cv, int c2,
                                         int I, int Co) {
   if (B < 1 || M < 1 || K < 1 || S < 1 || S > 3) return 0;
-  return plan(S, make_dims(M, K, 0, Ck, Cv, c2, I, Co), B).units;
+  return plan(S, make_dims(M, K, 0, Ck, Cv, c2, I, Co, 32), B).units;
 }
 
-// After sweep 1: mm (B, M, c1) bf16 = feat W0 (before its bias), b0 (c1)
-// bf16, part (B, P, 2, c2 + Co), the first GroupNorm's scale / bias
-// (normed0) and the values' (normed2) float32 -> qn (B, M, c1) bf16, mulk /
-// addk (B, c2) float32, mu2 / s2 / bb2 (B, Co) bf16.
-extern "C" int pdr_attention_finish_stats(const void* mm, const void* b0, const void* part,
-                                          const void* sc0, const void* bi0, const void* sc2,
-                                          const void* bi2, void* qn, void* mulk, void* addk,
-                                          void* mu2, void* s2, void* bb2, int B, int M, int K,
-                                          int P, int c1, int c2, int Co, void* stream) {
-  if (B < 1 || M < 1 || c1 < 1 || c2 < 1 || Co < 1) return static_cast<int>(cudaErrorInvalidValue);
-  FinishArgs f = {cp<bf16>(mm), cp<bf16>(b0), cp<float>(part), cp<float>(sc0), cp<float>(bi0),
-                  cp<float>(sc2), cp<float>(bi2), static_cast<bf16*>(qn),
-                  static_cast<float*>(mulk), static_cast<float*>(addk), static_cast<bf16*>(mu2),
-                  static_cast<bf16*>(s2), static_cast<bf16*>(bb2), M, K, P, c1, c2, Co};
-  const dim3 grid(std::min(32, c1 + c2) + std::min(32, Co) + 1, B);
-  attn_finish_stats_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(f);
-  PDR_RETURN_LAUNCH_ERROR();
-}
-
-// After sweep 2: part (B, P, 2, I), h's GroupNorm scale / bias (normed1)
-// float32 -> mu1 / s1 / bb1 (B, I) bf16.
-extern "C" int pdr_attention_finish_h(const void* part, const void* sc1, const void* bi1,
-                                      void* mu1, void* s1, void* bb1, int B, int M, int K,
-                                      int P, int I, void* stream) {
-  if (B < 1 || M < 1 || I < 1) return static_cast<int>(cudaErrorInvalidValue);
-  FinishArgs f = {};
-  f.part = cp<float>(part);
-  f.sc2 = cp<float>(sc1);
-  f.bi2 = cp<float>(bi1);
-  f.mu = static_cast<bf16*>(mu1);
-  f.s = static_cast<bf16*>(s1);
-  f.bb = static_cast<bf16*>(bb1);
-  f.M = M; f.K = K; f.P = P; f.C = I;
-  const dim3 grid(std::min(32, I) + 1, B);
-  attn_finish_h_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(f);
-  PDR_RETURN_LAUNCH_ERROR();
+// The cluster size of sweep S (1: stats, 2: hstats) at these sizes on the
+// current device; 0 when no row tile fits or a device query fails.
+extern "C" int pdr_attention_cluster_size(int S, int B, int M, int K, int Ck, int Cv, int c2,
+                                          int I, int Co) {
+  if (B < 1 || M < 1 || K < 1 || (S != 1 && S != 2)) return 0;
+  const Plan p = plan(S, make_dims(M, K, 0, Ck, Cv, c2, I, Co, 32), B);
+  if (p.R == 0) return 0;
+  int cs = 0;
+  const cudaError_t err = S == 1 ? cluster_of<1>(p, B, &cs) : cluster_of<2>(p, B, &cs);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return 0;
+  }
+  return cs;
 }

@@ -14,13 +14,17 @@ Counterpart of the JAX package's ``ops/pallas_attention.py``:
                     mask, float32 softmax over K, values relu(GN(gfo W4 + b4)),
                     weighted sum over K -> (B, M, c_out) float32
 
-Between the sweeps, on GPU tensors, two finishing kernels turn the sweeps'
-partial sums into the GroupNorm vectors (``attention_finish_stats``: the
-first GroupNorm over [q, k], with the query rows ``qn``, and the values';
-``attention_finish_h``: h's), whose plain counterparts are the JAX
-package's ``_group_mul_add`` / ``_pgn_mu_s_b`` glue.  The query path's two
-products (``feat W0`` and ``qn W2q``) stay ``torch.matmul``, as the JAX
-package leaves them to XLA.
+On GPU tensors the first two sweeps also finish the GroupNorm vectors the
+next kernel reads (the JAX package's ``_group_mul_add`` / ``_pgn_mu_s_b``
+glue between its sweeps): both run in thread-block clusters of row tiles
+that add their blocks' column sums into one row a cluster; sweep 1 sums
+q = relu(feat W0 + b0) over the centres beside k and v, and the last
+cluster of each batch row adds the rows up and writes the first
+GroupNorm's (mul, add) over [q, k] and the values' (mu, s, b); sweep 2's
+writes h's.  One elementwise pass, ``attention_qn``, writes the
+normalised query rows ``qn`` between them.  The query path's two products
+(``feat W0``, now before sweep 1, and ``qn W2q``) stay ``torch.matmul``,
+as the JAX package leaves them to XLA.
 
 Rounding points are part of the function and both versions keep them: bf16
 operands, float32 accumulation rounded to bf16, bf16 bias add; the first
@@ -199,21 +203,26 @@ def _norm_widths(c: int) -> Tuple[int, int]:
     return ng, c - c % ng
 
 
-def _finish_stats_plain(mm, kst, vst, p: PreparedWeights, c1: int, c2: int, c_out: int,
-                        K: int):
-    """After sweep 1: qd = relu(mm + b0) (mm = feat W0 in bf16), the first
-    GroupNorm's (mul, add) over [q, k] -> qn (B, M, c1) bf16 and mul_k /
-    add_k (B, c2) float32; the values' GroupNorm (mu, s, b) (B, c_out)
-    float32."""
-    B, M, _ = mm.shape
+def attention_qsums_plain(mm, b0):
+    """Float32 per-channel sums and sums of squares of qd = relu(mm + b0)
+    (mm = feat W0 in bf16, (B, M, c1)) over the centres -> (B, 2, c1): what
+    sweep 1's blocks add up beside k and v."""
+    return _sums(torch.relu(mm + b0))
+
+
+def _stats_vectors_plain(kst, vst, qst, p: PreparedWeights, c1: int, c2: int, c_out: int,
+                         M: int, K: int):
+    """Sweep 1's finish from the sums of k, v and q: the first GroupNorm's
+    (mul, add) over [q, k] (a q channel's sums times K: each q row stands for
+    K rows) -> mul_q / add_q (B, c1) and mul_k / add_k (B, c2) float32,
+    identity past the normed width; the values' GroupNorm (mu, s, b)
+    (B, c_out) float32."""
+    B = kst.shape[0]
     rows = float(M) * float(K)
     ng0, normed0 = _norm_widths(c1 + c2)
     ng2, normed2 = _norm_widths(c_out)
-    qf = torch.relu(mm + p.b0).to(torch.float32)
-    q_sum = qf.sum(1) * float(K)
-    q_ssq = (qf * qf).sum(1) * float(K)
-    sum_c = torch.cat([q_sum, kst[:, 0]], dim=-1)[:, :normed0]
-    ssq_c = torch.cat([q_ssq, kst[:, 1]], dim=-1)[:, :normed0]
+    sum_c = torch.cat([qst[:, 0] * float(K), kst[:, 0]], dim=-1)[:, :normed0]
+    ssq_c = torch.cat([qst[:, 1] * float(K), kst[:, 1]], dim=-1)[:, :normed0]
     mul0, add0 = _group_mul_add(sum_c, ssq_c, *p.gn0, rows * (normed0 // ng0), ng0)
     nq = min(c1, normed0)
     nk = normed0 - nq
@@ -221,10 +230,27 @@ def _finish_stats_plain(mm, kst, vst, p: PreparedWeights, c1: int, c2: int, c_ou
     add_q = torch.cat([add0[:, :nq], add0.new_zeros(B, c1 - nq)], -1)
     mul_k = torch.cat([mul0[:, nq:], mul0.new_ones(B, c2 - nk)], -1).contiguous()
     add_k = torch.cat([add0[:, nq:], add0.new_zeros(B, c2 - nk)], -1).contiguous()
-    qn = (qf * mul_q[:, None, :] + add_q[:, None, :]).to(BF16)
     gn2 = _pgn_mu_s_b(vst[:, 0, :normed2], vst[:, 1, :normed2], *p.gn2,
                       rows * (normed2 // ng2), ng2, c_out)
-    return qn, mul_k, add_k, gn2
+    return mul_q, add_q, mul_k, add_k, gn2
+
+
+def attention_qn_plain(mm, b0, mul_q, add_q):
+    """Plain version of ``attention_qn``: qn = bf16(qd * mul_q + add_q) in
+    float32, qd = relu(mm + b0) in bf16 -> (B, M, c1) bf16."""
+    qf = torch.relu(mm + b0).to(torch.float32)
+    return (qf * mul_q[:, None, :] + add_q[:, None, :]).to(BF16)
+
+
+def _finish_stats_plain(mm, kst, vst, p: PreparedWeights, c1: int, c2: int, c_out: int,
+                        K: int):
+    """After sweep 1: qd = relu(mm + b0) (mm = feat W0 in bf16), the first
+    GroupNorm's (mul, add) over [q, k] -> qn (B, M, c1) bf16 and mul_k /
+    add_k (B, c2) float32; the values' GroupNorm (mu, s, b) (B, c_out)
+    float32."""
+    mul_q, add_q, mul_k, add_k, gn2 = _stats_vectors_plain(
+        kst, vst, attention_qsums_plain(mm, p.b0), p, c1, c2, c_out, mm.shape[1], K)
+    return attention_qn_plain(mm, p.b0, mul_q, add_q), mul_k, add_k, gn2
 
 
 def _finish_h_plain(hst, p: PreparedWeights, inter_c: int, M: int, K: int):
@@ -240,29 +266,54 @@ def _bf16_vectors(vectors):
 
 def attention_finish_stats_plain(mm, part, p: PreparedWeights, c1: int, c2: int,
                                  c_out: int, K: int):
-    """Plain version of ``attention_finish_stats``: the partial rows added up,
-    then ``_group_mul_add`` / ``_pgn_mu_s_b`` as the plain pool runs them."""
+    """The finishing after sweep 1 as one function (the first design's
+    kernel F0, now sweep 1's finish and ``attention_qn``): partial rows
+    (B, P, 2, c2 + c_out) added up, then ``_group_mul_add`` / ``_pgn_mu_s_b``
+    as the plain pool runs them -> qn, mul_k, add_k, gn2 in bf16."""
     kst, vst = part[:, :, :, :c2].sum(1), part[:, :, :, c2:].sum(1)
     qn, mul_k, add_k, gn2 = _finish_stats_plain(mm, kst, vst, p, c1, c2, c_out, K)
     return qn, mul_k, add_k, _bf16_vectors(gn2)
 
 
 def attention_finish_h_plain(part, p: PreparedWeights, inter_c: int, M: int, K: int):
-    """Plain version of ``attention_finish_h``."""
+    """The finishing after sweep 2 (the first design's kernel F1, now sweep
+    2's finish): partial rows (B, P, 2, inter_c) -> h's GroupNorm (mu, s, b)
+    (B, inter_c) bf16."""
     return _bf16_vectors(_finish_h_plain(part.sum(1), p, inter_c, M, K))
+
+
+def attention_stats_vectors_plain(mm, g2, gfo2, p: PreparedWeights, c1: int, K: int):
+    """Plain version of ``attention_stats`` (sweep 1 and its finish)."""
+    kst, vst = attention_stats_plain(g2, gfo2, p.key, p.value)
+    c2, c_out = p.key.w.shape[1], p.value.w.shape[1]
+    *vectors, gn2 = _stats_vectors_plain(kst, vst, attention_qsums_plain(mm, p.b0), p, c1, c2,
+                                         c_out, mm.shape[1], K)
+    return (*vectors, _bf16_vectors(gn2))
+
+
+def attention_hstats_vectors_plain(g2, qp, p: PreparedWeights, mul_k, add_k, K: int):
+    """Plain version of ``attention_hstats`` (sweep 2 and its finish)."""
+    hst = attention_hstats_plain(g2, qp, p.key, p.hidden, mul_k, add_k, K)
+    return attention_finish_h_plain(hst[:, None], p, p.hidden.w.shape[1], g2.shape[1] // K, K)
 
 
 # ---- the sweeps and the glue: kernels ---------------------------------------
 _CHUNK = 64  # output columns of a column chunk
 _SWEEPS = ("attention_stats", "attention_hstats", "attention_out")
 _ROW_BLOCKS: Dict[Tuple[int, ...], int] = {}
+_CLUSTERS: Dict[Tuple[int, ...], int] = {}
+# the int32 tickets of sweeps 1 and 2: (device index, batch rows) ->
+# (_TICKET_STREAMS, B, 2), and (device index, stream) -> its slot
+_TICKET_STREAMS = 16
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+_TICKET_SLOTS: Dict[Tuple[int, int], int] = {}
 
 
 def _row_blocks(sweep: int, B: int, M: int, K: int, Ck: int, Cv: int, c2: int, inter_c: int,
                 c_out: int) -> int:
     """Row blocks of sweep 1, 2 or 3 a batch row (row tiles, or units of
-    whole centres for the out sweep): the rows of its partial sums, from the
-    kernel's own plan, asked once per size."""
+    whole centres for the out sweep), from the kernel's own plan, asked
+    once per size."""
     key = (sweep, B, M, K, Ck, Cv, c2, inter_c, c_out)
     if key not in _ROW_BLOCKS:
         _ROW_BLOCKS[key] = kernels.query("attention_row_blocks", *key)
@@ -273,12 +324,64 @@ def _row_blocks(sweep: int, B: int, M: int, K: int, Ck: int, Cv: int, c2: int, i
     return _ROW_BLOCKS[key]
 
 
+def _cluster_size(sweep: int, B: int, M: int, K: int, Ck: int, Cv: int, c2: int, inter_c: int,
+                  c_out: int) -> int:
+    """Row tiles a thread-block cluster of sweep 1 or 2 holds on the card
+    (the kernel's rule, from the device's occupancy), asked once per size."""
+    key = (sweep, B, M, K, Ck, Cv, c2, inter_c, c_out)
+    if key not in _CLUSTERS:
+        _row_blocks(*key)
+        cs = kernels.query("attention_cluster_size", *key)
+        if cs < 1:
+            raise RuntimeError(f"{_SWEEPS[sweep - 1]}: the cluster occupancy query failed")
+        _CLUSTERS[key] = cs
+    return _CLUSTERS[key]
+
+
 def sweep_row_blocks(B: int, M: int, K: int, Ck: int, Cv: int, c2: int, inter_c: int,
                      c_out: int) -> Dict[str, int]:
     """{sweep: row blocks a batch row} on the card (the grid's first axis;
     column groups and batch rows multiply it)."""
     return {sweep: _row_blocks(s, B, M, K, Ck, Cv, c2, inter_c, c_out)
             for s, sweep in enumerate(_SWEEPS, start=1)}
+
+
+def sweep_partial_rows(B: int, M: int, K: int, Ck: int, Cv: int, c2: int, inter_c: int,
+                       c_out: int) -> Dict[str, int]:
+    """{sweep: rows of partial sums a batch row} of sweeps 1 and 2 on the
+    card: their row tiles over the cluster size."""
+    key = (B, M, K, Ck, Cv, c2, inter_c, c_out)
+    return {sweep: _row_blocks(s, *key) // _cluster_size(s, *key)
+            for s, sweep in enumerate(_SWEEPS[:2], start=1)}
+
+
+def _tickets(device: torch.device, B: int) -> torch.Tensor:
+    """The (B, 2) int32 tickets by which sweeps 1 and 2 find each batch
+    row's last cluster, for the current stream: one slot of a buffer
+    allocated with ``torch.zeros`` once per device and batch size, left at
+    0 by every launch, so no memset runs a call and a captured graph
+    replays.  Launches on one stream run one after another; each stream
+    that runs the pool gets a slot of its own (at most _TICKET_STREAMS a
+    device), so launches on two streams may overlap.  Raises inside a
+    graph capture if the pool never ran at this batch size on this device
+    (the zeroing would be captured, not run): warm up first, as
+    ``utils/graphs.py::CapturedFunction`` does."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    slot = _TICKET_SLOTS.get((device.index, stream))
+    if slot is None:
+        slot = sum(1 for d, _ in _TICKET_SLOTS if d == device.index)
+        if slot >= _TICKET_STREAMS:
+            raise RuntimeError(f"fused attention pool: more than {_TICKET_STREAMS} streams "
+                               f"ran it on device {device.index}")
+        _TICKET_SLOTS[(device.index, stream)] = slot
+    tickets = _TICKETS.get((device.index, B))
+    if tickets is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"fused attention pool: first call at batch size {B} inside a "
+                               "graph capture; call it once before capturing it")
+        tickets = _TICKETS[(device.index, B)] = torch.zeros(
+            (_TICKET_STREAMS, B, 2), dtype=torch.int32, device=device)
+    return tickets[slot]
 
 
 def _check_rows(name: str, g2: torch.Tensor, K: int) -> Tuple[int, int, int]:
@@ -295,37 +398,66 @@ def _need(layer: _Layer, name: str) -> _Layer:
     return layer
 
 
-def _stats_launch(g2, gfo2, key: _Layer, value: _Layer, K: int) -> torch.Tensor:
+def _partial_sums(B: int, P: int, C: int, device) -> torch.Tensor:
+    """Scratch of sweep 1 or 2: P rows of partial sums a batch row (one a
+    cluster) and their column totals, each row C sums and C squares padded
+    to 16 bytes."""
+    return torch.empty((B, P + 1, (2 * C + 3) // 4 * 4), dtype=torch.float32, device=device)
+
+
+def _sums_view(part: torch.Tensor, C: int) -> torch.Tensor:
+    """The partial sums as (B, P + 1, 2, C)."""
+    return part[..., :2 * C].unflatten(-1, (2, C))
+
+
+def _stats_launch(mm, g2, gfo2, p: PreparedWeights, c1: int, K: int):
+    """Sweep 1 and its finish on the card -> mul_q, add_q, mul_k, add_k,
+    gn2 and the partial sums (B, P + 1, 2, c2 + c_out + c1), whose last row
+    holds the column totals of k, v and q."""
     B, M, Ck = _check_rows("attention_stats", g2, K)
     kernels.check(gfo2, "attention_stats values", BF16, (B, M * K, None))
+    kernels.check(mm, "attention_stats mm", BF16, (B, M, c1))
     Cv = gfo2.shape[-1]
-    c2, c_out = key.w.shape[1], value.w.shape[1]
-    _need(key, "attention_stats"), _need(value, "attention_stats")
-    P = _row_blocks(1, B, M, K, Ck, Cv, c2, 16, c_out)
-    part = torch.empty((B, P, 2, c2 + c_out), dtype=torch.float32, device=g2.device)
+    c2, c_out = p.key.w.shape[1], p.value.w.shape[1]
+    _need(p.key, "attention_stats"), _need(p.value, "attention_stats")
+    key = (B, M, K, Ck, Cv, c2, 16, c_out)
+    P = _row_blocks(1, *key) // _cluster_size(1, *key)
+    dev, f32 = g2.device, torch.float32
+    part = _partial_sums(B, P, c2 + c_out + c1, dev)
+    mul_q, add_q = (torch.empty((B, c1), dtype=f32, device=dev) for _ in range(2))
+    mul_k, add_k = (torch.empty((B, c2), dtype=f32, device=dev) for _ in range(2))
+    gn2 = tuple(torch.empty((B, c_out), dtype=BF16, device=dev) for _ in range(3))
     kernels.launch(
-        "attention_stats", g2.data_ptr(), gfo2.data_ptr(), key.wt.data_ptr(),
-        key.bp.data_ptr(), value.wt.data_ptr(), value.bp.data_ptr(), part.data_ptr(),
-        B, M, K, Ck, Cv, c2, c_out, P,
+        "attention_stats", g2.data_ptr(), gfo2.data_ptr(), p.key.wt.data_ptr(),
+        p.key.bp.data_ptr(), p.value.wt.data_ptr(), p.value.bp.data_ptr(), mm.data_ptr(),
+        p.b0.data_ptr(), *(t.data_ptr() for t in (*p.gn0, *p.gn2)), part.data_ptr(),
+        *(t.data_ptr() for t in (mul_q, add_q, mul_k, add_k, *gn2)),
+        _tickets(dev, B).data_ptr(), B, M, K, Ck, Cv, c2, c_out, c1, P,
     )
-    return part
+    return mul_q, add_q, mul_k, add_k, gn2, _sums_view(part, c2 + c_out + c1)
 
 
-def _hstats_launch(g2, qp, key: _Layer, hidden: _Layer, mul_k, add_k, K: int) -> torch.Tensor:
+def _hstats_launch(g2, qp, p: PreparedWeights, mul_k, add_k, K: int):
+    """Sweep 2 and its finish on the card -> gn1 and the partial sums
+    (B, P + 1, 2, inter_c), whose last row holds h's column totals."""
     B, M, Ck = _check_rows("attention_hstats", g2, K)
-    c2, inter_c = hidden.w.shape
+    c2, inter_c = p.hidden.w.shape
     kernels.check(qp, "attention_hstats qp", BF16, (B, M, inter_c))
     kernels.check(mul_k, "attention_hstats mul_k", torch.float32, (B, c2))
     kernels.check(add_k, "attention_hstats add_k", torch.float32, (B, c2))
-    _need(key, "attention_hstats"), _need(hidden, "attention_hstats")
-    P = _row_blocks(2, B, M, K, Ck, 16, c2, inter_c, 16)
-    part = torch.empty((B, P, 2, inter_c), dtype=torch.float32, device=g2.device)
+    _need(p.key, "attention_hstats"), _need(p.hidden, "attention_hstats")
+    key = (B, M, K, Ck, 16, c2, inter_c, 16)
+    P = _row_blocks(2, *key) // _cluster_size(2, *key)
+    dev = g2.device
+    part = _partial_sums(B, P, inter_c, dev)
+    gn1 = tuple(torch.empty((B, inter_c), dtype=BF16, device=dev) for _ in range(3))
     kernels.launch(
-        "attention_hstats", g2.data_ptr(), key.wt.data_ptr(), key.bp.data_ptr(),
-        mul_k.data_ptr(), add_k.data_ptr(), hidden.wt.data_ptr(), hidden.bp.data_ptr(),
-        qp.data_ptr(), part.data_ptr(), B, M, K, Ck, c2, inter_c, P,
+        "attention_hstats", g2.data_ptr(), p.key.wt.data_ptr(), p.key.bp.data_ptr(),
+        mul_k.data_ptr(), add_k.data_ptr(), p.hidden.wt.data_ptr(), p.hidden.bp.data_ptr(),
+        qp.data_ptr(), p.gn1[0].data_ptr(), p.gn1[1].data_ptr(), part.data_ptr(),
+        *(t.data_ptr() for t in gn1), _tickets(dev, B).data_ptr(), B, M, K, Ck, c2, inter_c, P,
     )
-    return part
+    return gn1, _sums_view(part, inter_c)
 
 
 def _out_launch(g2, gfo2, qp, counts, key, hidden, score, value, mul_k, add_k, gn1, gn2,
@@ -361,73 +493,52 @@ def _out_launch(g2, gfo2, qp, counts, key, hidden, score, value, mul_k, add_k, g
     return out
 
 
-def attention_stats(g2, gfo2, key: _Layer, value: _Layer, K: int):
-    """Sweep 1.  g2 (B, M*K, Ck), gfo2 (B, M*K, Cv) bf16 -> kst (B, 2, c2),
-    vst (B, 2, c_out) float32 (the kernel's partial rows added up here)."""
+def attention_stats(mm, g2, gfo2, p: PreparedWeights, c1: int, K: int):
+    """Sweep 1 and its finish.  mm (B, M, c1) bf16 = feat W0 (before its
+    bias), g2 (B, M*K, Ck), gfo2 (B, M*K, Cv) bf16 -> mul_q, add_q (B, c1)
+    and mul_k, add_k (B, c2) float32 (the first GroupNorm over [q, k] as
+    per-channel multiply-adds) and the values' GroupNorm (mu, s, b)
+    (B, c_out) bf16."""
     if kernels.use_plain(g2):
-        return attention_stats_plain(g2, gfo2, key, value)
-    part = _stats_launch(g2, gfo2, key, value, K)
-    c2 = key.w.shape[1]
-    return part[:, :, :, :c2].sum(1), part[:, :, :, c2:].sum(1)
+        return attention_stats_vectors_plain(mm, g2, gfo2, p, c1, K)
+    return _stats_launch(mm, g2, gfo2, p, c1, K)[:5]
 
 
-def attention_hstats(g2, qp, key: _Layer, hidden: _Layer, mul_k, add_k, K: int):
-    """Sweep 2.  qp (B, M, inter_c) bf16, mul_k / add_k (B, c2) float32 ->
-    hst (B, 2, inter_c) float32."""
+def attention_qn(mm, b0, mul_q, add_q):
+    """The query rows between sweeps 1 and 2: mm (B, M, c1) bf16, b0 (c1)
+    bf16, mul_q / add_q (B, c1) float32 -> qn = bf16(relu(mm + b0) * mul_q
+    + add_q) (B, M, c1) bf16."""
+    if kernels.use_plain(mm):
+        return attention_qn_plain(mm, b0, mul_q, add_q)
+    B, M, c1 = mm.shape
+    kernels.check(mm, "attention_qn mm", BF16, (B, M, c1))
+    kernels.check(b0, "attention_qn b0", BF16, (c1,))
+    kernels.check(mul_q, "attention_qn mul_q", torch.float32, (B, c1))
+    kernels.check(add_q, "attention_qn add_q", torch.float32, (B, c1))
+    qn = torch.empty_like(mm)
+    kernels.launch("attention_qn", mm.data_ptr(), b0.data_ptr(), mul_q.data_ptr(),
+                   add_q.data_ptr(), qn.data_ptr(), B, M, c1)
+    return qn
+
+
+def attention_hstats(g2, qp, p: PreparedWeights, mul_k, add_k, K: int):
+    """Sweep 2 and its finish.  qp (B, M, inter_c) bf16, mul_k / add_k
+    (B, c2) float32 -> h's GroupNorm (mu, s, b) (B, inter_c) bf16."""
     if kernels.use_plain(g2):
-        return attention_hstats_plain(g2, qp, key, hidden, mul_k, add_k, K)
-    return _hstats_launch(g2, qp, key, hidden, mul_k, add_k, K).sum(1)
+        return attention_hstats_vectors_plain(g2, qp, p, mul_k, add_k, K)
+    return _hstats_launch(g2, qp, p, mul_k, add_k, K)[0]
 
 
 def attention_out(g2, gfo2, qp, counts, key, hidden, score, value, mul_k, add_k,
                   gn1, gn2, K: int):
-    """Sweep 3.  gn1 / gn2: float32 (mu, s, b) of h (B, inter_c) and of v
-    (B, c_out); counts (B, M) int32 or None -> (B, M, c_out) float32."""
+    """Sweep 3.  gn1 / gn2: (mu, s, b) of h (B, inter_c) and of v (B, c_out),
+    rounded to bf16 here; counts (B, M) int32 or None -> (B, M, c_out)
+    float32."""
     if kernels.use_plain(g2):
         return attention_out_plain(g2, gfo2, qp, counts, key, hidden, score, value,
                                    mul_k, add_k, gn1, gn2, K)
     return _out_launch(g2, gfo2, qp, counts, key, hidden, score, value, mul_k, add_k,
                        _bf16_vectors(gn1), _bf16_vectors(gn2), K)
-
-
-def attention_finish_stats(mm, part, p: PreparedWeights, c1: int, c2: int, c_out: int,
-                           K: int):
-    """After sweep 1, on the card: mm (B, M, c1) bf16 = feat W0 (before its
-    bias), part (B, P, 2, c2 + c_out) the sweep's partial rows -> qn
-    (B, M, c1) bf16, mul_k / add_k (B, c2) float32 and the values'
-    GroupNorm (mu, s, b) (B, c_out) bf16."""
-    if kernels.use_plain(part):
-        return attention_finish_stats_plain(mm, part, p, c1, c2, c_out, K)
-    B, M, _ = mm.shape
-    kernels.check(mm, "attention_finish_stats mm", BF16, (B, None, c1))
-    kernels.check(part, "attention_finish_stats part", torch.float32, (B, None, 2, c2 + c_out))
-    dev = mm.device
-    qn = torch.empty((B, M, c1), dtype=BF16, device=dev)
-    mul_k = torch.empty((B, c2), dtype=torch.float32, device=dev)
-    add_k = torch.empty((B, c2), dtype=torch.float32, device=dev)
-    gn2 = tuple(torch.empty((B, c_out), dtype=BF16, device=dev) for _ in range(3))
-    kernels.launch(
-        "attention_finish_stats", mm.data_ptr(), p.b0.data_ptr(), part.data_ptr(),
-        p.gn0[0].data_ptr(), p.gn0[1].data_ptr(), p.gn2[0].data_ptr(), p.gn2[1].data_ptr(),
-        qn.data_ptr(), mul_k.data_ptr(), add_k.data_ptr(), *(t.data_ptr() for t in gn2),
-        B, M, K, part.shape[1], c1, c2, c_out,
-    )
-    return qn, mul_k, add_k, gn2
-
-
-def attention_finish_h(part, p: PreparedWeights, inter_c: int, M: int, K: int):
-    """After sweep 2, on the card: part (B, P, 2, inter_c) -> h's GroupNorm
-    (mu, s, b) (B, inter_c) bf16."""
-    if kernels.use_plain(part):
-        return attention_finish_h_plain(part, p, inter_c, M, K)
-    B = part.shape[0]
-    kernels.check(part, "attention_finish_h part", torch.float32, (B, None, 2, inter_c))
-    gn1 = tuple(torch.empty((B, inter_c), dtype=BF16, device=part.device) for _ in range(3))
-    kernels.launch(
-        "attention_finish_h", part.data_ptr(), p.gn1[0].data_ptr(), p.gn1[1].data_ptr(),
-        *(t.data_ptr() for t in gn1), B, M, K, part.shape[1], inter_c,
-    )
-    return gn1
 
 
 # ---- the function ---------------------------------------------------------
@@ -468,24 +579,25 @@ def _pool_plain(feat, grouped, gfo, counts, p: PreparedWeights, c1, c2, inter_c,
 
 def _pool_kernels(feat, grouped, gfo, counts, p: PreparedWeights, c1, c2, inter_c, c_out,
                   K) -> torch.Tensor:
-    """Three sweeps and two finishing kernels; the q path's two products in
-    ``torch.matmul`` (the JAX package leaves them to XLA): seven launches
-    when the inputs are bf16 and the counts int32 or absent.  Records the
-    products the sweeps take over from the unfused pool for the FLOP count
+    """``feat W0``, sweep 1 (which finishes the first and the values'
+    GroupNorms), the query rows, ``qn W2q``, sweep 2 (which finishes h's
+    GroupNorm) and sweep 3: six launches when the inputs
+    are bf16 and the counts int32 or absent, the two products in
+    ``torch.matmul`` (the JAX package leaves them to XLA).  On CPU tensors
+    each step takes its plain version, in this order.  Records the products
+    the sweeps take over from the unfused pool for the FLOP count
     (``utils/flops.py``), which cannot see a kernel's body."""
     B, M, _, Ck = grouped.shape
     record_pallas_macs(attention_pool_kernel_macs(B, M, K, Ck, gfo.shape[-1], c2, inter_c,
                                                   c_out))
     g2, gfo2 = _rows(grouped, gfo)
-    part1 = _stats_launch(g2, gfo2, p.key, p.value, K)
     mm = torch.matmul(feat.to(BF16), p.w0)
-    qn, mul_k, add_k, gn2 = attention_finish_stats(mm, part1, p, c1, c2, c_out, K)
-    qp = torch.matmul(qn, p.w2q)
-    part2 = _hstats_launch(g2, qp, p.key, p.hidden, mul_k, add_k, K)
-    gn1 = attention_finish_h(part2, p, inter_c, M, K)
+    mul_q, add_q, mul_k, add_k, gn2 = attention_stats(mm, g2, gfo2, p, c1, K)
+    qp = torch.matmul(attention_qn(mm, p.b0, mul_q, add_q), p.w2q)
+    gn1 = attention_hstats(g2, qp, p, mul_k, add_k, K)
     cnt = None if counts is None else counts.to(torch.int32).contiguous()
-    return _out_launch(g2, gfo2, qp, cnt, p.key, p.hidden, p.score, p.value, mul_k, add_k,
-                       gn1, gn2, K)
+    return attention_out(g2, gfo2, qp, cnt, p.key, p.hidden, p.score, p.value, mul_k, add_k,
+                         gn1, gn2, K)
 
 
 def fused_attention_pool(
@@ -508,11 +620,10 @@ def fused_attention_pool(
     ``transform_grouped_feat_out`` and ``last_activation`` all true, under
     bf16 compute: (B, M, c_out) float32.  Dense kernels are (in, out).
     ``prepared`` (from ``prepare_attention_weights``) takes the place of the
-    sixteen parameter tensors.  On GPU tensors the three sweeps and the two
-    finishing kernels run on the card (any K, any width whose 16-row tiles
-    fit a block's shared memory, a few thousand channels; wider raises); on
-    CPU tensors, or under
-    ``kernels.plain_ops()``, their plain versions."""
+    sixteen parameter tensors.  On GPU tensors the three sweeps and the
+    query-row pass run on the card (any K, any width whose 16-row tiles fit
+    a block's shared memory, a few thousand channels; wider raises); on CPU
+    tensors, or under ``kernels.plain_ops()``, the plain sweeps and glue."""
     if prepared is None:
         prepared = prepare_attention_weights(
             w0, b0, w1, b1, gn0_scale, gn0_bias, w2, b2, gn1_scale, gn1_bias, w3, b3,

@@ -6,7 +6,7 @@ own shared library with a plain C interface, at first use, into
 hash of the sources and flags, so a clean checkout builds them and a changed
 source rebuilds.  A source may hold several kernels (``fps.cu`` has the
 idx-only and the coordinates entry, ``attention_pool.cu`` the three sweeps of
-the fused attention pool and its two finishing kernels); each kernel has its own launch count.
+the fused attention pool and its query-row pass); each kernel has its own launch count.
 The libraries are bound with ``ctypes``: every pointer and the stream are
 ``c_void_p``, the stream is PyTorch's current one, and each C entry returns
 ``cudaGetLastError()``, which the launch checks.
@@ -72,22 +72,18 @@ KERNELS = {
         "group_scatter_ordered.cu", "pdr_group_scatter_ordered",
         [_P, _I, _I, _I, _P, _I, _I, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     ),
-    # the three sweeps of the fused attention pool
+    # the three sweeps of the fused attention pool (the first two finish
+    # their GroupNorm vectors in their last cluster) and the pass that
+    # writes the normalised query rows between the first two
     "attention_stats": (
-        "attention_pool.cu", "pdr_attention_stats", [_P] * 7 + [_I] * 8 + [_P],
+        "attention_pool.cu", "pdr_attention_stats", [_P] * 21 + [_I] * 9 + [_P],
     ),
+    "attention_qn": ("attention_pool.cu", "pdr_attention_qn", [_P] * 5 + [_I] * 3 + [_P]),
     "attention_hstats": (
-        "attention_pool.cu", "pdr_attention_hstats", [_P] * 9 + [_I] * 7 + [_P],
+        "attention_pool.cu", "pdr_attention_hstats", [_P] * 15 + [_I] * 7 + [_P],
     ),
     "attention_out": (
         "attention_pool.cu", "pdr_attention_out", [_P] * 21 + [_I] * 9 + [_P],
-    ),
-    # ... and the two kernels that finish the GroupNorm vectors between them
-    "attention_finish_stats": (
-        "attention_pool.cu", "pdr_attention_finish_stats", [_P] * 13 + [_I] * 7 + [_P],
-    ),
-    "attention_finish_h": (
-        "attention_pool.cu", "pdr_attention_finish_h", [_P] * 6 + [_I] * 5 + [_P],
     ),
     "knn_group": (
         "knn_group.cu", "pdr_knn_group", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _P],
@@ -96,9 +92,11 @@ KERNELS = {
 
 # host-side questions to a source's library (no launch, no stream, not counted)
 QUERIES = {
-    # the row blocks (rows of its partial sums) a sweep of the fused
-    # attention pool takes at given sizes
+    # the row blocks a sweep of the fused attention pool takes at given
+    # sizes, and the row tiles a cluster of sweeps 1 and 2 holds (their
+    # rows of partial sums are the one over the other)
     "attention_row_blocks": ("attention_pool.cu", "pdr_attention_row_blocks", [_I] * 9),
+    "attention_cluster_size": ("attention_pool.cu", "pdr_attention_cluster_size", [_I] * 9),
     # the dynamic shared memory a launch of the fused ball group takes
     "ball_group_smem": ("ball_group.cu", "pdr_ball_group_smem", [_I] * 4),
     # the 4-byte workspace words of a launch of the ordered scatter-add

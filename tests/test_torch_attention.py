@@ -180,12 +180,13 @@ def test_groupnorm_glue_matches_jax(num_groups, normed, c):
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("c1,c2,c_out", [(32, 41, 32), (128, 41, 32), (35, 44, 64), (3, 171, 20)])
-def test_finishing_glue_matches_jax(c1, c2, c_out):
-    """The plain counterparts of the two finishing kernels (the first
-    GroupNorm over [q, k] with the query rows, the values' and h's GroupNorm
-    vectors) against the JAX package's glue between its sweeps, on the same
-    statistics."""
+GLUE_SHAPES = [(32, 41, 32), (128, 41, 32), (35, 44, 64), (3, 171, 20)]
+
+
+def _glue_case(c1, c2, c_out):
+    """Numpy-seeded statistics, GroupNorm parameters and a query feature for
+    the finishing glue at widths (c1, c2, c_out), and the port's prepared
+    weights holding them."""
     B, M, K, Cq, inter_c = 2, 24, 8, 5, 48
     rng = np.random.default_rng(c1 + c2)
     feat = rng.standard_normal((B, M, Cq)).astype(np.float32)
@@ -212,40 +213,121 @@ def test_finishing_glue_matches_jax(c1, c2, c_out):
         *map(torch.from_numpy, gn0), torch.zeros(c1 + c2, inter_c), torch.zeros(inter_c),
         *map(torch.from_numpy, gn1), torch.zeros(inter_c, c_out), torch.zeros(c_out),
         torch.zeros(4, c_out), torch.zeros(c_out), *map(torch.from_numpy, gn2), c1=c1)
-    mm = torch.matmul(torch.from_numpy(feat).to(torch.bfloat16), p.w0)
-    qn, mul_k, add_k, (mu2, s2, bb2) = t_pa._finish_stats_plain(
-        mm, torch.from_numpy(kst), torch.from_numpy(vst), p, c1, c2, c_out, K)
-    mu1, s1, bb1 = t_pa._finish_h_plain(torch.from_numpy(hst), p, inter_c, M, K)
+    return dict(B=B, M=M, K=K, inter_c=inter_c, feat=feat, w0=w0, b0=b0, kst=kst, vst=vst,
+                hst=hst, gn0=gn0, gn1=gn1, gn2=gn2, p=p)
 
-    # the JAX package's glue (ops/pallas_attention.py::fused_attention_pool)
+
+def _jax_glue(case, c1, c2, c_out):
+    """The JAX package's glue between its sweeps
+    (ops/pallas_attention.py::fused_attention_pool) on the case's statistics:
+    q's sums, mul_q / add_q, qn, mul_k / add_k, the values' and h's (mu, s,
+    b)."""
+    B, M, K, inter_c = case["B"], case["M"], case["K"], case["inter_c"]
+    kst, vst, hst, gn0, gn1, gn2 = (case[k] for k in ("kst", "vst", "hst", "gn0", "gn1", "gn2"))
+    rows = M * K
+    ng0 = min(32, c1 + c2)
+    normed0 = len(gn0[0])
     bf = jnp.bfloat16
-    qd = jnp.maximum(j_pa._dense(jnp.asarray(feat).astype(bf), jnp.asarray(w0).astype(bf),
-                                 jnp.asarray(b0).astype(bf)), 0)
+    qd = jnp.maximum(j_pa._dense(jnp.asarray(case["feat"]).astype(bf),
+                                 jnp.asarray(case["w0"]).astype(bf),
+                                 jnp.asarray(case["b0"]).astype(bf)), 0)
     qf = qd.astype(jnp.float32)
-    sum_c = jnp.concatenate([jnp.sum(qf, 1) * float(K), kst[:, 0]], -1)[:, :normed0]
-    ssq_c = jnp.concatenate([jnp.sum(qf * qf, 1) * float(K), kst[:, 1]], -1)[:, :normed0]
+    q_sum, q_ssq = jnp.sum(qf, 1), jnp.sum(qf * qf, 1)
+    sum_c = jnp.concatenate([q_sum * float(K), kst[:, 0]], -1)[:, :normed0]
+    ssq_c = jnp.concatenate([q_ssq * float(K), kst[:, 1]], -1)[:, :normed0]
     mul0, add0 = j_pa._group_mul_add(sum_c, ssq_c, *gn0, float(rows) * (normed0 // ng0), ng0)
     nq = min(c1, normed0)
     mul_q = jnp.concatenate([mul0[:, :nq], jnp.ones((B, c1 - nq))], -1)
     add_q = jnp.concatenate([add0[:, :nq], jnp.zeros((B, c1 - nq))], -1)
     nk = normed0 - nq
-    ref_mul_k = jnp.concatenate([mul0[:, nq:], jnp.ones((B, c2 - nk))], -1)
-    ref_add_k = jnp.concatenate([add0[:, nq:], jnp.zeros((B, c2 - nk))], -1)
-    ref_qn = (qf * mul_q[:, None, :] + add_q[:, None, :]).astype(bf)
+    mul_k = jnp.concatenate([mul0[:, nq:], jnp.ones((B, c2 - nk))], -1)
+    add_k = jnp.concatenate([add0[:, nq:], jnp.zeros((B, c2 - nk))], -1)
+    qn = (qf * mul_q[:, None, :] + add_q[:, None, :]).astype(bf)
     ng2, normed2 = min(32, c_out), len(gn2[0])
     ref2 = j_pa._pgn_mu_s_b(vst[:, 0, :normed2], vst[:, 1, :normed2], *gn2,
                             float(rows) * (normed2 // ng2), ng2, c_out)
     ng1, normed1 = min(32, inter_c), len(gn1[0])
     ref1 = j_pa._pgn_mu_s_b(hst[:, 0, :normed1], hst[:, 1, :normed1], *gn1,
                             float(rows) * (normed1 // ng1), ng1, inter_c)
-    close = dict(rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(mul_k.numpy(), np.asarray(ref_mul_k), **close)
-    np.testing.assert_allclose(add_k.numpy(), np.asarray(ref_add_k), **close)
-    np.testing.assert_allclose(qn.float().numpy(), np.asarray(ref_qn.astype(jnp.float32)),
-                               rtol=1e-2, atol=1e-2)
-    assert np.mean(qn.float().numpy() == np.asarray(ref_qn.astype(jnp.float32))) > 0.99
-    for got, ref in zip((mu2, s2, bb2, mu1, s1, bb1), (*ref2, *ref1)):
-        np.testing.assert_allclose(got.numpy(), np.asarray(ref), **close)
+    return dict(q_sum=q_sum, q_ssq=q_ssq, mul_q=mul_q, add_q=add_q, mul_k=mul_k, add_k=add_k,
+                qn=np.asarray(qn.astype(jnp.float32)), gn2=ref2, gn1=ref1)
+
+
+GLUE_CLOSE = dict(rtol=1e-5, atol=1e-5)  # float32 sums in another order
+
+
+def _qn_close(got, ref):
+    """bf16 query rows: a float32 multiply-add a few ulp apart may round the
+    other way, 2^-8 of a value, in under 1% of them."""
+    np.testing.assert_allclose(got.float().numpy(), ref, rtol=1e-2, atol=1e-2)
+    assert np.mean(got.float().numpy() == ref) > 0.99
+
+
+@pytest.mark.parametrize("c1,c2,c_out", GLUE_SHAPES)
+def test_finishing_glue_matches_jax(c1, c2, c_out):
+    """The plain counterparts of the two finishing kernels (the first
+    GroupNorm over [q, k] with the query rows, the values' and h's GroupNorm
+    vectors) against the JAX package's glue between its sweeps, on the same
+    statistics."""
+    case = _glue_case(c1, c2, c_out)
+    p, K = case["p"], case["K"]
+    mm = torch.matmul(torch.from_numpy(case["feat"]).to(torch.bfloat16), p.w0)
+    qn, mul_k, add_k, (mu2, s2, bb2) = t_pa._finish_stats_plain(
+        mm, torch.from_numpy(case["kst"]), torch.from_numpy(case["vst"]), p, c1, c2, c_out, K)
+    mu1, s1, bb1 = t_pa._finish_h_plain(torch.from_numpy(case["hst"]), p, case["inter_c"],
+                                        case["M"], K)
+    ref = _jax_glue(case, c1, c2, c_out)
+    np.testing.assert_allclose(mul_k.numpy(), np.asarray(ref["mul_k"]), **GLUE_CLOSE)
+    np.testing.assert_allclose(add_k.numpy(), np.asarray(ref["add_k"]), **GLUE_CLOSE)
+    _qn_close(qn, ref["qn"])
+    for got, want in zip((mu2, s2, bb2, mu1, s1, bb1), (*ref["gn2"], *ref["gn1"])):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GLUE_CLOSE)
+
+
+@pytest.mark.parametrize("c1,c2,c_out", GLUE_SHAPES)
+def test_split_finish_matches_jax(c1, c2, c_out):
+    """The card's order of the finishing after sweep 1, in plain versions:
+    sweep 1's q sums (``attention_qsums_plain``), its finish
+    (``_stats_vectors_plain``: q's and k's (mul, add), the values' vectors)
+    and the query-row pass (``attention_qn_plain``), against the JAX
+    package's ``_group_mul_add`` glue on the same statistics."""
+    case = _glue_case(c1, c2, c_out)
+    p, M, K = case["p"], case["M"], case["K"]
+    mm = torch.matmul(torch.from_numpy(case["feat"]).to(torch.bfloat16), p.w0)
+    qst = t_pa.attention_qsums_plain(mm, p.b0)
+    mul_q, add_q, mul_k, add_k, gn2 = t_pa._stats_vectors_plain(
+        torch.from_numpy(case["kst"]), torch.from_numpy(case["vst"]), qst, p, c1, c2, c_out, M, K)
+    qn = t_pa.attention_qn_plain(mm, p.b0, mul_q, add_q)
+    ref = _jax_glue(case, c1, c2, c_out)
+    assert tuple(qst.shape) == (case["B"], 2, c1) and qn.dtype == torch.bfloat16
+    np.testing.assert_allclose(qst[:, 0].numpy(), np.asarray(ref["q_sum"]), **GLUE_CLOSE)
+    np.testing.assert_allclose(qst[:, 1].numpy(), np.asarray(ref["q_ssq"]), **GLUE_CLOSE)
+    for name, got in (("mul_q", mul_q), ("add_q", add_q), ("mul_k", mul_k), ("add_k", add_k)):
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref[name]), **GLUE_CLOSE)
+    _qn_close(qn, ref["qn"])
+    for got, want in zip(gn2, ref["gn2"]):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GLUE_CLOSE)
+
+
+@pytest.mark.parametrize("case", [CASES[i] for i in (0, 2, 4, 5)],
+                         ids=[IDS[i] for i in (0, 2, 4, 5)])
+def test_kernel_order_matches_plain_pool(case):
+    """``_pool_kernels`` on CPU tensors runs each step's plain version in the
+    card's order (``feat W0`` first, sweep 1 with its finish, the query-row
+    pass, sweep 2 with its finish, sweep 3): bit-equal to ``_pool_plain``,
+    the first design's order, since the plain pieces repeat its operations."""
+    _, M, K, Cq, Ck, Cv, c_out, _ = case
+    feat, grouped, gfo, counts = _inputs(case)
+    port = _port_pool(case)
+    p, w = port._fused_weights(), port.widths
+    args = (torch.from_numpy(feat), torch.from_numpy(grouped).to(torch.bfloat16),
+            torch.from_numpy(gfo).to(torch.bfloat16),
+            None if isinstance(counts, str) else torch.from_numpy(counts), p,
+            w["c1"], w["c2"], w["inter_c"], w["c_out"], K)
+    got = t_pa._pool_kernels(*args)
+    ref = t_pa._pool_plain(*args)
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, M, c_out)
+    assert torch.equal(got, ref)
 
 
 class TestRouting:

@@ -822,6 +822,8 @@ ATTENTION_SITES = [
     ("k96_all", 2, 9, 96, 16, 44, 64, 64, False),
     ("k8_m_odd", 2, 13, 8, 64, 41, 32, 32, True),  # M no multiple of a tile's centres
     ("wide", 2, 8, 8, 16, 1030, 64, 96, True),  # a key above 1000 channels: 32-row tiles
+    # more blocks than the card keeps resident: sweeps 1 and 2 in clusters
+    ("clusters", 4, 1024, 32, 3, 41, 32, 32, True),
     ("wide_k96", 1, 3, 96, 16, 1030, 96, 64, False),
 ]
 
@@ -843,14 +845,23 @@ def test_attention_sweeps(dev, site):
         assert a.shape == b.shape and a.dtype == b.dtype
         assert float((a - b).abs().max()) <= tol * max(float(b.abs().max()), 1.0)
 
-    kst, vst = ap.attention_stats(g2, gfo2, p.key, p.value, K)
+    # the column totals the last cluster leaves in the partial sums' last row
+    c1, c2 = w["c1"], w["c2"]
+    rows = ap.sweep_row_blocks(B, M, K, Ck, Cv, c2, w["inter_c"], c_out)
+    parts = ap.sweep_partial_rows(B, M, K, Ck, Cv, c2, w["inter_c"], c_out)
+    for sweep, n in parts.items():  # one row of partial sums a cluster of row tiles
+        assert n >= 1 and rows[sweep] % n == 0
+        assert n < rows[sweep] or site[0] != "clusters"
+    mm = torch.matmul(feat.to(torch.bfloat16), p.w0)
+    tot = ap._stats_launch(mm, g2, gfo2, p, c1, K)[-1][:, -1]
     rkst, rvst = ap.attention_stats_plain(g2, gfo2, p.key, p.value)
-    close(kst, rkst, STATS_TOL), close(vst, rvst, STATS_TOL)
+    close(tot[..., :c2], rkst, STATS_TOL), close(tot[..., c2:c2 + c_out], rvst, STATS_TOL)
+    close(tot[..., c2 + c_out:], ap.attention_qsums_plain(mm, p.b0), STATS_TOL)
     gk = torch.Generator(device="cpu").manual_seed(12)
-    mul_k = (1.0 + 0.2 * torch.randn(B, w["c2"], generator=gk)).to(dev)
-    add_k = (0.1 * torch.randn(B, w["c2"], generator=gk)).to(dev)
+    mul_k = (1.0 + 0.2 * torch.randn(B, c2, generator=gk)).to(dev)
+    add_k = (0.1 * torch.randn(B, c2, generator=gk)).to(dev)
     qp = torch.randn(B, M, w["inter_c"], generator=gk).to(dev).to(torch.bfloat16)
-    hst = ap.attention_hstats(g2, qp, p.key, p.hidden, mul_k, add_k, K)
+    hst = ap._hstats_launch(g2, qp, p, mul_k, add_k, K)[-1][:, -1]
     rhst = ap.attention_hstats_plain(g2, qp, p.key, p.hidden, mul_k, add_k, K)
     close(hst, rhst, STATS_TOL)
 
@@ -866,31 +877,96 @@ def test_attention_sweeps(dev, site):
     close(out, unfused, 4e-2)
 
 
+@torch.no_grad()  # the prepared GroupNorm vectors are parameters
 def test_attention_finishing_kernels(dev):
-    """The two finishing kernels against their plain versions (the JAX
-    package's glue) on the partial rows a sweep writes."""
+    """The finishing work against its plain versions (the JAX package's
+    glue): sweep 1's finished vectors and the query-row pass against
+    ``attention_stats_plain`` + ``attention_finish_stats_plain``, the
+    query-row pass bit-equal to its own plain version on the same vectors,
+    sweep 2's finished vectors against ``attention_hstats_plain`` +
+    ``attention_finish_h_plain``; two calls bit-equal."""
     from point_diffusion_refinement_tpu_torch.ops import attention_pool as ap
 
     B, M, K = 2, 50, 24
     pool, feat, grouped, gfo, _ = _attention_site(dev, 15, B, M, K, 35, 44, 64, 64, False)
     p, w = pool._fused_weights(), pool.widths
+    c1, c2, c_out, inter_c = w["c1"], w["c2"], w["c_out"], w["inter_c"]
     g2, gfo2 = grouped.reshape(B, M * K, 44), gfo.reshape(B, M * K, 64)
-    part1 = ap._stats_launch(g2, gfo2, p.key, p.value, K)
     mm = torch.matmul(feat.to(torch.bfloat16), p.w0)
-    got = ap.attention_finish_stats(mm, part1, p, w["c1"], w["c2"], w["c_out"], K)
-    ref = ap.attention_finish_stats_plain(mm, part1, p, w["c1"], w["c2"], w["c_out"], K)
-    qn, mul_k, add_k, gn2 = got
-    for a, b in zip((qn, mul_k, add_k, *gn2), (ref[0], ref[1], ref[2], *ref[3])):
+
+    def close(a, b):
         assert a.shape == b.shape and a.dtype == b.dtype
         assert float((a.float() - b.float()).abs().max()) <= STATS_TOL * max(
             float(b.float().abs().max()), 1.0)
+
+    mul_q, add_q, mul_k, add_k, gn2 = ap.attention_stats(mm, g2, gfo2, p, c1, K)
+    again = ap.attention_stats(mm, g2, gfo2, p, c1, K)
+    assert all(torch.equal(a, b) for a, b in zip((mul_q, add_q, mul_k, add_k, *gn2),
+                                                 (*again[:4], *again[4])))
+    qn = ap.attention_qn(mm, p.b0, mul_q, add_q)
+    assert torch.equal(qn, ap.attention_qn_plain(mm, p.b0, mul_q, add_q))
+    assert torch.equal(qn, ap.attention_qn(mm, p.b0, mul_q, add_q))
+    sums = torch.cat(ap.attention_stats_plain(g2, gfo2, p.key, p.value), -1)[:, None]
+    ref = ap.attention_finish_stats_plain(mm, sums, p, c1, c2, c_out, K)
+    for a, b in zip((qn, mul_k, add_k, *gn2), (ref[0], ref[1], ref[2], *ref[3])):
+        close(a, b)
     qp = torch.matmul(qn, p.w2q)
-    part2 = ap._hstats_launch(g2, qp, p.key, p.hidden, mul_k, add_k, K)
-    for a, b in zip(ap.attention_finish_h(part2, p, w["inter_c"], M, K),
-                    ap.attention_finish_h_plain(part2, p, w["inter_c"], M, K)):
-        assert a.dtype == torch.bfloat16
-        assert float((a.float() - b.float()).abs().max()) <= STATS_TOL * max(
-            float(b.float().abs().max()), 1.0)
+    gn1 = ap.attention_hstats(g2, qp, p, mul_k, add_k, K)
+    hst = ap.attention_hstats_plain(g2, qp, p.key, p.hidden, mul_k, add_k, K)
+    for a, b, c in zip(gn1, ap.attention_finish_h_plain(hst[:, None], p, inter_c, M, K),
+                       ap.attention_hstats(g2, qp, p, mul_k, add_k, K)):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, c)
+        close(a, b)
+
+
+def _graph_nodes(graph) -> dict:
+    """{node type: count} of a captured CUDA graph, through libcuda."""
+    import ctypes
+
+    cu = ctypes.CDLL("libcuda.so.1")
+    handle = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    assert cu.cuGraphGetNodes(handle, None, ctypes.byref(n)) == 0
+    nodes = (ctypes.c_void_p * n.value)()
+    assert n.value == 0 or cu.cuGraphGetNodes(handle, nodes, ctypes.byref(n)) == 0
+    kinds: dict = {}
+    for node in nodes:
+        kind = ctypes.c_int(-1)
+        assert cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0
+        name = {0: "kernel", 1: "memcpy", 2: "memset"}.get(kind.value, f"type {kind.value}")
+        kinds[name] = kinds.get(name, 0) + 1
+    return kinds
+
+
+@pytest.mark.parametrize("B,M,K,counts", [(2, 64, 32, True), (3, 37, 24, False),
+                                          (4, 1024, 32, True)])
+def test_attention_pool_replays(dev, B, M, K, counts):
+    """Two fused pool calls and the replays of a captured one are bit-equal:
+    the tickets by which the sweeps find a batch row's last cluster are back
+    at 0 after every launch (the last case runs in clusters of several row
+    tiles).  The captured call is six kernel nodes: feat W0, sweep 1, the
+    query-row pass, qn W2q, sweep 2, sweep 3."""
+    pool, feat, grouped, gfo, cnt = _attention_site(dev, 16, B, M, K, 32, 41, 32, 32, counts)
+    feat = feat.to(torch.bfloat16)  # bf16 inputs and int32 counts: no casts
+
+    def call():
+        return pool(feat, grouped, gfo, cnt if counts else "all", fused=True)
+
+    with torch.no_grad():
+        first, second = call(), call()
+        torch.cuda.synchronize()
+        assert torch.equal(first, second)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(graph):
+            out = call()
+        nodes = _graph_nodes(graph)
+        for _ in range(3):
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, first)
+        assert torch.equal(call(), first)
+    graph.reset()
+    assert nodes == {"kernel": 6}
 
 
 def test_attention_raises_on_what_it_cannot_take(dev):
@@ -901,10 +977,15 @@ def test_attention_raises_on_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="does not fit"):
         pool(feat, grouped, gfo, "all", fused=True)
     _, _, grouped, gfo, _ = _attention_site(dev, 13, 1, 2, 8, 8, 12, 32, 32, False)
-    cpu = ap._layer(torch.randn(12, 32), torch.randn(32))
+    cpu = ap.prepare_attention_weights(
+        torch.randn(8, 32), torch.randn(32), torch.randn(12, 32), torch.randn(32),
+        torch.ones(64), torch.zeros(64), torch.randn(64, 32), torch.randn(32), torch.ones(32),
+        torch.zeros(32), torch.randn(32, 32), torch.randn(32), torch.randn(32, 32),
+        torch.randn(32), torch.ones(32), torch.zeros(32), c1=32)
     with pytest.raises(ValueError, match="prepared on the CPU"):
-        ap.attention_stats(grouped[:, :, :8].reshape(1, 16, 12).contiguous(),
-                           gfo[:, :, :8].reshape(1, 16, 32).contiguous(), cpu, cpu, 8)
+        ap.attention_stats(torch.zeros(1, 2, 32, dtype=torch.bfloat16, device=dev),
+                           grouped[:, :, :8].reshape(1, 16, 12).contiguous(),
+                           gfo[:, :, :8].reshape(1, 16, 32).contiguous(), cpu, 32, 8)
 
 
 def test_launch_counts(dev):
@@ -934,5 +1015,4 @@ def test_launch_counts(dev):
                                    "group_scatter_add": 1, "group_scatter_ordered": 1,
                                    "knn_group": 1,
                                    "attention_stats": 1, "attention_hstats": 1,
-                                   "attention_out": 1, "attention_finish_stats": 1,
-                                   "attention_finish_h": 1}
+                                   "attention_qn": 1, "attention_out": 1}
