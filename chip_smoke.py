@@ -728,13 +728,14 @@ def graph_launches(fn, launched: dict = None) -> dict:
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    before = dict(kernels.LAUNCHES)
+    before = kernels.launch_counts()
     with torch.cuda.graph(graph):
         fn()
+    after = kernels.launch_counts()
+    captured = {n: after[n] - before[n] for n in before if after[n] != before[n]}
     if launched is not None:
-        launched.update({n: kernels.LAUNCHES[n] - before[n] for n in before
-                         if kernels.LAUNCHES[n] != before[n]})
-    kernels.LAUNCHES.update(before)
+        launched.update(captured)
+    kernels.add_launches({n: -k for n, k in captured.items()})
     cu = ctypes.CDLL("libcuda.so.1")
     handle = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
@@ -4085,7 +4086,7 @@ def same_launches(what: str, graphed: dict, eager: dict, path) -> None:
 def graph_stats(what: str, graphs) -> None:
     for st in graphs.stats():
         print(f"{what} graph: capture_ms={st['capture_ms']:.1f} "
-              f"pool_bytes={st['pool_bytes']} launches_a_replay={st['launches']}", flush=True)
+              f"launches_a_replay={st['launches']}", flush=True)
 
 
 def timed_turns(calls: dict, reps: int = GRAPH_REPS) -> dict:
@@ -5444,8 +5445,8 @@ def mesh_steps_across_cards(dev, workdir: str, world: int) -> dict:
                       f"median={np.median(timed):.2f} first two={[round(v, 1) for v in x['ms'][:2]]} "
                       f"peak_memory_GiB={x['peak_GiB']:.2f}"
                       + ("" if x["graphs"] is None else
-                         f" graphs={x['graphs'][0]} capture_ms={x['graphs'][1][0]['capture_ms']:.1f}"
-                         f" pool_bytes={x['graphs'][1][0]['pool_bytes']}"), flush=True)
+                         f" graphs={x['graphs'][0]} capture_ms={x['graphs'][1][0]['capture_ms']:.1f}"),
+                      flush=True)
         rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
         checks = {
             "one graph on every rank": all(res[m, True]["graphs"] is not None

@@ -12,6 +12,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from ..utils import profiling
 from .mvp import MVPDataset, get_batch_fast
 
 
@@ -23,7 +24,8 @@ def iterate_batches(
     seed: Optional[int] = None,
 ) -> Iterator[dict]:
     """Yield dicts of stacked arrays from ``dataset`` (``len`` and per-item
-    dicts), in an order shuffled from ``seed`` when ``shuffle``."""
+    dicts), in an order shuffled from ``seed`` when ``shuffle``.  A batch's
+    assembly runs in the host span ``pdr.data.batch``."""
     n = len(dataset)
     order = np.arange(n)
     if shuffle:
@@ -32,8 +34,9 @@ def iterate_batches(
         idx = order[i: i + batch_size]
         if drop_last and len(idx) < batch_size:
             return
-        batch = get_batch_fast(dataset, idx) if isinstance(dataset, MVPDataset) else None
-        if batch is None:
-            items = [dataset[int(j)] for j in idx]
-            batch = {k: np.stack([it[k] for it in items]) for k in items[0].keys()}
+        with profiling.span("pdr.data.batch"):
+            batch = get_batch_fast(dataset, idx) if isinstance(dataset, MVPDataset) else None
+            if batch is None:
+                items = [dataset[int(j)] for j in idx]
+                batch = {k: np.stack([it[k] for it in items]) for k in items[0].keys()}
         yield batch

@@ -19,6 +19,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..utils import profiling
 from ..utils.graphs import CapturedFunction
 from .ddpm import DenoiseFn
 from .schedule import DiffusionSchedule
@@ -200,7 +201,8 @@ def _fast_reverse(step, shape, plan: FastSamplingPlan, *, device, generator, x_T
                   segment_size: Optional[int]) -> torch.Tensor:
     """The loop around ``step(x, ts, coefs, z) -> x`` in chunks of
     ``segment_size`` steps (all in one without).  Draws x_T, then one z a
-    step, from ``generator`` where they are not given."""
+    step, from ``generator`` where they are not given.  Each step (its z and
+    the step call) runs in the host span ``pdr.fastdpm.step``."""
     shape = tuple(shape)
     if x_T is None:
         x = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
@@ -212,11 +214,13 @@ def _fast_reverse(step, shape, plan: FastSamplingPlan, *, device, generator, x_T
     seg = segment_size or plan.S
     for first in range(0, plan.S, seg):
         for i in range(first, min(first + seg, plan.S)):
-            if noise is not None:
-                z = noise[i].to(device=device, dtype=torch.float32)
-            else:
-                z = torch.randn(shape, generator=generator, device=device, dtype=torch.float32)
-            x = step(x, ts_rows[i], coef_rows[i], z)
+            with profiling.span("pdr.fastdpm.step"):
+                if noise is not None:
+                    z = noise[i].to(device=device, dtype=torch.float32)
+                else:
+                    z = torch.randn(shape, generator=generator, device=device,
+                                    dtype=torch.float32)
+                x = step(x, ts_rows[i], coef_rows[i], z)
     return x.clone()
 
 

@@ -8,7 +8,9 @@ across the q/k channel boundary and the following Dense splits into a
 per-centre part and a grouped part, so the (B, M, K, C1+C2) concatenation is
 never built.  The softmax over K is count-masked.  ``GlobalSelfAttention``
 is the module the ``global_attention_setting`` of a config adds after the
-coarsest set-abstraction and kNN feature-propagation levels.
+coarsest set-abstraction and kNN feature-propagation levels.  Both run in
+the span ``pdr.net.attention`` (``utils/profiling.py``), their own Dense
+layers and norms included.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from ..ops.attention_pool import fused_attention_pool, prepare_attention_weights
 from ..ops.neighbors import count_to_mask
+from ..utils import profiling
 from .common import Dense, PartialGroupNorm, _GNParams, _group_affine
 
 
@@ -180,6 +183,7 @@ class AttentionPool(nn.Module):
                 c1=self.widths["c1"]))
         return self._prepared[1]
 
+    @profiling.spanned("pdr.net.attention", device=True)
     def forward(self, feat, grouped_feat, grouped_feat_out, counts, fused: bool = False,
                 key_pre=None, key_stats=None):
         """``key_pre``: ``Dense_1(grouped_feat)`` computed elsewhere (a merged
@@ -265,6 +269,7 @@ class GlobalSelfAttention(nn.Module):
             setattr(self, self.hidden_norm, PartialGroupNorm(C, min(32, C)))
         self.Dense_4 = Dense(C, C)
 
+    @profiling.spanned("pdr.net.attention", device=True)
     def forward(self, feat):
         value = self.Dense_2(feat)
         if self.last_activation:

@@ -7,6 +7,9 @@ channels-last (B, M, K, C).  Submodules carry the Flax scope names
 state_dict key is the Flax parameter path joined by dots
 (``utils/weights.py``).
 
+The MLP blocks and the pooling run in the span ``pdr.net.mlp``
+(``utils/profiling.py``).
+
 Compute dtype: parameters stay float32; a module built with
 ``dtype=torch.bfloat16`` casts its input and parameters to bf16 at each
 Dense, as Flax's ``promote_dtype`` does, so the rounding lands where the JAX
@@ -21,6 +24,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from ..utils import profiling
 
 
 def swish(x):
@@ -194,6 +199,7 @@ class SharedMLP(nn.Module):
             setattr(self, f"Dense_{i}", Dense(width, f, use_bias=bias, dtype=dtype))
             width = f
 
+    @profiling.spanned("pdr.net.mlp", device=True)
     def forward(self, x, first_pre: bool = False, first_stats=None):
         """``first_pre=True``: ``x`` is already the first Dense's output
         (from a merged product that reads the grouped tensor once for all
@@ -285,6 +291,7 @@ class ConditionedMLP(nn.Module):
             self.res_proj = next(names)
             setattr(self, self.res_proj, Dense(width, feats[-1], use_bias=bias, dtype=dtype))
 
+    @profiling.spanned("pdr.net.mlp", device=True)
     def forward(self, feature, t_emb=None, condition_emb=None, second_condition_emb=None,
                 first_pre=None, res_pre=None, first_stats=None):
         """``first_pre`` / ``res_pre``: the first Dense's output and the
@@ -325,6 +332,7 @@ class ConditionedMLP(nn.Module):
         return h
 
 
+@profiling.spanned("pdr.net.mlp", device=True)
 def pool_features(feature, counts, pooling: str = "max"):
     """Pool (B, M, K, C) over the neighbour axis K -> (B, M, C): 'max' ignores
     counts (padded slots repeat real neighbours); 'avg' is count-masked;

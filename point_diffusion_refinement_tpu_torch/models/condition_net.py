@@ -36,6 +36,11 @@ products).  As in the JAX package they take effect only together with the
 fused inference routing (``fused=True`` with at least one eligible FT level)
 and never in ``encode_condition`` or ``forward``.
 
+Spans (``utils/profiling.py``): ``forward`` and ``denoise`` run in
+``pdr.net.forward`` and ``pdr.net.denoise``; inside, the groupings, the MLP
+blocks (with the embeddings and the head) and the attention pools run in
+``pdr.net.group``, ``pdr.net.mlp`` and ``pdr.net.attention``.
+
 ``concate_partial_with_noisy_input`` (local and global features off) runs
 one ``denoise`` over the joined cloud of [x_t, 0] and [condition, 1] rows
 and returns the x_t rows.  ``record_neighbor_stats`` builds every grouping
@@ -53,6 +58,7 @@ import torch.nn as nn
 from ..diffusion.schedule import calc_t_emb
 from ..ops.ball_group import ball_group
 from ..ops.sampling import gather_points
+from ..utils import profiling
 from ..utils.device import DeviceLike, resolve_device
 from .common import ACTIVATIONS, Dense, GroupNorm, swish
 from .model_config import (
@@ -100,6 +106,7 @@ class Embed(nn.Module):
         super().__init__()
         self.embedding = nn.Parameter(torch.randn(num_embeddings, features) / features ** 0.5)
 
+    @profiling.spanned("pdr.net.mlp", device=True)
     def forward(self, ids):
         rows = gather_points(self.embedding[None], ids.reshape(1, -1))[0]
         return rows.reshape(*ids.shape, self.embedding.shape[1])
@@ -349,6 +356,7 @@ class PointNet2CloudCondition(nn.Module):
         return model.to(dev).eval()
 
     # ---- pieces -----------------------------------------------------------
+    @profiling.spanned("pdr.net.mlp", device=True)
     def _head(self, h):
         act = ACTIVATIONS[self.activation_name]
         if self.head_bn_first:
@@ -358,6 +366,7 @@ class PointNet2CloudCondition(nn.Module):
             h = self.head_norm(h)
         return self.head_out(act(h))
 
+    @profiling.spanned("pdr.net.mlp", device=True)
     def _t_embedding(self, ts):
         t_emb = calc_t_emb(ts, self.t_dim)
         return swish(self.fc_t2(swish(self.fc_t1(t_emb))))
@@ -431,6 +440,7 @@ class PointNet2CloudCondition(nn.Module):
             encoder_feats = decoder_feats = tuple(l_feats)
         return CondFeatures(tuple(l_uvw), encoder_feats, decoder_feats, global_feature)
 
+    @profiling.spanned("pdr.net.denoise", device=True)
     def denoise(self, pointcloud, ts=None, label=None, cond: Optional[CondFeatures] = None,
                 fused: bool = False, fused_gather: bool = False, fused_sa: bool = False,
                 fused_attention: bool = False, fused_knn: bool = False,
@@ -464,11 +474,12 @@ class PointNet2CloudCondition(nn.Module):
             if i not in ft_levels or q_xyz.shape[1] % FUSED_QUERY_MULTIPLE != 0:
                 return None
             enc = self.enc_map[i]
-            (g_enc, g_dec), counts = ball_group(
-                cond.l_uvw[i], [cond.encoder_feats[i], cond.decoder_feats[i]], q_xyz,
-                enc.radius, enc.k, include_center=enc.include_center,
-                empty_mode="center_zero",
-            )
+            with profiling.span("pdr.net.group", device=True):
+                (g_enc, g_dec), counts = ball_group(
+                    cond.l_uvw[i], [cond.encoder_feats[i], cond.decoder_feats[i]], q_xyz,
+                    enc.radius, enc.k, include_center=enc.include_center,
+                    empty_mode="center_zero",
+                )
             dec_groups[i] = (g_dec, counts)
             return g_enc, counts
 
@@ -522,6 +533,7 @@ class PointNet2CloudCondition(nn.Module):
             out_feature = l_features[0]
         return self._head(self._cat([out_feature, xyz]))
 
+    @profiling.spanned("pdr.net.forward", device=True)
     def forward(self, pointcloud, condition=None, ts=None, label=None,
                 fused_gather: bool = False, fused_sa: bool = False):
         """Training-path forward = encode_condition + denoise, unfused unless

@@ -5,7 +5,8 @@ variable neighbour counts ride as a (B, M) count tensor plus repeat-first /
 zero-feature padding.  ``fused_ball_gather`` is the differentiable ball
 query + gather in one kernel (the counterpart of ``_fused_ball_gather``
 there), which ``query_and_group(fused_gather=True)`` takes for radius
-neighbourhoods; it is off by default, as in the JAX package.
+neighbourhoods; it is off by default, as in the JAX package.  Each
+grouping runs in the span ``pdr.net.group`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from ..ops.neighbors import ball_query, ball_query_group, knn, knn_group
 from ..ops.sampling import group_points
 from ..ops.scatter import group_scatter_add
+from ..utils import profiling
 
 Counts = Union[torch.Tensor, str]  # (B, M) int32, or 'all' for kNN groups
 
@@ -56,6 +58,7 @@ class _FusedBallGather(torch.autograd.Function):
         return None, None, d_table, None, None
 
 
+@profiling.spanned("pdr.net.group", device=True)
 def fused_ball_gather(xyz: torch.Tensor, new_xyz: torch.Tensor, table: torch.Tensor,
                       radius: float, nsample: int):
     """Ball query + gather of table rows as one kernel: equivalent to
@@ -65,6 +68,7 @@ def fused_ball_gather(xyz: torch.Tensor, new_xyz: torch.Tensor, table: torch.Ten
     return _FusedBallGather.apply(xyz, new_xyz, table, float(radius), int(nsample))
 
 
+@profiling.spanned("pdr.net.group", device=True)
 def query_and_group(
     xyz: torch.Tensor,
     new_xyz: torch.Tensor,
@@ -134,6 +138,7 @@ def query_and_group(
     return Grouped(grouped_xyz, counts)
 
 
+@profiling.spanned("pdr.net.group", device=True)
 def group_all(
     xyz: torch.Tensor, features: Optional[torch.Tensor], use_xyz: bool = True
 ) -> Grouped:
@@ -148,6 +153,7 @@ def group_all(
     return Grouped(grouped, "all")
 
 
+@profiling.spanned("pdr.net.group", device=True)
 def group_knn_features(
     x: torch.Tensor, y: torch.Tensor, features_at_y: torch.Tensor, k: int,
     lossy_features: bool = False, fused: bool = False,

@@ -43,6 +43,11 @@ groups and pools them; the fused kNN route stays off there, and under
 ``fused_gather`` the grouping takes the fused ball query + gather as every
 other radius grouping does.
 
+Spans (``utils/profiling.py``): a module's grouping (FPS, the ball or kNN
+grouping, the 3-NN interpolation) runs in ``pdr.net.group``, its
+conditioned MLP and pooling in ``pdr.net.mlp``, its attention pool in
+``pdr.net.attention``.
+
 Neighbour statistics: a grouping module built with
 ``record_neighbor_stats`` records a (nsample + 1,) histogram of its
 neighbour counts, clipped to nsample, on every forward inside
@@ -63,6 +68,7 @@ import torch.nn.functional as F
 from ..ops.ball_group import ball_group, ball_group_train
 from ..ops.interpolate import inverse_distance_weights, three_interpolate, three_nn
 from ..ops.sampling import furthest_point_sample_and_gather, gather_points
+from ..utils import profiling
 from .attention import AttentionPool, GlobalSelfAttention
 from .common import ConditionedMLP, pool_features
 from .grouping import group_knn_features, grouped_width, query_and_group
@@ -182,11 +188,13 @@ def _mlp_and_pool(cm: ConditionedMLP, ap: Optional[AttentionPool], grouped, coun
     """The conditioned MLP over a grouped tensor, then the attention pool
     (``ap`` with ``query``) or the max/avg pool, with the two inference
     routes applied where they are eligible."""
-    pre = _packed_first_layers(grouped, cm, ap, dtype) if packed else None
-    first_pre, res_pre, key_pre, first_stats, key_stats = pre if pre is not None else (None,) * 5
-    out = cm(grouped, first_pre=first_pre, res_pre=res_pre, first_stats=first_stats, **emb)
-    if ap is None:
-        return pool_features(out, counts, pooling)
+    with profiling.span("pdr.net.mlp", device=True):
+        pre = _packed_first_layers(grouped, cm, ap, dtype) if packed else None
+        first_pre, res_pre, key_pre, first_stats, key_stats = (
+            pre if pre is not None else (None,) * 5)
+        out = cm(grouped, first_pre=first_pre, res_pre=res_pre, first_stats=first_stats, **emb)
+        if ap is None:
+            return pool_features(out, counts, pooling)
     return ap(query, grouped, out, counts, fused=fused_attention, key_pre=key_pre,
               key_stats=key_stats)
 
@@ -274,32 +282,34 @@ class SetAbstraction(nn.Module):
                 fps_ordered: bool = False, fused_gather: bool = False,
                 fused_sa: bool = False, fused_attention: bool = False,
                 packed: bool = False):
-        if fps_ordered:
-            # the input is the previous level's FPS output in selection order,
-            # and greedy FPS is prefix-stable: FPS here is the identity prefix
-            fps_idx = None
-            new_xyz = xyz[:, : self.npoint]
-        else:
-            fps_idx, new_xyz = furthest_point_sample_and_gather(xyz, self.npoint)
+        with profiling.span("pdr.net.group", device=True):
+            if fps_ordered:
+                # the input is the previous level's FPS output in selection
+                # order, and greedy FPS is prefix-stable: FPS here is the
+                # identity prefix
+                fps_idx = None
+                new_xyz = xyz[:, : self.npoint]
+            else:
+                fps_idx, new_xyz = furthest_point_sample_and_gather(xyz, self.npoint)
 
-        if not fused and self.train_fused_eligible(xyz, features, fused_sa):
-            grouped, counts, _ = ball_group_train(
-                xyz, features, new_xyz, self.radius, self.nsample,
-                include_center=self.include_center, empty_mode="row0",
-            )
-        elif self.fused_eligible(xyz, features, fused):
-            (grouped,), counts = ball_group(
-                xyz, [features], new_xyz, self.radius, self.nsample,
-                include_center=self.include_center, empty_mode="row0",
-            )
-        else:
-            grouped, counts = query_and_group(
-                xyz, new_xyz, features, radius=self.radius, nsample=self.nsample,
-                neighbor_def=self.neighbor_def, use_xyz=self.use_xyz,
-                include_abs_coordinate=self.include_abs,
-                include_center_coordinate=self.include_center, subset=True,
-                fused_gather=fused_gather,
-            )
+            if not fused and self.train_fused_eligible(xyz, features, fused_sa):
+                grouped, counts, _ = ball_group_train(
+                    xyz, features, new_xyz, self.radius, self.nsample,
+                    include_center=self.include_center, empty_mode="row0",
+                )
+            elif self.fused_eligible(xyz, features, fused):
+                (grouped,), counts = ball_group(
+                    xyz, [features], new_xyz, self.radius, self.nsample,
+                    include_center=self.include_center, empty_mode="row0",
+                )
+            else:
+                grouped, counts = query_and_group(
+                    xyz, new_xyz, features, radius=self.radius, nsample=self.nsample,
+                    neighbor_def=self.neighbor_def, use_xyz=self.use_xyz,
+                    include_abs_coordinate=self.include_abs,
+                    include_center_coordinate=self.include_center, subset=True,
+                    fused_gather=fused_gather,
+                )
         _sow_count_hist(self, counts, self.nsample)
         query = None
         if self.use_attention:
@@ -390,8 +400,10 @@ class FeaturePropagation(_Grouper, nn.Module):
                 condition_emb=None, second_condition_emb=None, pooling: str = "max",
                 fused_gather: bool = False):
         if known is not None:
-            dist, idx = three_nn(unknown, known)
-            interpolated = three_interpolate(known_feats, idx, inverse_distance_weights(dist))
+            with profiling.span("pdr.net.group", device=True):
+                dist, idx = three_nn(unknown, known)
+                interpolated = three_interpolate(known_feats, idx,
+                                                 inverse_distance_weights(dist))
         else:
             interpolated = known_feats.expand(
                 known_feats.shape[0], unknown.shape[1], known_feats.shape[-1]

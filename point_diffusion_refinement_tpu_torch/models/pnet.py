@@ -11,6 +11,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
+from ..utils import profiling
 from .common import ConditionedMLP
 
 
@@ -33,6 +34,7 @@ class Pnet2Stage(nn.Module):
         )
         self.out_features = int(mlp2[-1])
 
+    @profiling.spanned("pdr.net.mlp", device=True)
     def forward(self, x):
         h = self.ConditionedMLP_0(x[:, :, None, :])  # (B, N, 1, C1)
         pooled = h.amax(dim=1, keepdim=True)

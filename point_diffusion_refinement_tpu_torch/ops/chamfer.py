@@ -5,7 +5,8 @@ PyTorch here).  The nearest neighbour of every point is the argmin of the
 exact per-coordinate distance matrix (``pairwise_sqdist``); above a budget
 of 2^26 float32 elements per (B, chunk, N) tile the rows are processed in
 chunks, so a 16384-point cloud never holds its 1 GiB full matrix.  The
-distance is then recomputed from the gathered neighbour.
+distance is then recomputed from the gathered neighbour.  ``calc_cd`` runs
+in the span ``pdr.loss.chamfer`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ from typing import Tuple
 import torch
 
 from .neighbors import pairwise_sqdist
+from ..utils import profiling
 from .sampling import gather_points
 
 # Max elements per (B * chunk * N) distance tile before rows are chunked.
@@ -67,6 +69,7 @@ def fscore(dist1: torch.Tensor, dist2: torch.Tensor, threshold: float = 1e-4):
     return f, p1, p2
 
 
+@profiling.spanned("pdr.loss.chamfer", device=True)
 def calc_cd(output: torch.Tensor, gt: torch.Tensor, calc_f1: bool = False,
             f1_threshold: float = 1e-4):
     """Per-sample (cd_p, cd_t[, f1]).  The chamfer terms are taken as

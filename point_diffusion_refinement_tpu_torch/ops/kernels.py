@@ -35,6 +35,8 @@ from typing import Dict, Iterable, Optional
 
 import torch
 
+from ..utils import profiling
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
@@ -105,18 +107,27 @@ QUERIES = {
     ),
 }
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# each kernel's launch count, a counter of utils/profiling.py
+_COUNTER = {name: f"launches.{name}" for name in KERNELS}
+profiling.COUNTERS.update({key: 0 for key in _COUNTER.values()})
 _LIBS: Dict[str, ctypes.CDLL] = {}  # by source
 _PLAIN_DEPTH = 0
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for key in _COUNTER.values():
+        profiling.COUNTERS[key] = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return dict(LAUNCHES)
+    return {name: profiling.COUNTERS[key] for name, key in _COUNTER.items()}
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to the launch counts (a graph's replay adds the
+    launches its capture counted)."""
+    for name, n in counts.items():
+        profiling.COUNTERS[_COUNTER[name]] += n
 
 
 @contextlib.contextmanager
@@ -258,4 +269,4 @@ def launch(name: str, *args) -> None:
     rc = entry(*args, stream)
     if rc != 0:
         raise RuntimeError(f"kernel {name}: CUDA error {rc} at launch")
-    LAUNCHES[name] += 1
+    profiling.COUNTERS[_COUNTER[name]] += 1

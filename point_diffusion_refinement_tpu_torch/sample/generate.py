@@ -22,6 +22,7 @@ import torch
 from ..diffusion import ddpm, fastdpm
 from ..diffusion.schedule import DiffusionSchedule
 from ..models.upsample import point_upsample
+from ..utils import profiling
 
 
 def make_coarse_sampler(
@@ -63,6 +64,9 @@ def make_coarse_sampler(
     ``fused_attention``, ``fused_knn`` and ``packed`` turn on the opt-in
     inference routes of ``denoise`` (the fused attention-pool kernel, the
     fused kNN group, merged first-layer products); all off by default.
+
+    A call is one unit of ``utils/profiling.py``'s spans, its condition
+    branch the span ``pdr.gen.encode``.
     """
     if not hasattr(model, "encode_condition"):
         # as in the JAX package, whose sampler reads model.encode_condition
@@ -90,8 +94,9 @@ def make_coarse_sampler(
         condition = condition.to(device=device, dtype=torch.float32)
         label = label.to(device)
         shape = (condition.shape[0], num_points, 3)
-        with torch.no_grad():
-            cond = model.encode_condition(condition)
+        with torch.no_grad(), profiling.unit():
+            with profiling.span("pdr.gen.encode", device=True):
+                cond = model.encode_condition(condition)
             if segmented is not None and fast_plan is not None:
                 return segmented((label, cond), shape, device=device, generator=generator,
                                  x_T=x_T, noise=noise)

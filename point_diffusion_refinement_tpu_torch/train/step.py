@@ -37,6 +37,10 @@ neighbour-count histograms the forward recorded
 ``neighbor_stats`` collection.  No step passes a dropout draw, so the
 networks' dropout stays off, as in the JAX package.
 
+Spans (``utils/profiling.py``): a step is one unit; the update's forward
+and loss, its ``backward()`` and the optimizer's step run in
+``pdr.train.forward``, ``pdr.train.backward`` and ``pdr.train.optimizer``.
+
 ``jit_step_for_mesh`` is the step over the processes of a mesh, one rank's
 rows of the global batch a process, as the JAX package jits its step over
 the mesh: the step maker's step on the model wrapped in ``_MeshForward``,
@@ -75,6 +79,7 @@ from ..parallel.mesh import (
     shard_params,
     sharding_of,
 )
+from ..utils import profiling
 from ..utils.graphs import CapturedFunction
 from ..utils.weights import load_optimizer_state
 
@@ -155,14 +160,16 @@ def _make_update(model, loss_fn: Callable, record_stats: bool) -> Callable:
     over_mesh = mesh_net is not None or isinstance(model, DistributedDataParallel)
 
     def update(optimizer: torch.optim.Optimizer, *inputs):
-        out = loss_fn(*inputs)
+        with profiling.span("pdr.train.forward", device=True):
+            out = loss_fn(*inputs)
         loss, stats = out if record_stats else (out, None)
-        optimizer.zero_grad(set_to_none=True)
-        with _ordered_backward():
-            loss.backward()
+        with profiling.span("pdr.train.backward", device=True):
+            optimizer.zero_grad(set_to_none=True)
+            with _ordered_backward():
+                loss.backward()
         if mesh_net is not None:
             mesh_net.reduce_gradients()
-        with warnings.catch_warnings():
+        with warnings.catch_warnings(), profiling.span("pdr.train.optimizer", device=True):
             # the Adam of create_train_state is capturable for the compiled
             # step and makes the same update eagerly: PyTorch's advice
             # against capturable=True outside a graph does not apply
@@ -187,7 +194,8 @@ def _stepper(update: Callable, record_stats: bool, compiled: bool) -> Callable:
     call = graphs if compiled else update
 
     def run(state: TrainState, *inputs):
-        out = call(state.optimizer, *inputs)
+        with profiling.unit():
+            out = call(state.optimizer, *inputs)
         state.step += 1
         return (state,) + tuple(out) if record_stats else (state, out)
 

@@ -22,6 +22,12 @@ again on every replay, so ``launch_counts()`` still counts device
 launches.  ``utils/flops.py``'s tally is not replayed; count FLOPs on an
 eager call.
 
+Spans (``utils/profiling.py``).  A call opens ``pdr.graphs.warmup``,
+``pdr.graphs.capture`` or ``pdr.graphs.replay`` (the copies into the
+static inputs and the replay); the seconds inside ``_capture`` add to the
+counter ``graphs.capture_s``.  The device spans ``fn`` opens are captured
+as marks of the graph, and a replay made while tracing is read from them.
+
 Lifetime.  A graph reads the tensors it was captured with at their
 addresses: the model's parameters and buffers, and its own static inputs
 and outputs, which live in the graph's private memory pool.  Updating a
@@ -61,7 +67,6 @@ gloo's collectives cannot be captured.
 
 from __future__ import annotations
 
-import gc
 import time
 from typing import Callable, Dict, List
 
@@ -69,19 +74,20 @@ import torch
 import torch.utils._pytree as pytree
 
 from ..ops import kernels
+from . import profiling
 
 
 class _Graph:
     """One captured signature: the graph, its static inputs and outputs,
-    and the kernel launches one replay makes."""
+    the kernel launches one replay makes and the device spans' marks."""
 
-    def __init__(self, graph, inputs, outputs, launches, capture_ms, pool_bytes):
+    def __init__(self, graph, inputs, outputs, launches, capture_ms, marks):
         self.graph = graph
         self.inputs: List[torch.Tensor] = inputs
         self.outputs = outputs
         self.launches: Dict[str, int] = launches
         self.capture_ms = capture_ms
-        self.pool_bytes = pool_bytes
+        self.marks: profiling.Marks = marks
 
 
 class CapturedFunction:
@@ -104,6 +110,8 @@ class CapturedFunction:
     def release(self) -> None:
         """Drop every graph and its memory pool (the pool's bytes go back to
         PyTorch's cache); the next call of a signature warms up again."""
+        for g in self._graphs.values():
+            g.marks.read()  # a reading made while tracing
         self._graphs.clear()
         self._warm.clear()
 
@@ -120,10 +128,9 @@ class CapturedFunction:
 
     def stats(self) -> List[dict]:
         """Per captured signature: capture ms (host clock around the
-        capture, synchronised), the bytes its capture reserved for the
-        graph's pool, and the kernel launches a replay adds."""
-        return [{"capture_ms": g.capture_ms, "pool_bytes": g.pool_bytes,
-                 "launches": dict(g.launches)} for g in self._graphs.values()]
+        capture, synchronised) and the kernel launches a replay adds."""
+        return [{"capture_ms": g.capture_ms, "launches": dict(g.launches)}
+                for g in self._graphs.values()]
 
     # ---- the call ---------------------------------------------------------
     def __call__(self, *args):
@@ -143,11 +150,12 @@ class CapturedFunction:
                 self._warm.add(key)
                 return self._warm_up(args)
             g = self._graphs[key] = self._capture(leaves, spec)
-        for dst, src in zip(g.inputs, tensors):
-            dst.copy_(src)
-        g.graph.replay()
-        for name, n in g.launches.items():
-            kernels.LAUNCHES[name] += n
+        with profiling.span("pdr.graphs.replay"):
+            for dst, src in zip(g.inputs, tensors):
+                dst.copy_(src)
+            profiling.replayed(g.marks)
+            g.graph.replay()
+        kernels.add_launches(g.launches)
         if self.clone_outputs:
             return pytree.tree_map(
                 lambda t: t.clone() if isinstance(t, torch.Tensor) else t, g.outputs)
@@ -159,7 +167,7 @@ class CapturedFunction:
         if self._stream is None:
             self._stream = torch.cuda.Stream()
         self._stream.wait_stream(cur)
-        with torch.cuda.stream(self._stream):
+        with torch.cuda.stream(self._stream), profiling.span("pdr.graphs.warmup"):
             out = self.fn(*args)
         cur.wait_stream(self._stream)
         # the outputs were allocated on the side stream and are used on this one
@@ -169,31 +177,26 @@ class CapturedFunction:
         return out
 
     def _capture(self, leaves, spec) -> _Graph:
-        static = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
-        inputs = [x for x in static if isinstance(x, torch.Tensor)]
-        static_args = pytree.tree_unflatten(static, spec)
-        graph = torch.cuda.CUDAGraph()
-        before = dict(kernels.LAUNCHES)
-        # as torch.cuda.graph does on entry: then the bytes reserved during
-        # the capture are the pool's
-        torch.cuda.synchronize()
-        gc.collect()
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
-        try:
-            with torch.cuda.graph(graph):
-                outputs = self.fn(*static_args)
-            torch.cuda.synchronize()
-        except RuntimeError as e:
-            raise RuntimeError(f"CUDA graph capture of {getattr(self.fn, '__name__', self.fn)} "
-                               f"failed: {e}") from e
-        finally:
-            # nothing ran while the graph was captured: its counts come back
-            # with each replay
-            launches = {n: kernels.LAUNCHES[n] - before[n] for n in before
-                        if kernels.LAUNCHES[n] != before[n]}
-            kernels.LAUNCHES.update(before)
-        capture_ms = (time.perf_counter() - t0) * 1e3
-        pool_bytes = torch.cuda.memory_reserved() - reserved
-        return _Graph(graph, inputs, outputs, launches, capture_ms, pool_bytes)
+        with profiling.span("pdr.graphs.capture"):
+            static = [x.clone() if isinstance(x, torch.Tensor) else x for x in leaves]
+            inputs = [x for x in static if isinstance(x, torch.Tensor)]
+            static_args = pytree.tree_unflatten(static, spec)
+            graph = torch.cuda.CUDAGraph()
+            before = kernels.launch_counts()
+            try:
+                with profiling.capturing() as marks, torch.cuda.graph(graph):
+                    outputs = self.fn(*static_args)
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                name = getattr(self.fn, "__name__", self.fn)
+                raise RuntimeError(f"CUDA graph capture of {name} failed: {e}") from e
+            finally:
+                # nothing ran while the graph was captured: its counts come back
+                # with each replay
+                after = kernels.launch_counts()
+                launches = {n: after[n] - before[n] for n in before if after[n] != before[n]}
+                kernels.add_launches({n: -k for n, k in launches.items()})
+        seconds = time.perf_counter() - t0
+        profiling.COUNTERS["graphs.capture_s"] += seconds
+        return _Graph(graph, inputs, outputs, launches, seconds * 1e3, marks)
